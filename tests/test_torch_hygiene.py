@@ -1,0 +1,99 @@
+"""Rules of the tse1m_tpu_torch port that hold by construction: it imports
+nothing of JAX or the JAX package, its entry points run on the card unless
+asked for the CPU and raise without one, and no kernel launch sits behind a
+handler that could fall back to a plain version."""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import tse1m_tpu_torch
+from tse1m_tpu_torch.cluster import pipeline as tpipe
+from tse1m_tpu_torch.cluster.kernels import _build
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "tse1m_tpu_torch")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "tse1m_tpu")
+
+
+def test_port_imports_nothing_of_jax():
+    sources = _port_sources()
+    assert len(sources) > 10
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported_modules(p) if _forbidden(m)]
+    assert bad == []
+    # The rule tells the JAX package from the port by exact name.
+    assert _forbidden("tse1m_tpu.cluster") and not _forbidden(
+        "tse1m_tpu_torch.cluster")
+
+
+def test_no_handler_around_kernel_launches():
+    """No try/except in the kernels package or the pipeline: a failed build
+    or launch raises, nothing gives way to the plain version."""
+    paths = [os.path.join(PKG, "cluster", "pipeline.py")] + [
+        os.path.join(PKG, "cluster", "kernels", f)
+        for f in ("minhash.py", "_build.py")]
+    for path in paths:
+        tree = ast.parse(open(path, encoding="utf-8").read())
+        handlers = [n.lineno for n in ast.walk(tree)
+                    if isinstance(n, ast.ExceptHandler)]
+        assert handlers == [], (path, handlers)
+
+
+def test_resolve_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tse1m_tpu_torch.resolve_device(device)
+    assert tse1m_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tse1m_tpu_torch.resolve_device("meta")
+
+
+def test_entry_point_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = tpipe.ClusterParams(encoding="pack24", entropy="off",
+                                 prefilter="off")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpipe.cluster_sessions(np.zeros((4, 4), np.uint32), params)
+
+
+def test_build_is_lazy_and_targets_hopper():
+    assert _build._ext is None  # importing the package built nothing
+    assert "-gencode=arch=compute_90a,code=sm_90a" in _build.CUDA_FLAGS
+    assert _build.BUILD_DIR == os.path.join(REPO, "build", "tse1m_tpu_torch")
+    assert all(os.path.isfile(s) and s.startswith(PKG)
+               for s in _build.SOURCES)
+
+
+def test_uint32_helpers_round_trip():
+    vals = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+    t = tse1m_tpu_torch.u32_tensor(vals)
+    assert t.dtype == torch.int32
+    np.testing.assert_array_equal(tse1m_tpu_torch.as_u32_numpy(t), vals)
+    wide = tse1m_tpu_torch.widen(t)
+    assert wide.tolist() == [int(v) for v in vals]
+    assert torch.equal(tse1m_tpu_torch.narrow(wide), t)

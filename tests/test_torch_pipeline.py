@@ -1,0 +1,169 @@
+"""tse1m_tpu_torch ``cluster_sessions`` (on the CPU, through the kernels'
+plain versions) against the JAX package's, whose Pallas kernels run in
+interpret mode; the wire plan; the levers that are not ported; the copied
+host modules and the command line.  Tolerance: exact labels."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from tse1m_tpu.cluster import pipeline as jpipe
+from tse1m_tpu.cluster.metrics import adjusted_rand_index as j_ari
+from tse1m_tpu.data.synth import synth_session_sets as j_synth
+from tse1m_tpu_torch import adjusted_rand_index, synth_session_sets
+from tse1m_tpu_torch.__main__ import main as cli_main
+from tse1m_tpu_torch.cluster import pipeline as tpipe
+from tse1m_tpu_torch.cluster import schemes as tschemes
+from tse1m_tpu_torch.cluster.kernels import minhash as kmod
+from tse1m_tpu_torch.device import u32_tensor
+
+PLAIN_WIRE = dict(encoding="pack24", entropy="off", prefilter="off")
+
+
+@pytest.fixture(autouse=True)
+def _no_calibration(monkeypatch):
+    # The JAX pipeline's calibrated quant floor and chunk clamp read nothing.
+    monkeypatch.setenv("TSE1M_ROUTER_CAL", "")
+
+
+@pytest.fixture(scope="module")
+def sets():
+    return j_synth(2000, set_size=32, seed=3)
+
+
+def _both(items, **kw):
+    """(JAX labels, port labels, port last_run_info) for one parameter set."""
+    want = jpipe.cluster_sessions(items, jpipe.ClusterParams(
+        use_pallas="interpret", block_n=128, **PLAIN_WIRE, **kw))
+    got = tpipe.cluster_sessions(items, tpipe.ClusterParams(
+        block_n=128, **PLAIN_WIRE, **kw), device="cpu")
+    return want, got, dict(tpipe.last_run_info)
+
+
+@pytest.mark.parametrize("quant_bits,chunks", [(10, 1), (10, 4), (-1, 1),
+                                               (-1, 4)])
+def test_cluster_sessions_matches_jax(sets, quant_bits, chunks):
+    items, truth = sets
+    items = items[:700]
+    want, got, info = _both(items, wire_quant_bits=quant_bits,
+                            h2d_chunks=chunks)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert info["chunk_bits"] == jpipe.last_run_info["chunk_bits"]
+    assert info["chunk_bits"][0] == (10 if quant_bits == 10 else 24)
+    # 700 rows asked into 4 chunks cut on 128-row boundaries: 256+256+188.
+    assert len(info["chunk_bits"]) == (3 if chunks == 4 else 1)
+
+
+def test_raw_32bit_lane_matches_jax(sets):
+    """Ids >= 2^24 ship raw (4 bytes an id); some are >= 2^31."""
+    items, _ = sets
+    items = items[:700] | np.uint32(1 << 31)
+    want, got, info = _both(items, wire_quant_bits=-1, h2d_chunks=4)
+    np.testing.assert_array_equal(got, want)
+    assert info["chunk_bits"] == [32, 32, 32]
+
+
+@pytest.mark.parametrize("n,chunks,overlap", [(200, 4, True),
+                                              (1000, 3, False)])
+def test_small_and_ragged_streams_match_jax(sets, n, chunks, overlap):
+    """N < 2*block_n ships one chunk; N=1000 in 3 chunks ends ragged."""
+    items, _ = sets
+    want, got, info = _both(items[:n], wire_quant_bits=10,
+                            h2d_chunks=chunks, overlap=overlap)
+    np.testing.assert_array_equal(got, want)
+    assert len(info["chunk_bits"]) == (1 if n == 200 else 3)
+
+
+def test_planted_quality_stages_and_signatures(sets):
+    items, truth = sets
+    labels, sig, keys = tpipe.cluster_sessions(
+        items, tpipe.ClusterParams(**PLAIN_WIRE), device="cpu",
+        return_signatures=True)
+    assert adjusted_rand_index(labels, truth) >= 0.98
+    hp = tschemes.make_params("kminhash", 128)
+    want = kmod.minhash_and_keys_plain(u32_tensor(items), *hp.arrays, 16)
+    assert torch.equal(sig, want[0]) and torch.equal(keys, want[1])
+    stages = tpipe.last_run_info["stages"]
+    for stage in ("encode", "h2d", "compute", "d2h"):
+        assert f"stage_{stage}_s" in stages
+    assert tpipe.last_run_info["wire_bytes"] == 2000 * 32 * 3
+
+
+def test_wire_plan_matches_jax_at_full_size():
+    """At 1M x 64 (a broadcast view: no memory) auto quantization picks 10
+    bits and the stream cuts 4 chunks of 250,368 rows, as in JAX."""
+    big = np.broadcast_to(np.uint32(1 << 23), (1_000_000, 64))
+    for q in (0, -1, 12):
+        p_t = tpipe.ClusterParams(wire_quant_bits=q, **PLAIN_WIRE)
+        p_j = jpipe.ClusterParams(wire_quant_bits=q, **PLAIN_WIRE)
+        assert tpipe._quant_bits(big, p_t) == jpipe._quant_bits(big, p_j)
+    assert tpipe._quant_bits(big, tpipe.ClusterParams()) == 10
+    step = tpipe._stream_plan(big, tpipe.ClusterParams())
+    assert step == jpipe._stream_plan(big, jpipe.ClusterParams()) == 250_368
+
+
+def test_params_keep_jax_fields_and_defaults():
+    jax_fields = {f.name: f.default
+                  for f in dataclasses.fields(jpipe.ClusterParams)}
+    del jax_fields["use_pallas"]
+    port_fields = {f.name: f.default
+                   for f in dataclasses.fields(tpipe.ClusterParams)}
+    assert port_fields == jax_fields
+
+
+_BIG = (262_144, 64)  # 64 MiB of uint32 ids: the auto levers engage
+
+
+@pytest.mark.parametrize("kw,shape,item", [
+    (dict(PLAIN_WIRE, scheme="cminhash"), (8, 4), "item 5"),
+    (dict(PLAIN_WIRE, scheme="weighted"), (8, 4), "item 5"),
+    (dict(PLAIN_WIRE, encoding="delta"), (8, 4), "item 6"),
+    (dict(PLAIN_WIRE, encoding="auto"), _BIG, "item 6"),
+    (dict(PLAIN_WIRE, entropy="auto"), (8, 4), "item 6"),
+    (dict(PLAIN_WIRE, entropy="force"), (8, 4), "item 6"),
+    (dict(PLAIN_WIRE, prefilter="on"), (8, 4), "item 6"),
+    (dict(PLAIN_WIRE, prefilter="auto"), _BIG, "item 6"),
+    (dict(PLAIN_WIRE, sig_store="/nonexistent"), (8, 4), "item 9"),
+])
+def test_levers_not_ported_raise(kw, shape, item):
+    items = np.zeros(shape, np.uint32)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP.md Queue 1 {item}"):
+        tpipe.cluster_sessions(items, tpipe.ClusterParams(**kw), device="cpu")
+
+
+def test_mesh_and_unknown_values_raise():
+    items = np.zeros((8, 4), np.uint32)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tpipe.cluster_sessions(items, tpipe.ClusterParams(**PLAIN_WIRE),
+                               mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="unknown encoding"):
+        tpipe.cluster_sessions(items, tpipe.ClusterParams(
+            **dict(PLAIN_WIRE, encoding="zstd")), device="cpu")
+    # Below 64 MiB the auto levers stay off, as in JAX: no refusal (and
+    # eight equal rows form one cluster).
+    labels = tpipe.cluster_sessions(
+        items, tpipe.ClusterParams(entropy="off"), device="cpu")
+    assert labels.tolist() == [0] * 8
+
+
+def test_synth_and_ari_match_jax():
+    items_t, truth_t = synth_session_sets(3000, 16, seed=9)
+    items_j, truth_j = j_synth(3000, 16, seed=9)
+    np.testing.assert_array_equal(items_t, items_j)
+    np.testing.assert_array_equal(truth_t, truth_j)
+    noisy = truth_t.copy()
+    noisy[::7] = 0
+    assert adjusted_rand_index(noisy, truth_t) == j_ari(noisy, truth_t)
+
+
+def test_cli_cluster_on_cpu(capsys):
+    assert cli_main(["cluster", "--n", "3000", "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["device"] == "cpu"
+    assert report["ari_vs_planted"] >= 0.98
+    assert "stage_compute_s" in report

@@ -1,0 +1,44 @@
+"""Build the package's CUDA sources at first use.
+
+``load_extension()`` compiles ``csrc/minhash.cu`` (nvcc, ``sm_90a``) and
+``csrc/minhash_binding.cpp`` (the host compiler; the one file that includes
+PyTorch's headers) with ``torch.utils.cpp_extension.load`` into
+``build/tse1m_tpu_torch/`` beside the package, and imports the result.
+``load`` caches by content, so a second process with unchanged sources
+loads the library without compiling.  It builds nothing but these sources
+and is never called when a module is imported.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+SOURCES = (os.path.join(_CSRC, "minhash.cu"),
+           os.path.join(_CSRC, "minhash_binding.cpp"))
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "build", "tse1m_tpu_torch")
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_ext = None
+build_seconds: float | None = None
+
+
+def load_extension():
+    """The compiled extension module (built on the first call)."""
+    global _ext, build_seconds
+    with _lock:
+        if _ext is None:
+            from torch.utils.cpp_extension import load
+
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            t0 = time.perf_counter()
+            _ext = load(name="tse1m_minhash_ext", sources=list(SOURCES),
+                        build_directory=BUILD_DIR,
+                        extra_cuda_cflags=CUDA_FLAGS)
+            build_seconds = time.perf_counter() - t0
+        return _ext

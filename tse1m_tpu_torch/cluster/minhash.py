@@ -1,0 +1,78 @@
+"""MinHash signatures and banded LSH keys, plain PyTorch (kminhash).
+
+K independent multiply-add hashes over uint32 with natural wraparound,
+``h_i(x) = a_i * x + b_i (mod 2^32)`` with odd ``a_i``; a row's signature is
+the per-hash minimum over its ids.  Band keys fold each band's signature
+rows with an FNV-1a-style mix salted by the band index.  Bands are
+interleaved: band k folds signature rows {k, k+B, k+2B, ...}.
+
+These are the plain versions the CUDA kernel in kernels/minhash.py is held
+against.  They compute in int64 (see ``tse1m_tpu_torch.device``): a product
+of two uint32 values can reach 2^64, so the multiplier is split into 16-bit
+halves and each partial product masked before it is shifted.  The hash
+constants come from the same numpy stream as the JAX package's, so both
+give the same signatures bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import U32_MASK, narrow, widen
+
+UMAX = np.uint32(0xFFFFFFFF)
+# FNV-1a-style mixing constants for band keys.
+_FNV_PRIME = np.uint32(16777619)
+_FNV_OFFSET = np.uint32(2166136261)
+
+
+def make_hash_params(n_hashes: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """Deterministic (a, b) numpy uint32 hash parameters, a forced odd."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(1, 1 << 32, size=n_hashes, dtype=np.uint32) | np.uint32(1)
+    b = rng.integers(0, 1 << 32, size=n_hashes, dtype=np.uint32)
+    return a, b
+
+
+def mul_u32(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """(x * a) mod 2^32 for int64 operands in [0, 2^32), every intermediate
+    below 2^49: x*a_lo + ((x*a_hi mod 2^16) << 16)."""
+    lo = x * (a & 0xFFFF)
+    hi = ((x * (a >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & U32_MASK
+
+
+def minhash_signatures(items: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """[N, S] int32 ids -> [N, H] int32 signatures (uint32 bits).
+
+    sig[n, h] = min_s (a[h] * items[n, s] + b[h]) mod 2^32.  A loop over the
+    set dimension keeps the peak at O(N*H) instead of O(N*S*H)."""
+    x = widen(items)
+    a64 = widen(a)[None, :]
+    b64 = widen(b)[None, :]
+    n, s = x.shape
+    acc = torch.full((n, a64.shape[1]), int(UMAX), dtype=torch.int64,
+                     device=x.device)
+    for i in range(s):
+        h = (mul_u32(x[:, i:i + 1], a64) + b64) & U32_MASK
+        acc = torch.minimum(acc, h)
+    return narrow(acc)
+
+
+def band_keys(sig: torch.Tensor, n_bands: int) -> torch.Tensor:
+    """[N, H] int32 signatures -> [N, B] int32 LSH band keys (uint32 bits).
+
+    key[n, k] starts at FNV_OFFSET + k; for each j < H/B,
+    key = (key ^ sig[n, j*B + k]) * FNV_PRIME (mod 2^32)."""
+    n, h = sig.shape
+    if h % n_bands:
+        raise ValueError(f"n_hashes {h} not divisible by n_bands {n_bands}")
+    s64 = widen(sig)
+    keys = (int(_FNV_OFFSET) + torch.arange(
+        n_bands, dtype=torch.int64, device=sig.device)).expand(n, n_bands)
+    for j in range(h // n_bands):
+        keys = ((keys ^ s64[:, j * n_bands:(j + 1) * n_bands])
+                * int(_FNV_PRIME)) & U32_MASK
+    return narrow(keys)

@@ -1,0 +1,5 @@
+"""Synthetic workloads."""
+
+from .synth import synth_session_sets
+
+__all__ = ["synth_session_sets"]
