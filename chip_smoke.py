@@ -8,17 +8,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. build: compile the port's CUDA sources (tse1m_tpu_torch/cluster/kernels/
    csrc/) at first use and time it;
 2. kernel checks: hold each kernel against its plain PyTorch version on the
-   card, bit for bit (tolerance: exact), at the main-path chunk shape
-   (250,368 rows x 64 ids, H=128, B=16) and at edge shapes;
-3. main path: ``cluster_sessions`` on 1,000,000 planted sessions x 64 ids,
-   once with 10-bit quantized ids (sub-byte chunks -> the uint32 kernel)
-   and once with 24-bit ids (byte chunks -> the packed kernel).  First a
-   20,000-row slice must give the same labels on the card as on the CPU
-   through each kernel.  Then each 1M run must move its kernel's launch
-   count (and only its), match the plain signatures and band keys over all
-   rows, and reach ARI >= 0.98 against the planted truth;
-4. timing: each kernel beside its plain version (CUDA events, median of 20
-   after warm-up) at the main-path shape, with its bound;
+   card, bit for bit (tolerance: exact).  The MinHash kernels at the
+   main-path chunk shape (250,368 rows x 64 ids, H=128, B=16) and at edge
+   shapes; the rANS kernel at the lanes the default 1M run codes (its rep
+   and counts lanes, encoded here by the port's host codec) and at the edge
+   shapes of the CPU tests;
+3. main path, on 1,000,000 planted sessions x 64 ids.  First, 20,000-row
+   slices must give the same labels on the card as on the CPU: through
+   each MinHash kernel on the plain wire, and through every lane of wire
+   v3 (``encoding="delta", prefilter="on", entropy="force"``).  Then:
+   - the plain wire at 10 bits (sub-byte chunks -> the uint32 kernel) and
+     at 24 bits (byte chunks -> the packed kernel): each run must move its
+     kernel's launch count (and only its), match the plain signatures and
+     band keys over all rows, and reach ARI >= 0.98;
+   - a forced wire v3 run on 100,000 sessions (every chunk and lane coded,
+     the 24-bit full lane as three byte planes plus its offset): labels
+     equal to the plain wire's, one rANS launch a coded lane;
+   - the default ``ClusterParams`` at 1M rows, the path users get: the
+     prefilter, the delta lane and the rANS lanes engage; launches of the
+     rANS kernel (one a coded lane) and the uint32 MinHash kernel only;
+     signatures of every kept row equal to the plain version's; labels
+     equal to the 10-bit plain run's element for element; ARI >= 0.98;
+4. timing: each kernel beside its plain version (CUDA events, median after
+   warm-up) at the main-path shapes, with its bound;
 5. the card's name and power limit from nvidia-smi.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
@@ -38,18 +50,22 @@ import numpy as np
 import torch
 
 from tse1m_tpu_torch import adjusted_rand_index, synth_session_sets
-from tse1m_tpu_torch.cluster import pipeline
-from tse1m_tpu_torch.cluster.encode import pack_chunk, quantize_ids
+from tse1m_tpu_torch.cluster import entropy, kernels, pipeline
+from tse1m_tpu_torch.cluster.encode import (pack_chunk, pack_delta_meta,
+                                            quantize_ids)
 from tse1m_tpu_torch.cluster.kernels import _build
 from tse1m_tpu_torch.cluster.kernels import minhash as kmod
+from tse1m_tpu_torch.cluster.kernels import rans as krans
 from tse1m_tpu_torch.cluster.schemes import make_params
 from tse1m_tpu_torch.device import u32_tensor, widen
 
 N_SESSIONS = 1_000_000
+N_FORCED = 100_000
+N_SMALL = 20_000
 SET_SIZE = 64
 N_HASHES = 128
 N_BANDS = 16
-CHUNK_ROWS = 250_368          # the main path's chunk: 4 chunks of 1M rows
+CHUNK_ROWS = 250_368          # the plain path's chunk: 4 chunks of 1M rows
 ARI_MIN = 0.98
 # H100 SXM peaks at the 700 W limit.  HBM: 3.35 TB/s (NVIDIA data sheet).
 # Integer: the data sheet's 67 TFLOP/s float32 is 132 SMs x 128 FMA lanes x
@@ -61,17 +77,27 @@ ARI_MIN = 0.98
 # count over this rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_PIPE_OPS_PER_S = 67e12 / 4
+# rANS decode: per symbol and plane, at least the slot mask, the state
+# shift, the cumulative-frequency subtract and the renormalization compare
+# issue on the ALU pipe (the multiply-add goes to the FMA pipe).
+RANS_ALU_OPS_PER_SYMBOL = 4
 
+MINHASH_SOURCE = "tse1m_tpu_torch/cluster/kernels/csrc/minhash.cu"
 KERNELS = {
     "minhash_and_keys": dict(
         wrapper=kmod.minhash_and_keys, plain=kmod.minhash_and_keys_plain,
+        source=MINHASH_SOURCE,
         replaces="tse1m_tpu/cluster/minhash_pallas.py:27"),
     "minhash_and_keys_packed": dict(
         wrapper=kmod.minhash_and_keys_packed,
-        plain=kmod.minhash_and_keys_packed_plain,
+        plain=kmod.minhash_and_keys_packed_plain, source=MINHASH_SOURCE,
         replaces="tse1m_tpu/cluster/minhash_pallas.py:236"),
+    "rans_decode": dict(
+        wrapper=krans.rans_decode, plain=krans.rans_decode_plain,
+        source="tse1m_tpu_torch/cluster/kernels/csrc/rans.cu",
+        replaces="tse1m_tpu/cluster/kernels/rans.py:80"),
 }
-SOURCE = "tse1m_tpu_torch/cluster/kernels/csrc/minhash.cu"
+WIRE_V3_FORCED = dict(encoding="delta", prefilter="on", entropy="force")
 
 
 def log(msg: str) -> None:
@@ -79,7 +105,7 @@ def log(msg: str) -> None:
 
 
 def max_abs_err(got: tuple, want: tuple) -> int:
-    """Largest |kernel - plain| over signatures and keys, as uint32."""
+    """Largest |kernel - plain| over the outputs, as uint32."""
     return max(int((widen(g) - widen(w)).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
 
@@ -89,6 +115,8 @@ def check_kernel(name: str, args: tuple, label: str) -> int:
     k = KERNELS[name]
     got = k["wrapper"](*args)
     want = k["plain"](*args)
+    if name == "rans_decode":
+        got, want = (got,), (want,)
     torch.cuda.synchronize()
     err = max_abs_err(got, want)
     if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
@@ -109,8 +137,8 @@ def packed_args(rng, n: int, s: int, k: int, offset: int, consts, dev):
     return (torch.from_numpy(payload).to(dev), (n, s), k, offset, *consts)
 
 
-def kernel_checks(dev, consts) -> dict:
-    """Phase 2: main-path shapes, then the edges.  Returns {name: err}."""
+def minhash_checks(dev, consts) -> dict:
+    """Phase 2, MinHash: main-path shapes, then the edges."""
     rng = np.random.default_rng(0)
     errs = {}
     a, b = consts
@@ -141,6 +169,78 @@ def kernel_checks(dev, consts) -> dict:
     return errs
 
 
+def rans_args(lane: entropy.EntropyLane, dev) -> tuple:
+    """(planes, n, shift) of a coded lane, its arrays copied to ``dev``."""
+    dtypes = {np.dtype(np.uint16): np.int16, np.dtype(np.uint32): np.int32}
+    arrays = [torch.from_numpy(a.view(dtypes[a.dtype])).to(dev)
+              for a in lane.wire_arrays()]
+    planes = [arrays[3 * p:3 * p + 3] for p in range(len(lane.planes))]
+    return planes, lane.n, 8 if lane.bits > entropy._DIRECT_BITS_MAX else 0
+
+
+def default_run_lanes(items) -> dict:
+    """The host half of the default 1M run, as cluster_sessions plans it:
+    the prefilter's keep mask, the wire plan over the kept rows and the
+    coded lanes.  Returns the keep mask, the coded lanes by name and the
+    number of rANS launches the run must make (one a coded lane or chunk)."""
+    params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS)
+    keep = pipeline._prefilter_mask(items, params)
+    _, enc, _ = pipeline._plan_wire(items[keep], params,
+                                    pipeline._quant_bits(items, params))
+    meta = pack_delta_meta(enc, entropy=params.entropy)
+    chunks = pipeline._row_chunks(
+        enc.full_rows, pipeline._stream_plan(enc.full_rows, params))
+    coded = {name: lane.ent for name, lane in
+             zip(("rep", "counts", "pos", "val"), (*meta.lanes(), meta.val))
+             if lane.ent is not None}
+    n_coded_chunks = sum(pack_chunk(c, entropy=params.entropy).ent
+                         is not None for c in chunks)
+    log(f"  default run plan: {int(keep.sum())} rows kept, {enc.n_full} "
+        f"full + {enc.n_delta} delta, coded lanes "
+        + ", ".join(f"{k} ({v.n} x {v.bits} bits, {len(v.planes)} planes)"
+                    for k, v in coded.items())
+        + f", {n_coded_chunks} of {len(chunks)} full-lane chunks coded")
+    if set(coded) != {"rep", "counts"} or n_coded_chunks:
+        raise AssertionError("the default run codes other lanes than rep and "
+                             f"counts: {sorted(coded)}, {n_coded_chunks}")
+    return {"keep": keep, "lanes": coded,
+            "launches": len(coded) + n_coded_chunks}
+
+
+def skewed(rng, n: int, bits: int) -> np.ndarray:
+    v = rng.geometric(0.2, size=n).astype(np.uint64) * 2654435761
+    return (v % (1 << bits)).astype(np.uint32) if bits < 32 else \
+        v.astype(np.uint32)
+
+
+def rans_checks(plan: dict, dev) -> int:
+    """Phase 2, rANS: the default run's coded lanes, then the CPU tests'
+    edge shapes (direct planes up to 4,096 symbols, byte planes, step
+    boundaries, a one-symbol alphabet, an empty lane)."""
+    err = 0
+    for name, lane in plan["lanes"].items():
+        err = max(err, check_kernel("rans_decode", rans_args(lane, dev),
+                                    f"1M default run's {name} lane, "
+                                    f"{lane.n} symbols"))
+    rng = np.random.default_rng(1)
+    edges = [(1, 4097), (5, 4097), (12, 4097), (13, 1000), (18, 1000),
+             (24, 1000), (32, 1000), (5, 1), (5, 31), (5, 32), (5, 33),
+             (18, 33)]
+    for bits, n in edges:
+        lane = entropy.encode_lane(skewed(rng, n, bits), bits, force=True)
+        err = max(err, check_kernel("rans_decode", rans_args(lane, dev),
+                                    f"{bits}-bit lane, n={n}"))
+    lane = entropy.encode_lane(np.full(100, 3, np.uint32), 5, force=True)
+    err = max(err, check_kernel("rans_decode", rans_args(lane, dev),
+                                "one-symbol alphabet"))
+    lane = entropy.encode_lane(np.zeros(0, np.uint32), 18, force=True)
+    kernels.reset_launch_counts()
+    if krans.rans_decode(*rans_args(lane, dev)).numel() or \
+            kernels.launch_counts()["rans_decode"]:
+        raise AssertionError("an empty lane launched the rANS kernel")
+    return err
+
+
 def params_for(quant_bits: int) -> pipeline.ClusterParams:
     return pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS,
                                   encoding="pack24", entropy="off",
@@ -149,58 +249,134 @@ def params_for(quant_bits: int) -> pipeline.ClusterParams:
 
 def small_input_check(items, dev) -> None:
     """Phase 3, first: labels of a 20,000-row slice on the card equal the
-    CPU's (plain versions), through each kernel.  Also warms the card up."""
-    small = items[:20_000]
-    for quant_bits in (10, -1):
-        params = params_for(quant_bits)
+    CPU's (plain versions), through each MinHash kernel and through every
+    wire v3 lane.  Also warms the card up."""
+    small = items[:N_SMALL]
+    cases = [("plain wire, wire_quant_bits=10", params_for(10)),
+             ("plain wire, wire_quant_bits=-1", params_for(-1)),
+             ("wire v3 forced", pipeline.ClusterParams(
+                 n_hashes=N_HASHES, n_bands=N_BANDS, **WIRE_V3_FORCED))]
+    for label, params in cases:
         on_card = pipeline.cluster_sessions(small, params, device=dev)
         on_cpu = pipeline.cluster_sessions(small, params, device="cpu")
         if not np.array_equal(on_card, on_cpu):
-            raise AssertionError(f"card and CPU labels differ on 20k rows "
-                                 f"(wire_quant_bits={quant_bits})")
-        log(f"  20,000 rows, wire_quant_bits={quant_bits}: card labels == "
-            "CPU labels")
+            raise AssertionError(f"card and CPU labels differ on "
+                                 f"{N_SMALL} rows ({label})")
+        log(f"  {N_SMALL} rows, {label}: card labels == CPU labels")
 
 
-def run_main_path(items, truth, quant_bits: int, kernel: str, consts,
-                  dev) -> dict:
-    """Phase 3, one run: drive cluster_sessions, read the launch counts,
-    hold the signatures against the plain version and the labels against
-    the planted truth."""
-    params = params_for(quant_bits)
+def drive(items, params, dev) -> dict:
+    """Drive cluster_sessions once, the launch counts set to 0 just before
+    and read just after."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kmod.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     labels, sig, keys = pipeline.cluster_sessions(
         items, params, device=dev, return_signatures=True)
     wall = time.perf_counter() - t0
-    counts = kmod.launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.launch_counts()
     info = dict(pipeline.last_run_info)
-    log(f"  wire_quant_bits={quant_bits}: wall {wall:.3f} s, launches "
-        f"{counts}, chunk bits {info['chunk_bits']}, wire "
-        f"{info['wire_mb']} MiB, peak device memory {peak_gib:.2f} GiB")
+    log(f"  wall {wall:.3f} s, launches {counts}, encoding "
+        f"{info['encoding']}, chunk bits {info['chunk_bits']}, wire "
+        f"{info['wire_mb']} MiB ({info['wire_bytes']} B), prefilter dropped "
+        f"{info['prefilter_rows_dropped']}, wire v3 saved "
+        f"{info['wire_v3_saved_mb']} MiB, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"  stages {json.dumps(info['stages'])}")
-    others = [v for name, v in counts.items() if name != kernel]
-    if counts[kernel] < 1 or any(others):
-        raise AssertionError(f"expected launches of {kernel} only: {counts}")
-    qbits = info["wire_quant_bits"]
-    planned = quantize_ids(items, qbits) if qbits else items
+    return {"labels": labels, "sig": sig, "keys": keys, "counts": counts,
+            "wall_s": wall, "info": info}
+
+
+def check_signatures(run: dict, rows, consts, dev) -> None:
+    """The run's signatures and keys equal the plain version's over the
+    rows that went to the card, as the wire plan quantized them."""
+    qbits = run["info"]["wire_quant_bits"]
+    planned = quantize_ids(rows, qbits) if qbits else rows
     want = kmod.minhash_and_keys_plain(u32_tensor(planned, dev), *consts,
                                        N_BANDS)
     torch.cuda.synchronize()
+    # The run's signatures and keys go here, so later runs' peak device
+    # memory does not count them.
+    sig, keys = run.pop("sig"), run.pop("keys")
     if not (torch.equal(sig, want[0]) and torch.equal(keys, want[1])):
-        raise AssertionError("full-N signatures/keys differ from the plain "
-                             "version")
-    del want
+        raise AssertionError("signatures/keys differ from the plain version")
+    log(f"  signatures and keys of all {len(rows)} rows that went to the "
+        "card bit-identical to the plain version")
+
+
+def check_ari(labels, truth) -> float:
     ari = adjusted_rand_index(labels, truth)
-    log(f"  signatures and keys of all {len(labels)} rows bit-identical to "
-        f"the plain version; ARI vs planted {ari:.6f}")
-    if not (labels.shape == (len(items),) and ari >= ARI_MIN):
+    log(f"  ARI vs planted {ari:.6f}")
+    if not (labels.shape == truth.shape and ari >= ARI_MIN):
         raise AssertionError(f"ARI {ari} below {ARI_MIN}")
-    return {"launches": counts[kernel], "wall_s": wall, "ari": ari,
-            "stages": info["stages"]}
+    return ari
+
+
+def expect_launches(counts: dict, want: dict) -> None:
+    """Each kernel in ``want`` launched as often as given there (an int:
+    exactly; a (least, None) pair: at least); the rest never."""
+    for name, n in counts.items():
+        w = want.get(name, 0)
+        if not (n >= w[0] if isinstance(w, tuple) else n == w):
+            raise AssertionError(f"launches {counts}, expected {want}")
+
+
+def run_plain(items, truth, quant_bits: int, kernel: str, consts, dev):
+    """Phase 3, one plain-wire 1M run through one MinHash kernel."""
+    log(f"  plain wire, wire_quant_bits={quant_bits}:")
+    run = drive(items, params_for(quant_bits), dev)
+    expect_launches(run["counts"], {kernel: (1, None)})
+    check_signatures(run, items, consts, dev)
+    run["ari"] = check_ari(run["labels"], truth)
+    return run
+
+
+def run_forced(dev) -> dict:
+    """Phase 3: wire v3 forced on 100,000 planted sessions of their own (a
+    slice of the 1M set would cut its planted clusters): every chunk and
+    lane coded; labels equal to the plain wire's."""
+    small, small_truth = synth_session_sets(N_FORCED, SET_SIZE, seed=0)
+    log(f"  wire v3 forced, {N_FORCED} rows:")
+    run = drive(small, pipeline.ClusterParams(
+        n_hashes=N_HASHES, n_bands=N_BANDS, **WIRE_V3_FORCED), dev)
+    info = run["info"]
+    # One launch per full-lane chunk and per metadata lane (rep, counts,
+    # pos, val), all coded.
+    expect_launches(run["counts"], {
+        "minhash_and_keys": (2, None),
+        "rans_decode": len(info["chunk_bits"]) + 4})
+    if not (info["encoding"] == "delta" and info["prefilter_rows_dropped"]):
+        raise AssertionError(f"forced run did not take wire v3: {info}")
+    plain = pipeline.cluster_sessions(small, params_for(0), device=dev)
+    if not np.array_equal(run["labels"], plain):
+        raise AssertionError("forced wire v3 labels differ from the plain "
+                             "wire's")
+    log("  labels == the plain wire's")
+    run["ari"] = check_ari(run["labels"], small_truth)
+    return run
+
+
+def run_default(items, truth, plan: dict, plain_labels, consts, dev) -> dict:
+    """Phase 3: default ClusterParams at 1M rows, the path users get."""
+    log("  default ClusterParams (wire v3 auto):")
+    run = drive(items, pipeline.ClusterParams(n_hashes=N_HASHES,
+                                              n_bands=N_BANDS), dev)
+    info = run["info"]
+    if not (info["encoding"] == "delta"
+            and info["prefilter_rows_dropped"] > 0):
+        raise AssertionError(f"default run did not take wire v3: {info}")
+    # The full lane's chunks and the delta rows each go to the uint32
+    # kernel; every chunk is decoded, so the packed kernel never runs.
+    expect_launches(run["counts"], {"minhash_and_keys": (2, None),
+                                    "rans_decode": plan["launches"]})
+    check_signatures(run, items[plan["keep"]], consts, dev)
+    if not np.array_equal(run["labels"], plain_labels):
+        raise AssertionError("default-run labels differ from the 10-bit "
+                             "plain wire's")
+    log("  labels == the 10-bit plain wire run's, element for element")
+    run["ari"] = check_ari(run["labels"], truth)
+    return run
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
@@ -219,7 +395,7 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(n: int, s: int, in_bytes_per_id: int) -> tuple[float, str]:
+def minhash_bound(n: int, s: int, in_bytes_per_id: int) -> tuple:
     """Least time for the work: ids read once, signatures and keys written
     once; per (row, id, hash) one IMAD and one IMNMX, per signature value in
     the band fold one multiply (FMA pipe) and one XOR (ALU pipe), the two
@@ -227,35 +403,58 @@ def bound(n: int, s: int, in_bytes_per_id: int) -> tuple[float, str]:
     nbytes = (n * s * in_bytes_per_id + 2 * N_HASHES * 4
               + n * (N_HASHES + N_BANDS) * 4)
     ops_per_pipe = n * s * N_HASHES + n * N_HASHES
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_per_pipe / INT32_PIPE_OPS_PER_S * 1e3
+    return _larger(nbytes / HBM_BYTES_PER_S * 1e3,
+                   ops_per_pipe / INT32_PIPE_OPS_PER_S * 1e3)
+
+
+def rans_bound(lane: entropy.EntropyLane) -> tuple:
+    """Least time for one lane's decode: words, states and frequencies read
+    once, the [n] uint32 symbols written once; RANS_ALU_OPS_PER_SYMBOL ALU
+    operations per symbol and plane."""
+    nbytes = lane.nbytes + 4 * lane.n
+    ops = RANS_ALU_OPS_PER_SYMBOL * lane.n * len(lane.planes)
+    return _larger(nbytes / HBM_BYTES_PER_S * 1e3,
+                   ops / INT32_PIPE_OPS_PER_S * 1e3)
+
+
+def _larger(t_bytes: float, t_ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timing(items, dev, consts) -> dict:
-    """Phase 4 at the main path's first-chunk inputs."""
+def timing(items, plan: dict, dev, consts) -> dict:
+    """Phase 4: the MinHash kernels at the plain path's first chunk, the
+    rANS kernel at the default run's rep and counts lanes."""
     chunk = items[:CHUNK_ROWS]
     ids = u32_tensor(quantize_ids(chunk, 10), dev)
     wire = pack_chunk(chunk)
     if wire.bits != 24:
         raise AssertionError(f"first chunk ships {wire.bits}-bit ids, not 24")
     payload = torch.from_numpy(wire.payload).to(dev)
-    args = {
-        "minhash_and_keys": (ids, *consts, N_BANDS),
-        "minhash_and_keys_packed": (payload, wire.shape, 3, wire.offset,
-                                    *consts, N_BANDS),
+    # The plain rANS decode takes seconds a lane (a launch of torch ops per
+    # step); phase 2 ran it on these inputs already, so it gets no warm-up.
+    cases = {
+        "minhash_and_keys": ((ids, *consts, N_BANDS),
+                             minhash_bound(CHUNK_ROWS, SET_SIZE, 4), 1, 10),
+        "minhash_and_keys_packed": (
+            (payload, wire.shape, 3, wire.offset, *consts, N_BANDS),
+            minhash_bound(CHUNK_ROWS, SET_SIZE, 3), 1, 10),
     }
+    for name, lane in plan["lanes"].items():
+        cases[f"rans_decode:{name}"] = (rans_args(lane, dev),
+                                        rans_bound(lane), 0, 1)
     out = {}
-    for name, k in KERNELS.items():
-        ms = time_ms(lambda: k["wrapper"](*args[name]))
-        plain_ms = time_ms(lambda: k["plain"](*args[name]), warmup=1,
-                           reps=10)
-        b_ms, by = bound(CHUNK_ROWS, SET_SIZE,
-                         4 if name == "minhash_and_keys" else 3)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+    for case, (args, (b_ms, by), plain_warmup, plain_reps) in cases.items():
+        k = KERNELS[case.split(":")[0]]
+        ms = time_ms(lambda: k["wrapper"](*args))
+        plain_ms = time_ms(lambda: k["plain"](*args), warmup=plain_warmup,
+                           reps=plain_reps)
+        out[case] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": by}
-        log(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms by {by})")
+        steps = ""
+        if case.startswith("rans"):
+            steps = f", {-(-args[1] // entropy.N_STREAMS)} serial steps"
+        log(f"  {case}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.6f} ms by {by}{steps})")
     return out
 
 
@@ -273,34 +472,39 @@ def main() -> int:
     log(f"  built {', '.join(_build.SOURCES)} in {_build.build_seconds:.1f} s")
 
     consts = make_params("kminhash", N_HASHES, 0).to(dev).arrays
+    items, truth = synth_session_sets(N_SESSIONS, SET_SIZE, seed=0)
     log("phase 2: kernel checks (tolerance: exact)")
-    errs = kernel_checks(dev, consts)
+    errs = minhash_checks(dev, consts)
+    plan = default_run_lanes(items)
+    errs["rans_decode"] = rans_checks(plan, dev)
 
     log(f"phase 3: main path, {N_SESSIONS} sessions x {SET_SIZE} ids")
-    items, truth = synth_session_sets(N_SESSIONS, SET_SIZE, seed=0)
     small_input_check(items, dev)
-    runs = {
-        "minhash_and_keys": run_main_path(items, truth, 0,
-                                          "minhash_and_keys", consts, dev),
-        "minhash_and_keys_packed": run_main_path(
-            items, truth, -1, "minhash_and_keys_packed", consts, dev),
-    }
+    plain10 = run_plain(items, truth, 0, "minhash_and_keys", consts, dev)
+    plain24 = run_plain(items, truth, -1, "minhash_and_keys_packed", consts,
+                        dev)
+    run_forced(dev)
+    default = run_default(items, truth, plan, plain10["labels"], consts, dev)
+    launches = {"minhash_and_keys": plain10["counts"]["minhash_and_keys"],
+                "minhash_and_keys_packed":
+                    plain24["counts"]["minhash_and_keys_packed"],
+                "rans_decode": default["counts"]["rans_decode"]}
 
     log("phase 4: timing (CUDA events, median)")
-    times = timing(items, dev, consts)
+    times = timing(items, plan, dev, consts)
+    times["rans_decode"] = times["rans_decode:rep"]
 
-    kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE,
-        "replaces": KERNELS[name]["replaces"],
-        "launches": runs[name]["launches"], "max_abs_err": errs[name],
-        **times[name], "library_ms": None,
-    } for name in KERNELS]
+    kernels_line = [{
+        "name": name, "route": "cuda", "source": k["source"],
+        "replaces": k["replaces"], "launches": launches[name],
+        "max_abs_err": errs[name], **times[name], "library_ms": None,
+    } for name, k in KERNELS.items()]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels_line}))
     print(card.splitlines()[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

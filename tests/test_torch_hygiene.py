@@ -55,7 +55,7 @@ def test_no_handler_around_kernel_launches():
     or launch raises, nothing gives way to the plain version."""
     paths = [os.path.join(PKG, "cluster", "pipeline.py")] + [
         os.path.join(PKG, "cluster", "kernels", f)
-        for f in ("minhash.py", "_build.py")]
+        for f in ("__init__.py", "minhash.py", "rans.py", "_build.py")]
     for path in paths:
         tree = ast.parse(open(path, encoding="utf-8").read())
         handlers = [n.lineno for n in ast.walk(tree)
@@ -87,6 +87,12 @@ def test_build_is_lazy_and_targets_hopper():
     assert _build.BUILD_DIR == os.path.join(REPO, "build", "tse1m_tpu_torch")
     assert all(os.path.isfile(s) and s.startswith(PKG)
                for s in _build.SOURCES)
+    # One build step for every kernel; PyTorch's headers in one file only.
+    names = [os.path.basename(s) for s in _build.SOURCES]
+    assert names == ["minhash.cu", "rans.cu", "binding.cpp"]
+    for s in _build.SOURCES:
+        text = open(s, encoding="utf-8").read()
+        assert ("torch/extension.h" in text) == s.endswith("binding.cpp")
 
 
 def test_uint32_helpers_round_trip():

@@ -44,6 +44,30 @@ def test_bucket_representatives_matches_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bucket_representatives_by_original_index_matches_jax(sig_keys, seed):
+    """Rows in a permuted (lane) order elect the hub of minimum original
+    index, mapped back into row order, as the JAX package does."""
+    _, keys = sig_keys
+    rng = np.random.default_rng(seed)
+    n = keys.shape[0]
+    lane_of = rng.permutation(n).astype(np.int32)   # original -> row
+    orig = np.empty(n, np.int32)
+    orig[lane_of] = np.arange(n, dtype=np.int32)    # row -> original
+    lane_keys = keys[orig]
+    want = np.asarray(jlsh.bucket_representatives(
+        jnp.asarray(lane_keys), orig=jnp.asarray(orig),
+        lane_of=jnp.asarray(lane_of)))
+    got = tlsh.bucket_representatives(
+        u32_tensor(lane_keys), orig=torch.from_numpy(orig).long(),
+        lane_of=torch.from_numpy(lane_of).long())
+    np.testing.assert_array_equal(got.numpy(), want)
+    # The election does not depend on the order: mapped back, it is the
+    # unpermuted election.
+    plain = tlsh.bucket_representatives(u32_tensor(keys)).numpy()
+    np.testing.assert_array_equal(orig[got.numpy()[lane_of]], plain)
+
+
 def test_estimated_jaccard_bit_equal(sig_keys):
     sig, keys = sig_keys
     reps = np.array(jlsh.bucket_representatives(jnp.asarray(keys)))

@@ -17,6 +17,7 @@ from tse1m_tpu.cluster.minhash_pallas import \
 from tse1m_tpu_torch.cluster import encode as tenc
 from tse1m_tpu_torch.cluster import pipeline as tpipe
 from tse1m_tpu_torch.cluster import schemes as tschemes
+from tse1m_tpu_torch.cluster import kernels
 from tse1m_tpu_torch.cluster.kernels import minhash as kmod
 from tse1m_tpu_torch.device import as_u32_numpy, u32_tensor
 
@@ -94,7 +95,7 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     rng = np.random.default_rng(5)
     items = u32_tensor(_ids(rng, (70, 12)))
     a, b = tschemes.make_params("kminhash", 32).arrays
-    kmod.reset_launch_counts()
+    kernels.reset_launch_counts()
     got = kmod.minhash_and_keys(items, a, b, 4)
     for g, w in zip(got, kmod.minhash_and_keys_plain(items, a, b, 4)):
         assert torch.equal(g, w)
@@ -105,8 +106,9 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
                                               4)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert kmod.launch_counts() == {"minhash_and_keys": 0,
-                                    "minhash_and_keys_packed": 0}
+    assert kernels.launch_counts() == {"minhash_and_keys": 0,
+                                       "minhash_and_keys_packed": 0,
+                                       "rans_decode": 0}
 
 
 def test_wrappers_reject_bad_inputs():

@@ -1,7 +1,9 @@
 """tse1m_tpu_torch ``cluster_sessions`` (on the CPU, through the kernels'
 plain versions) against the JAX package's, whose Pallas kernels run in
-interpret mode; the wire plan; the levers that are not ported; the copied
-host modules and the command line.  Tolerance: exact labels."""
+interpret mode: the plain wire and wire v3 (the host prefilter, the
+base-delta lane, the rANS lanes), the wire plan, the levers that are not
+ported, the copied host modules and the command line.  Tolerance: exact
+labels and exact wire accounting."""
 
 import dataclasses
 import json
@@ -10,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from tse1m_tpu.cluster import encode as jenc
 from tse1m_tpu.cluster import pipeline as jpipe
 from tse1m_tpu.cluster.metrics import adjusted_rand_index as j_ari
 from tse1m_tpu.data.synth import synth_session_sets as j_synth
 from tse1m_tpu_torch import adjusted_rand_index, synth_session_sets
 from tse1m_tpu_torch.__main__ import main as cli_main
+from tse1m_tpu_torch.cluster import encode as tenc
 from tse1m_tpu_torch.cluster import pipeline as tpipe
 from tse1m_tpu_torch.cluster import schemes as tschemes
 from tse1m_tpu_torch.cluster.kernels import minhash as kmod
@@ -34,13 +38,70 @@ def sets():
     return j_synth(2000, set_size=32, seed=3)
 
 
-def _both(items, **kw):
+def _both(items, wire=PLAIN_WIRE, **kw):
     """(JAX labels, port labels, port last_run_info) for one parameter set."""
     want = jpipe.cluster_sessions(items, jpipe.ClusterParams(
-        use_pallas="interpret", block_n=128, **PLAIN_WIRE, **kw))
+        use_pallas="interpret", block_n=128, **wire, **kw))
     got = tpipe.cluster_sessions(items, tpipe.ClusterParams(
-        block_n=128, **PLAIN_WIRE, **kw), device="cpu")
+        block_n=128, **wire, **kw), device="cpu")
     return want, got, dict(tpipe.last_run_info)
+
+
+# The wire accounting the port must share with the JAX package.
+INFO_KEYS = ("encoding", "n_full", "n_delta", "chunk_bits", "wire_bytes",
+             "wire_quant_bits", "prefilter_rows_dropped", "entropy_saved_mb",
+             "prefilter_saved_mb", "wire_v3_saved_mb", "wire_version")
+
+
+def _assert_info_matches_jax(info):
+    for key in INFO_KEYS:
+        assert info.get(key) == jpipe.last_run_info.get(key), key
+
+
+@pytest.mark.parametrize("chunks", [1, 4])
+@pytest.mark.parametrize("quant_bits", [10, -1])
+@pytest.mark.parametrize("entropy", ["off", "auto", "force"])
+@pytest.mark.parametrize("prefilter", ["on", "off"])
+def test_delta_wire_matches_jax(sets, prefilter, entropy, quant_bits,
+                                chunks):
+    """encoding="delta": labels, lanes and wire bytes equal JAX's under
+    every wire v3 lever; force codes every lane and chunk, the 24-bit
+    full lane as three byte planes with the chunk's offset."""
+    items, _ = sets
+    items = items[:1200]
+    want, got, info = _both(
+        items, wire=dict(encoding="delta", prefilter=prefilter,
+                         entropy=entropy),
+        wire_quant_bits=quant_bits, h2d_chunks=chunks)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    _assert_info_matches_jax(info)
+    assert info["encoding"] == "delta" and info["n_delta"] > 0
+    assert (info["prefilter_rows_dropped"] > 0) == (prefilter == "on")
+    assert (len(info["chunk_bits"]) > 1) == (chunks == 4
+                                             and info["n_full"] >= 256)
+    assert ("stage_entropy_s" in info["stages"]) == (entropy != "off")
+    assert ("stage_prefilter_s" in info["stages"]) == (prefilter == "on")
+
+
+def test_default_params_engage_wire_v3_as_jax(sets, monkeypatch):
+    """Default ClusterParams with the auto size gate lowered in both
+    packages: the prefilter, the delta lane, 10-bit quantization and the
+    rANS gate engage at a few thousand rows, as at 64 MiB."""
+    items, truth = sets
+    for mod in (jpipe, jenc, tpipe, tenc):
+        monkeypatch.setattr(mod, "_AUTO_MIN_BYTES", 4096)
+    want = jpipe.cluster_sessions(items, jpipe.ClusterParams(
+        use_pallas="interpret"))
+    got = tpipe.cluster_sessions(items, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    info = dict(tpipe.last_run_info)
+    _assert_info_matches_jax(info)
+    assert info["encoding"] == "delta"
+    assert info["wire_quant_bits"] == 10
+    assert info["prefilter_rows_dropped"] > 0
+    assert "stage_entropy_s" in info["stages"]
+    assert adjusted_rand_index(got, truth) >= 0.98
 
 
 @pytest.mark.parametrize("quant_bits,chunks", [(10, 1), (10, 4), (-1, 1),
@@ -115,18 +176,9 @@ def test_params_keep_jax_fields_and_defaults():
     assert port_fields == jax_fields
 
 
-_BIG = (262_144, 64)  # 64 MiB of uint32 ids: the auto levers engage
-
-
 @pytest.mark.parametrize("kw,shape,item", [
     (dict(PLAIN_WIRE, scheme="cminhash"), (8, 4), "item 5"),
     (dict(PLAIN_WIRE, scheme="weighted"), (8, 4), "item 5"),
-    (dict(PLAIN_WIRE, encoding="delta"), (8, 4), "item 6"),
-    (dict(PLAIN_WIRE, encoding="auto"), _BIG, "item 6"),
-    (dict(PLAIN_WIRE, entropy="auto"), (8, 4), "item 6"),
-    (dict(PLAIN_WIRE, entropy="force"), (8, 4), "item 6"),
-    (dict(PLAIN_WIRE, prefilter="on"), (8, 4), "item 6"),
-    (dict(PLAIN_WIRE, prefilter="auto"), _BIG, "item 6"),
     (dict(PLAIN_WIRE, sig_store="/nonexistent"), (8, 4), "item 9"),
 ])
 def test_levers_not_ported_raise(kw, shape, item):
@@ -134,6 +186,20 @@ def test_levers_not_ported_raise(kw, shape, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 {item}"):
         tpipe.cluster_sessions(items, tpipe.ClusterParams(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(prefilter="on", sig_store="/store"),
+                                dict(prefilter="on", threshold=0.0)])
+def test_prefilter_on_refusals_match_jax(kw):
+    """prefilter="on" with a store or without a verifying threshold is a
+    ValueError before anything else (the store's own refusal included)."""
+    items = np.zeros((8, 4), np.uint32)
+    with pytest.raises(ValueError) as want:
+        jpipe.cluster_sessions(items, jpipe.ClusterParams(**kw))
+    with pytest.raises(ValueError) as got:
+        tpipe.cluster_sessions(items, tpipe.ClusterParams(**kw),
+                               device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def test_mesh_and_unknown_values_raise():
@@ -161,9 +227,27 @@ def test_synth_and_ari_match_jax():
     assert adjusted_rand_index(noisy, truth_t) == j_ari(noisy, truth_t)
 
 
-def test_cli_cluster_on_cpu(capsys):
-    assert cli_main(["cluster", "--n", "3000", "--device", "cpu"]) == 0
+def _cli_report(capsys, *flags) -> dict:
+    assert cli_main(["cluster", "--n", "3000", "--device", "cpu",
+                     *flags]) == 0
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["device"] == "cpu"
     assert report["ari_vs_planted"] >= 0.98
     assert "stage_compute_s" in report
+    assert "stage_entropy_s" in report   # auto and force offer every chunk
+    assert report["wire_v3_saved_mb"] is not None
+    return report
+
+
+def test_cli_cluster_on_cpu(capsys):
+    """Default ClusterParams: below 64 MiB the auto levers stay off."""
+    report = _cli_report(capsys)
+    assert report["encoding"] == "plain"
+    assert report["prefilter_rows_dropped"] == 0
+
+
+def test_cli_wire_v3_flags_on_cpu(capsys):
+    """--prefilter on drops rows; --entropy force codes each chunk."""
+    report = _cli_report(capsys, "--prefilter", "on", "--entropy", "force")
+    assert report["encoding"] == "plain"
+    assert report["prefilter_rows_dropped"] > 0

@@ -1,0 +1,52 @@
+"""tse1m_tpu_torch host prefilter against the JAX package's
+``tse1m_tpu.cluster.prefilter``.  Tolerance: exact."""
+
+import numpy as np
+import pytest
+
+from tse1m_tpu.cluster import prefilter as jpf
+from tse1m_tpu.data.synth import synth_session_sets
+from tse1m_tpu_torch.cluster import prefilter as tpf
+
+
+@pytest.fixture(scope="module")
+def planted():
+    return synth_session_sets(3000, set_size=24, seed=8)
+
+
+def test_constants_match_jax():
+    assert (tpf.N_BANDS, tpf.HASHES_PER_BAND, tpf.KEY_BITS) == (
+        jpf.N_BANDS, jpf.HASHES_PER_BAND, jpf.KEY_BITS)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_band_keys_host_matches_jax(planted, seed, monkeypatch):
+    items, _ = planted
+    # Two row blocks, the second ragged.
+    monkeypatch.setattr(tpf, "_ROW_CHUNK", 1024)
+    got = tpf.band_keys_host(items, seed)
+    assert got.dtype == np.uint32 and got.shape == (3000, tpf.N_BANDS)
+    np.testing.assert_array_equal(got, jpf.band_keys_host(items, seed))
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_collide_mask_and_recall_match_jax(planted, seed):
+    items, truth = planted
+    got = tpf.collide_mask(items, seed)
+    want = jpf.collide_mask(items, seed)
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.sum() < got.size   # keeps the planted, drops isolated
+    assert tpf.prefilter_recall(got, truth) == jpf.prefilter_recall(
+        want, truth) == 1.0
+
+
+def test_edge_cases_match_jax():
+    one = np.arange(8, dtype=np.uint32)[None]
+    assert tpf.collide_mask(one).tolist() == jpf.collide_mask(one).tolist() \
+        == [False]
+    dup = np.tile(np.arange(8, dtype=np.uint32), (4, 1))
+    assert tpf.collide_mask(dup).all() and jpf.collide_mask(dup).all()
+    keep = np.array([True, False, True])
+    for truth in (np.array([0, 1, 2]), np.array([0, 0, 2])):
+        assert tpf.prefilter_recall(keep, truth) == jpf.prefilter_recall(
+            keep, truth)

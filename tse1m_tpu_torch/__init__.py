@@ -1,9 +1,11 @@
 """tse1m_tpu_torch: the PyTorch/CUDA port of tse1m_tpu, for one NVIDIA H100.
 
 This package runs the cold, storeless, single-GPU session clustering of
-``tse1m_tpu.cluster.cluster_sessions`` with its two MinHash kernels written
-by hand in CUDA C++ for Hopper (``cluster/kernels/csrc/minhash.cu``).  It
-imports ``torch`` and ``numpy`` and nothing of the JAX package.
+``tse1m_tpu.cluster.cluster_sessions``, the wire v3 levers (host prefilter,
+base-delta lane, rANS lanes) included, with its two MinHash kernels and its
+rANS decode written by hand in CUDA C++ for Hopper
+(``cluster/kernels/csrc/``).  It imports ``torch`` and ``numpy`` and nothing
+of the JAX package.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions; without a card they raise.

@@ -1,11 +1,14 @@
 """Command line of the port: storeless single-GPU session clustering.
 
     python -m tse1m_tpu_torch cluster --n 1000000 --seed 0 \
-        [--wire-quant-bits N] [--device cuda]
+        [--wire-quant-bits N] [--prefilter {off,auto,on}] \
+        [--entropy {off,auto,force}] [--device cuda]
 
-Synthesizes planted near-duplicate sessions, clusters them with the plain
-wire (``encoding="pack24", entropy="off", prefilter="off"``), and prints one
-JSON line: ARI against the planted truth, the wall and the stage walls.
+Synthesizes planted near-duplicate sessions, clusters them with default
+``ClusterParams`` (wire v3: at >= 64 MiB of ids the host prefilter, the
+base-delta lane and the rANS lanes switch on), and prints one JSON line:
+ARI against the planted truth, the wire chosen, the wall and the stage
+walls.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from .device import resolve_device
 def _cmd_cluster(args) -> int:
     dev = resolve_device(args.device)
     items, truth = synth_session_sets(args.n, seed=args.seed)
-    params = ClusterParams(seed=args.seed, encoding="pack24", entropy="off",
-                           prefilter="off",
+    params = ClusterParams(seed=args.seed, prefilter=args.prefilter,
+                           entropy=args.entropy,
                            wire_quant_bits=args.wire_quant_bits)
     t0 = time.perf_counter()
     labels = cluster_sessions(items, params, device=dev)
@@ -40,9 +43,12 @@ def _cmd_cluster(args) -> int:
         "n_clusters": int(np.unique(labels).size),
         "ari_vs_planted": round(float(adjusted_rand_index(labels, truth)), 5),
         "cluster_wall_s": round(wall, 4),
+        "encoding": last_run_info.get("encoding"),
+        "prefilter_rows_dropped": last_run_info.get("prefilter_rows_dropped"),
         "wire_quant_bits": last_run_info.get("wire_quant_bits"),
         "chunk_bits": last_run_info.get("chunk_bits"),
         "wire_mb": last_run_info.get("wire_mb"),
+        "wire_v3_saved_mb": last_run_info.get("wire_v3_saved_mb"),
         **last_run_info.get("stages", {}),
     }
     print(json.dumps(report))
@@ -58,6 +64,15 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--wire-quant-bits", type=int, default=0,
                    help="0 = auto (10 bits at >= 64 MB of ids), -1 = never, "
                         "1..32 = forced")
+    p.add_argument("--prefilter", default="auto",
+                   choices=("off", "auto", "on"),
+                   help="wire v3 host LSH prefilter: rows bucketed "
+                        "singleton in every host band skip the wire; labels "
+                        "stay equal to the unfiltered run's")
+    p.add_argument("--entropy", default="auto",
+                   choices=("off", "auto", "force"),
+                   help="wire v3 rANS lane coding: 'auto' codes the lanes "
+                        "that beat their bit-packed form; 'force' codes all")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args(argv)

@@ -1,1 +1,24 @@
-"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions."""
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``;
+``reset_launch_counts`` and ``launch_counts`` read and clear them all.
+"""
+
+from .minhash import minhash_and_keys, minhash_and_keys_packed
+from .rans import rans_decode
+
+_WRAPPERS = (minhash_and_keys, minhash_and_keys_packed, rans_decode)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for wrapper in _WRAPPERS:
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {wrapper.__name__: wrapper.launches for wrapper in _WRAPPERS}
+
+
+__all__ = ["launch_counts", "minhash_and_keys", "minhash_and_keys_packed",
+           "rans_decode", "reset_launch_counts"]

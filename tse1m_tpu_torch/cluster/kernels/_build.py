@@ -1,8 +1,8 @@
 """Build the package's CUDA sources at first use.
 
-``load_extension()`` compiles ``csrc/minhash.cu`` (nvcc, ``sm_90a``) and
-``csrc/minhash_binding.cpp`` (the host compiler; the one file that includes
-PyTorch's headers) with ``torch.utils.cpp_extension.load`` into
+``load_extension()`` compiles ``csrc/minhash.cu`` and ``csrc/rans.cu`` (nvcc,
+``sm_90a``) and ``csrc/binding.cpp`` (the host compiler; the one file that
+includes PyTorch's headers) with one ``torch.utils.cpp_extension.load`` into
 ``build/tse1m_tpu_torch/`` beside the package, and imports the result.
 ``load`` caches by content, so a second process with unchanged sources
 loads the library without compiling.  It builds nothing but these sources
@@ -16,8 +16,8 @@ import threading
 import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = (os.path.join(_CSRC, "minhash.cu"),
-           os.path.join(_CSRC, "minhash_binding.cpp"))
+SOURCES = tuple(os.path.join(_CSRC, f)
+                for f in ("minhash.cu", "rans.cu", "binding.cpp"))
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))), "build", "tse1m_tpu_torch")
@@ -37,7 +37,7 @@ def load_extension():
 
             os.makedirs(BUILD_DIR, exist_ok=True)
             t0 = time.perf_counter()
-            _ext = load(name="tse1m_minhash_ext", sources=list(SOURCES),
+            _ext = load(name="tse1m_kernels_ext", sources=list(SOURCES),
                         build_directory=BUILD_DIR,
                         extra_cuda_cflags=CUDA_FLAGS)
             build_seconds = time.perf_counter() - t0

@@ -1,10 +1,11 @@
-// PyTorch binding of the MinHash kernels in minhash.cu.  The only source
-// that includes torch/extension.h: the kernels' file stays plain CUDA so
+// PyTorch binding of the kernels in minhash.cu and rans.cu.  The only source
+// that includes torch/extension.h: the kernels' files stay plain CUDA so
 // nvcc never parses PyTorch's headers.
 //
-// Each function takes int32 tensors that carry uint32 bit patterns (and the
-// uint8 wire payload), with the outputs already allocated by the Python
-// wrapper, enqueues one launch on PyTorch's current stream, and checks it.
+// Each function takes int32 tensors that carry uint32 bit patterns (int16
+// for uint16 words and frequencies, uint8 for the wire payload), with the
+// outputs already allocated by the Python wrapper, enqueues one launch on
+// PyTorch's current stream, and checks it.
 
 #include <torch/extension.h>
 
@@ -13,6 +14,7 @@
 #include <c10/cuda/CUDAGuard.h>
 
 #include <cstdint>
+#include <vector>
 
 void tse1m_launch_minhash_u32(const uint32_t* items, int n, int s,
                               const uint32_t* a, const uint32_t* b, int h,
@@ -23,6 +25,11 @@ void tse1m_launch_minhash_packed(const uint8_t* payload, int n, int s, int k,
                                  const uint32_t* b, int h, int n_bands,
                                  uint32_t* sig, uint32_t* keys,
                                  cudaStream_t stream);
+void tse1m_launch_rans_decode(int n_planes, const uint16_t* const* words,
+                              const int* n_words, const uint32_t* const* x0,
+                              const uint16_t* const* freqs, int alphabet,
+                              int n, int shift_step, uint32_t* out,
+                              cudaStream_t stream);
 
 namespace {
 
@@ -94,9 +101,53 @@ void minhash_packed(const torch::Tensor& payload, int64_t n, int64_t s,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void rans_decode(const std::vector<torch::Tensor>& words,
+                 const std::vector<torch::Tensor>& x0,
+                 const std::vector<torch::Tensor>& freqs, int64_t n,
+                 int64_t shift_step, const torch::Tensor& out) {
+  const size_t n_planes = words.size();
+  TORCH_CHECK(n_planes >= 1 && n_planes <= 4 && x0.size() == n_planes &&
+                  freqs.size() == n_planes,
+              "need 1..4 planes of (words, x0, freqs)");
+  check(out, at::kInt, "out");
+  TORCH_CHECK(out.dim() == 1 && out.size(0) == n, "out: [n]");
+  TORCH_CHECK(shift_step >= 0 && shift_step * (int64_t)(n_planes - 1) < 32,
+              "plane shift out of range");
+  const int64_t alphabet = freqs[0].numel();
+  TORCH_CHECK(alphabet >= 1 && alphabet <= 4096, "alphabet must be 1..4096");
+  std::vector<const uint16_t*> words_p, freqs_p;
+  std::vector<const uint32_t*> x0_p;
+  std::vector<int> n_words;
+  for (size_t p = 0; p < n_planes; ++p) {
+    check(words[p], at::kShort, "words");
+    check(x0[p], at::kInt, "x0");
+    check(freqs[p], at::kShort, "freqs");
+    TORCH_CHECK(x0[p].numel() == 32, "x0: [32]");
+    TORCH_CHECK(freqs[p].numel() == alphabet, "planes differ in alphabet");
+    TORCH_CHECK(words[p].numel() < (int64_t{1} << 31), "too many words");
+    TORCH_CHECK(reinterpret_cast<uintptr_t>(words[p].data_ptr()) % 8 == 0,
+                "words must be 8-byte aligned");
+    words_p.push_back(
+        reinterpret_cast<const uint16_t*>(words[p].data_ptr<int16_t>()));
+    freqs_p.push_back(
+        reinterpret_cast<const uint16_t*>(freqs[p].data_ptr<int16_t>()));
+    x0_p.push_back(u32<const uint32_t>(x0[p]));
+    n_words.push_back(static_cast<int>(words[p].numel()));
+  }
+  const c10::cuda::CUDAGuard guard(out.device());
+  tse1m_launch_rans_decode(static_cast<int>(n_planes), words_p.data(),
+                           n_words.data(), x0_p.data(), freqs_p.data(),
+                           static_cast<int>(alphabet), static_cast<int>(n),
+                           static_cast<int>(shift_step), u32<uint32_t>(out),
+                           at::cuda::getCurrentCUDAStream());
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("minhash_u32", &minhash_u32,
         "Fused MinHash + band keys over [N, S] uint32 ids");
   m.def("minhash_packed", &minhash_packed,
         "Fused MinHash + band keys over a k-byte little-endian wire payload");
+  m.def("rans_decode", &rans_decode,
+        "Interleaved rANS decode of one coded lane, one warp per plane");
 }

@@ -144,17 +144,5 @@ def minhash_and_keys_packed(payload: torch.Tensor, shape: tuple, k: int,
 minhash_and_keys_packed.launches = 0
 
 
-def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    minhash_and_keys.launches = 0
-    minhash_and_keys_packed.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"minhash_and_keys": minhash_and_keys.launches,
-            "minhash_and_keys_packed": minhash_and_keys_packed.launches}
-
-
-__all__ = ["combine_bytes", "launch_counts", "minhash_and_keys",
-           "minhash_and_keys_packed", "minhash_and_keys_packed_plain",
-           "minhash_and_keys_plain", "reset_launch_counts"]
+__all__ = ["combine_bytes", "minhash_and_keys", "minhash_and_keys_packed",
+           "minhash_and_keys_packed_plain", "minhash_and_keys_plain"]

@@ -14,13 +14,15 @@ from __future__ import annotations
 import torch
 
 
-def band_hub_election(k: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+def band_hub_election(k: torch.Tensor, vals: torch.Tensor,
+                      lane_of: torch.Tensor | None = None) -> torch.Tensor:
     """One band's hub election: [N] keys -> [N] rep row index (int64).
 
     Sort the keys, mark where runs of equal keys start, segment-min the
-    election values ``vals`` (original indices) within runs, scatter back.
-    Keys are int32 bit patterns; equal-key runs do not depend on whether the
-    sort reads them signed or unsigned."""
+    election values ``vals`` (original indices) within runs, map the winner
+    into row order through ``lane_of`` when given, scatter back.  Keys are
+    int32 bit patterns; equal-key runs do not depend on whether the sort
+    reads them signed or unsigned."""
     n = k.shape[0]
     ks, order = torch.sort(k)
     new_run = torch.ones(n, dtype=torch.bool, device=k.device)
@@ -28,17 +30,31 @@ def band_hub_election(k: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     seg = torch.cumsum(new_run, 0) - 1
     run_min = torch.full((n,), n, dtype=vals.dtype, device=k.device)
     run_min.scatter_reduce_(0, seg, vals[order], "amin")
+    rep_sorted = run_min[seg]
+    if lane_of is not None:
+        rep_sorted = lane_of[rep_sorted]
     rep = torch.empty_like(vals)
-    rep[order] = run_min[seg]
+    rep[order] = rep_sorted
     return rep
 
 
-def bucket_representatives(keys: torch.Tensor) -> torch.Tensor:
+def bucket_representatives(keys: torch.Tensor,
+                           orig: torch.Tensor | None = None,
+                           lane_of: torch.Tensor | None = None,
+                           ) -> torch.Tensor:
     """[N, B] band keys -> [N, B] int64 reps: min item index sharing the
-    key in that band.  Items in singleton buckets get themselves."""
+    key in that band.  Items in singleton buckets get themselves.
+
+    ``orig`` / ``lane_of`` (both [N] int64, inverse permutations) make the
+    election independent of row order when rows arrive in the delta
+    encoder's lane order: the hub is the member with the minimum original
+    index (``orig``: row -> original index), mapped back into row order by
+    ``lane_of``.  Buckets are sets, so the hub, the verified edges and the
+    labels are those of the unencoded run."""
     n, n_bands = keys.shape
-    vals = torch.arange(n, dtype=torch.int64, device=keys.device)
-    return torch.stack([band_hub_election(keys[:, j], vals)
+    vals = (torch.arange(n, dtype=torch.int64, device=keys.device)
+            if orig is None else orig)
+    return torch.stack([band_hub_election(keys[:, j], vals, lane_of)
                         for j in range(n_bands)], dim=1)
 
 
