@@ -8,29 +8,44 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. build: compile the port's CUDA sources (tse1m_tpu_torch/cluster/kernels/
    csrc/) at first use and time it;
 2. kernel checks: hold each kernel against its plain PyTorch version on the
-   card, bit for bit (tolerance: exact).  The MinHash kernels at the
-   main-path chunk shape (250,368 rows x 64 ids, H=128, B=16) and at edge
-   shapes; the rANS kernel at the lanes the default 1M run codes (its rep
-   and counts lanes, encoded here by the port's host codec) and at the edge
-   shapes of the CPU tests;
+   card, bit for bit (tolerance: exact).  The MinHash and bin-min kernels
+   at the main-path chunk shape (250,368 rows x 64 ids, H=128, B=16) and at
+   edge shapes; the rANS kernel at the lanes the default 1M run codes (its
+   rep and counts lanes, encoded here by the port's host codec) and at the
+   edge shapes of the CPU tests; the top-k kernel at cell (g)'s shape (64
+   queries over 1,000,448 columns, k=10) and at the CPU tests' edges;
 3. main path, on 1,000,000 planted sessions x 64 ids.  First, 20,000-row
    slices must give the same labels on the card as on the CPU: through
-   each MinHash kernel on the plain wire, and through every lane of wire
-   v3 (``encoding="delta", prefilter="on", entropy="force"``).  Then:
-   - the plain wire at 10 bits (sub-byte chunks -> the uint32 kernel) and
-     at 24 bits (byte chunks -> the packed kernel): each run must move its
-     kernel's launch count (and only its), match the plain signatures and
-     band keys over all rows, and reach ARI >= 0.98;
-   - a forced wire v3 run on 100,000 sessions (every chunk and lane coded,
-     the 24-bit full lane as three byte planes plus its offset): labels
-     equal to the plain wire's, one rANS launch a coded lane;
-   - the default ``ClusterParams`` at 1M rows, the path users get: the
-     prefilter, the delta lane and the rANS lanes engage; launches of the
-     rANS kernel (one a coded lane) and the uint32 MinHash kernel only;
-     signatures of every kept row equal to the plain version's; labels
-     equal to the 10-bit plain run's element for element; ARI >= 0.98;
+   each MinHash kernel on the plain wire, through every lane of wire v3
+   (``encoding="delta", prefilter="on", entropy="force"``) under kminhash
+   and cminhash, and through weighted rows on the plain wire.  Then the
+   cells, each driven with the launch counts set to 0 just before and read
+   just after:
+   (a) the plain wire at 10 bits (sub-byte chunks -> the uint32 kernel) and
+   (b) at 24 bits (byte chunks -> the packed kernel): each run must move
+       its kernel's launch count (and only its), match the plain signatures
+       and band keys over all rows, and reach ARI >= 0.98;
+   (d) a forced wire v3 run on 100,000 sessions (every chunk and lane coded,
+       the 24-bit full lane as three byte planes plus its offset): labels
+       equal to the plain wire's, one rANS launch a coded lane;
+   (c) the default ``ClusterParams`` at 1M rows, the path users get: the
+       prefilter, the delta lane and the rANS lanes engage; launches of the
+       rANS kernel (one a coded lane) and the uint32 MinHash kernel only;
+       signatures of every kept row equal to the plain version's; labels
+       equal to the 10-bit plain run's element for element; ARI >= 0.98;
+   (e) (c) with ``scheme="cminhash"``: the bin-min kernel on the full lane
+       and on the delta rows, no MinHash kernel; signatures of every kept
+       row equal to the plain version's; ARI >= 0.98;
+   (f) ``scheme="weighted"`` over 200,000 sessions of their own, replica-
+       expanded by their synthesized hit counts: the bin-min kernel only
+       among the hashing kernels, signatures equal to the plain version's,
+       ARI printed;
+   (g) ``topk_agreement`` of 64 queries drawn from (a)'s 1M signatures,
+       k=10: one launch of the top-k kernel, its state equal to the plain
+       version's, each query's first hit at 128 agreements;
 4. timing: each kernel beside its plain version (CUDA events, median after
-   warm-up) at the main-path shapes, with its bound;
+   warm-up) at the main-path shapes, with its bound, and the bin-min
+   kernel beside ``scatter_reduce_`` (its library yardstick);
 5. the card's name and power limit from nvidia-smi.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
@@ -49,19 +64,27 @@ import time
 import numpy as np
 import torch
 
-from tse1m_tpu_torch import adjusted_rand_index, synth_session_sets
+from tse1m_tpu_torch import (adjusted_rand_index, expand_weighted,
+                             synth_session_hitcounts, synth_session_sets,
+                             topk_agreement)
 from tse1m_tpu_torch.cluster import entropy, kernels, pipeline
 from tse1m_tpu_torch.cluster.encode import (pack_chunk, pack_delta_meta,
                                             quantize_ids)
 from tse1m_tpu_torch.cluster.kernels import _build
+from tse1m_tpu_torch.cluster.kernels import cminhash as kcm
 from tse1m_tpu_torch.cluster.kernels import minhash as kmod
 from tse1m_tpu_torch.cluster.kernels import rans as krans
+from tse1m_tpu_torch.cluster.kernels import score as ksc
+from tse1m_tpu_torch.cluster.minhash import mul_u32
 from tse1m_tpu_torch.cluster.schemes import make_params
-from tse1m_tpu_torch.device import u32_tensor, widen
+from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
 
 N_SESSIONS = 1_000_000
 N_FORCED = 100_000
 N_SMALL = 20_000
+N_WEIGHTED = 200_000          # cell (f): the host prefilter over ~43M ids
+N_QUERIES = 64                # cell (g): the JAX bench's topk shape
+TOPK_K = 10
 SET_SIZE = 64
 N_HASHES = 128
 N_BANDS = 16
@@ -88,6 +111,10 @@ KERNELS = {
         wrapper=kmod.minhash_and_keys, plain=kmod.minhash_and_keys_plain,
         source=MINHASH_SOURCE,
         replaces="tse1m_tpu/cluster/minhash_pallas.py:27"),
+    "cminhash_binmin": dict(
+        wrapper=kcm.cminhash_binmin, plain=kcm.cminhash_binmin_plain,
+        source="tse1m_tpu_torch/cluster/kernels/csrc/cminhash.cu",
+        replaces="tse1m_tpu/cluster/minhash_pallas.py:133"),
     "minhash_and_keys_packed": dict(
         wrapper=kmod.minhash_and_keys_packed,
         plain=kmod.minhash_and_keys_packed_plain, source=MINHASH_SOURCE,
@@ -96,6 +123,10 @@ KERNELS = {
         wrapper=krans.rans_decode, plain=krans.rans_decode_plain,
         source="tse1m_tpu_torch/cluster/kernels/csrc/rans.cu",
         replaces="tse1m_tpu/cluster/kernels/rans.py:80"),
+    "topk_chunk": dict(
+        wrapper=ksc.topk_chunk, plain=ksc.topk_chunk_plain,
+        source="tse1m_tpu_torch/cluster/kernels/csrc/score.cu",
+        replaces="tse1m_tpu/cluster/kernels/score.py:155"),
 }
 WIRE_V3_FORCED = dict(encoding="delta", prefilter="on", entropy="force")
 
@@ -241,24 +272,110 @@ def rans_checks(plan: dict, dev) -> int:
     return err
 
 
-def params_for(quant_bits: int) -> pipeline.ClusterParams:
+def umax_id(a0: torch.Tensor, b0: torch.Tensor) -> int:
+    """The id the one permutation maps to UMAX: (UMAX - b0) * a0^-1."""
+    a, b = int(widen(a0)[0]), int(widen(b0)[0])
+    return ((U32_MASK - b) * pow(a, -1, 1 << 32)) % (1 << 32)
+
+
+def cminhash_checks(dev) -> int:
+    """Phase 2, bin-min: cell (e)'s chunk shape over the full uint32 range
+    (a row holding the id that permutes to UMAX, a row of nothing else),
+    then H not a power of two, weighted replica widths, one row, one id a
+    row."""
+    rng = np.random.default_rng(2)
+    err = 0
+    for n, s, h, scheme in ((CHUNK_ROWS, SET_SIZE, N_HASHES, "cminhash"),
+                            (1001, 13, 96, "cminhash"),
+                            (5000, 216, N_HASHES, "weighted"),
+                            (1, SET_SIZE, N_HASHES, "weighted"),
+                            (33, 1, 96, "cminhash")):
+        a0, b0 = make_params(scheme, h, 0).to(dev).arrays[:2]
+        x = u32_ids(rng, (n, s))
+        if n > 2:
+            x[0, 0] = x[1, :] = umax_id(a0, b0)
+            x[2] |= np.uint32(1 << 31)
+        err = max(err, check_kernel(
+            "cminhash_binmin", (u32_tensor(x, dev), a0, b0, h),
+            f"{scheme} N={n}, S={s}, H={h}, ids >= 2^31 and the UMAX id"))
+    return err
+
+
+def topk_args(store: np.ndarray, queries: np.ndarray, dev, base: int = 0,
+              state=None) -> tuple:
+    """(q, s_t, rowids, topc, topr) as topk_agreement stages them."""
+    n = store.shape[0]
+    s_t, rid = ksc._stage_chunk(store, base, -(-n // 512) * 512, dev)
+    q = u32_tensor(ksc._pad_queries(queries), dev)
+    return (q, s_t, rid, *(state or ksc._init_state(q.shape[0], dev)))
+
+
+def topk_checks(dev) -> int:
+    """Phase 2, top-k: cell (g)'s shape over a 4-value alphabet (counts
+    near 32 of 128, so the top k end inside a crowd of ties), then the CPU
+    tests' edges, each chained into a second chunk as its incoming state."""
+    rng = np.random.default_rng(3)
+    store = u32_ids(rng, (N_SESSIONS, N_HASHES), 4)
+    queries = store[rng.choice(N_SESSIONS, N_QUERIES, replace=False)]
+    err = check_kernel("topk_chunk",
+                       (*topk_args(store, queries, dev), TOPK_K),
+                       f"{N_QUERIES} queries x {N_SESSIONS} rows, k=10, "
+                       "4-value alphabet")
+    del store
+    for qn, n, h, k, high in ((5, 1000, 16, 7, 3), (8, 1000, 16, 128, 3),
+                              (8, 5, 16, 10, 3), (3, 513, 128, 1, 1 << 32),
+                              (7, 0, 16, 5, 3)):
+        store = u32_ids(rng, (n, h), high)
+        queries = u32_ids(rng, (qn, h), high)
+        if n > 10:
+            store[7] = store[9] = queries[0]
+        args = topk_args(store, queries, dev)
+        label = f"Q={qn}, N={n}, H={h}, k={k}"
+        err = max(err, check_kernel("topk_chunk", (*args, k), label))
+        state = ksc.topk_chunk_plain(*args, k)
+        more = u32_ids(rng, (n + 100, h), high)
+        err = max(err, check_kernel(
+            "topk_chunk", (*topk_args(more, queries, dev, n, state), k),
+            label + ", chained into a second chunk"))
+    args = (*topk_args(store, queries, dev), 0)
+    kernels.reset_launch_counts()
+    got = ksc.topk_chunk(*args)
+    if kernels.launch_counts()["topk_chunk"] or not all(
+            torch.equal(g, w)
+            for g, w in zip(got, ksc.topk_chunk_plain(*args))):
+        raise AssertionError("k=0 launched the top-k kernel or differs")
+    return err
+
+
+def params_for(quant_bits: int,
+               scheme: str = "kminhash") -> pipeline.ClusterParams:
     return pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS,
                                   encoding="pack24", entropy="off",
-                                  prefilter="off", wire_quant_bits=quant_bits)
+                                  prefilter="off", wire_quant_bits=quant_bits,
+                                  scheme=scheme)
 
 
-def small_input_check(items, dev) -> None:
+def small_input_check(items, truth, dev) -> None:
     """Phase 3, first: labels of a 20,000-row slice on the card equal the
-    CPU's (plain versions), through each MinHash kernel and through every
-    wire v3 lane.  Also warms the card up."""
+    CPU's (plain versions), through each MinHash kernel, through every wire
+    v3 lane under kminhash and cminhash, and through weighted rows.  Also
+    warms the card up."""
     small = items[:N_SMALL]
-    cases = [("plain wire, wire_quant_bits=10", params_for(10)),
-             ("plain wire, wire_quant_bits=-1", params_for(-1)),
-             ("wire v3 forced", pipeline.ClusterParams(
-                 n_hashes=N_HASHES, n_bands=N_BANDS, **WIRE_V3_FORCED))]
-    for label, params in cases:
-        on_card = pipeline.cluster_sessions(small, params, device=dev)
-        on_cpu = pipeline.cluster_sessions(small, params, device="cpu")
+    weighted = expand_weighted(small, synth_session_hitcounts(
+        small, truth[:N_SMALL]))
+    cases = [("plain wire, wire_quant_bits=10", small, params_for(10)),
+             ("plain wire, wire_quant_bits=-1", small, params_for(-1)),
+             ("wire v3 forced", small, pipeline.ClusterParams(
+                 n_hashes=N_HASHES, n_bands=N_BANDS, **WIRE_V3_FORCED)),
+             ("cminhash, wire v3 forced", small, pipeline.ClusterParams(
+                 n_hashes=N_HASHES, n_bands=N_BANDS, scheme="cminhash",
+                 **WIRE_V3_FORCED)),
+             (f"weighted ({weighted.shape[1]} replica ids a row), plain "
+              "wire, wire_quant_bits=10", weighted,
+              params_for(10, "weighted"))]
+    for label, rows, params in cases:
+        on_card = pipeline.cluster_sessions(rows, params, device=dev)
+        on_cpu = pipeline.cluster_sessions(rows, params, device="cpu")
         if not np.array_equal(on_card, on_cpu):
             raise AssertionError(f"card and CPU labels differ on "
                                  f"{N_SMALL} rows ({label})")
@@ -288,13 +405,16 @@ def drive(items, params, dev) -> dict:
             "wall_s": wall, "info": info}
 
 
-def check_signatures(run: dict, rows, consts, dev) -> None:
-    """The run's signatures and keys equal the plain version's over the
-    rows that went to the card, as the wire plan quantized them."""
+def check_signatures(run: dict, rows, hp, dev) -> torch.Tensor:
+    """The run's signatures and keys equal the plain version's of its
+    scheme over the rows that went to the card, as the wire plan quantized
+    them.  Returns the signatures."""
     qbits = run["info"]["wire_quant_bits"]
-    planned = quantize_ids(rows, qbits) if qbits else rows
-    want = kmod.minhash_and_keys_plain(u32_tensor(planned, dev), *consts,
-                                       N_BANDS)
+    planned = u32_tensor(quantize_ids(rows, qbits) if qbits else rows, dev)
+    plain = (kmod.minhash_and_keys_plain if hp.scheme == "kminhash"
+             else kcm.cminhash_and_keys_plain)
+    want = plain(planned, *hp.arrays, N_BANDS)
+    del planned
     torch.cuda.synchronize()
     # The run's signatures and keys go here, so later runs' peak device
     # memory does not count them.
@@ -303,6 +423,7 @@ def check_signatures(run: dict, rows, consts, dev) -> None:
         raise AssertionError("signatures/keys differ from the plain version")
     log(f"  signatures and keys of all {len(rows)} rows that went to the "
         "card bit-identical to the plain version")
+    return sig
 
 
 def check_ari(labels, truth) -> float:
@@ -322,12 +443,13 @@ def expect_launches(counts: dict, want: dict) -> None:
             raise AssertionError(f"launches {counts}, expected {want}")
 
 
-def run_plain(items, truth, quant_bits: int, kernel: str, consts, dev):
-    """Phase 3, one plain-wire 1M run through one MinHash kernel."""
+def run_plain(items, truth, quant_bits: int, kernel: str, hp, dev):
+    """Phase 3, one plain-wire 1M run through one MinHash kernel; its
+    signatures go to the host (cell (g)'s store)."""
     log(f"  plain wire, wire_quant_bits={quant_bits}:")
     run = drive(items, params_for(quant_bits), dev)
     expect_launches(run["counts"], {kernel: (1, None)})
-    check_signatures(run, items, consts, dev)
+    run["sig"] = as_u32_numpy(check_signatures(run, items, hp, dev))
     run["ari"] = check_ari(run["labels"], truth)
     return run
 
@@ -357,7 +479,7 @@ def run_forced(dev) -> dict:
     return run
 
 
-def run_default(items, truth, plan: dict, plain_labels, consts, dev) -> dict:
+def run_default(items, truth, plan: dict, plain_labels, hp, dev) -> dict:
     """Phase 3: default ClusterParams at 1M rows, the path users get."""
     log("  default ClusterParams (wire v3 auto):")
     run = drive(items, pipeline.ClusterParams(n_hashes=N_HASHES,
@@ -370,13 +492,93 @@ def run_default(items, truth, plan: dict, plain_labels, consts, dev) -> dict:
     # kernel; every chunk is decoded, so the packed kernel never runs.
     expect_launches(run["counts"], {"minhash_and_keys": (2, None),
                                     "rans_decode": plan["launches"]})
-    check_signatures(run, items[plan["keep"]], consts, dev)
+    check_signatures(run, items[plan["keep"]], hp, dev)
     if not np.array_equal(run["labels"], plain_labels):
         raise AssertionError("default-run labels differ from the 10-bit "
                              "plain wire's")
     log("  labels == the 10-bit plain wire run's, element for element")
     run["ari"] = check_ari(run["labels"], truth)
     return run
+
+
+def run_cminhash(items, truth, plan: dict, dev) -> dict:
+    """Phase 3, cell (e): default ClusterParams with scheme="cminhash" at
+    1M rows.  The prefilter and the wire plan do not depend on the scheme,
+    so the keep mask and the coded lanes are (c)'s."""
+    log("  cminhash, default ClusterParams (wire v3 auto):")
+    params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS,
+                                    scheme="cminhash")
+    run = drive(items, params, dev)
+    info = run["info"]
+    if not (info["encoding"] == "delta"
+            and info["prefilter_rows_dropped"] > 0):
+        raise AssertionError(f"cminhash run did not take wire v3: {info}")
+    # One bin-min launch a full-lane chunk and one for the delta rows.
+    expect_launches(run["counts"], {
+        "cminhash_binmin": len(info["chunk_bits"]) + 1,
+        "rans_decode": plan["launches"]})
+    check_signatures(run, items[plan["keep"]],
+                     make_params("cminhash", N_HASHES, 0).to(dev), dev)
+    run["ari"] = check_ari(run["labels"], truth)
+    return run
+
+
+def run_weighted(dev) -> dict:
+    """Phase 3, cell (f): scheme="weighted" over 200,000 sessions of their
+    own, expanded by their synthesized hit counts (the replica rows the
+    JAX command line builds)."""
+    small, small_truth = synth_session_sets(N_WEIGHTED, SET_SIZE, seed=0)
+    rows = expand_weighted(small, synth_session_hitcounts(small, small_truth))
+    log(f"  weighted, default ClusterParams, {N_WEIGHTED} sessions as "
+        f"{rows.shape[1]} replica ids a row ({rows.nbytes / 2**20:.1f} MiB):")
+    params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS,
+                                    scheme="weighted")
+    run = drive(rows, params, dev)
+    info = run["info"]
+    expect_launches(run["counts"], {
+        "cminhash_binmin": len(info["chunk_bits"])
+        + (info["encoding"] == "delta"),
+        "rans_decode": (0, None)})
+    keep = pipeline._prefilter_mask(rows, params)
+    check_signatures(run, rows if keep is None else rows[keep],
+                     make_params("weighted", N_HASHES, 0).to(dev), dev)
+    run["ari"] = adjusted_rand_index(run["labels"], small_truth)
+    log(f"  ARI vs planted {run['ari']:.6f} (printed, not gated)")
+    return run
+
+
+def run_topk(store: np.ndarray, dev) -> dict:
+    """Phase 3, cell (g): topk_agreement of 64 queries drawn (seed 1) from
+    (a)'s 1M signatures, k=10; then its state held against the plain
+    version's on the same staged chunk."""
+    rng = np.random.default_rng(1)
+    queries = store[rng.choice(store.shape[0], N_QUERIES, replace=False)]
+    log(f"  topk_agreement, {N_QUERIES} queries x {store.shape[0]} "
+        f"signatures, k={TOPK_K}:")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    counts, rows = topk_agreement(queries, store, TOPK_K, device=dev)
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"  wall {wall:.3f} s, launches {launches}")
+    expect_launches(launches, {"topk_chunk": 1})
+    if not (counts.shape == (N_QUERIES, TOPK_K)
+            and (counts[:, 0] == N_HASHES).all() and (rows >= 0).all()):
+        raise AssertionError("a query's first hit is not a full agreement")
+    args = (*topk_args(store, queries, dev), TOPK_K)
+    got = ksc.topk_chunk(*args)
+    want = ksc.topk_chunk_plain(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("top-k state differs from the plain version's")
+    if not all(np.array_equal(a, b) for a, b in zip(
+            (counts, rows), ksc._finalize(*want, N_QUERIES, TOPK_K))):
+        raise AssertionError("topk_agreement differs from the plain state")
+    log(f"  state == the plain version's; first hits 128 agreements, "
+        f"k-th hit counts {int(counts[:, -1].min())}-"
+        f"{int(counts[:, -1].max())}")
+    return {"counts": launches, "wall_s": wall, "args": args}
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
@@ -417,24 +619,66 @@ def rans_bound(lane: entropy.EntropyLane) -> tuple:
                    ops / INT32_PIPE_OPS_PER_S * 1e3)
 
 
+def cminhash_bound(n: int, s: int) -> tuple:
+    """Least time for the bin-min: ids read once, a0 and b0 read once, the
+    [N, H] bins and [N] row minima written once; per id one IMAD (FMA pipe)
+    and one min (ALU pipe), the remainder not counted."""
+    nbytes = n * s * 4 + 2 * 4 + n * (N_HASHES + 1) * 4
+    return _larger(nbytes / HBM_BYTES_PER_S * 1e3,
+                   n * s / INT32_PIPE_OPS_PER_S * 1e3)
+
+
+def topk_bound(args: tuple, n_rows: int) -> tuple:
+    """Least time for one top-k chunk: queries, the transposed store, the
+    row ids and the incoming state read once, the state written once; per
+    (query, valid row, hash) one compare and one add, counted as issuing
+    side by side on two integer pipes (the lower of the two readings: 0.98
+    ms at cell (g) if they share one pipe)."""
+    q, s_t, rid, topc, topr, _ = args
+    nbytes = sum(t.numel() * 4 for t in (q, s_t, rid, topc, topr)) \
+        + 2 * topc.numel() * 4
+    ops_per_pipe = N_QUERIES * n_rows * q.shape[1]
+    return _larger(nbytes / HBM_BYTES_PER_S * 1e3,
+                   ops_per_pipe / INT32_PIPE_OPS_PER_S * 1e3)
+
+
 def _larger(t_bytes: float, t_ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def timing(items, plan: dict, dev, consts) -> dict:
-    """Phase 4: the MinHash kernels at the plain path's first chunk, the
-    rANS kernel at the default run's rep and counts lanes."""
+def binmin_library(ids: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor):
+    """The one PyTorch call that computes the bin-min: scatter_reduce_
+    (amin) of the widened permuted ids into [N, H] int64 filled with UMAX.
+    Returns it as a thunk over precomputed ids and bins (a yardstick
+    only; the port never calls it)."""
+    u64 = (mul_u32(widen(ids), widen(a0)) + widen(b0)) & U32_MASK
+    bins = u64 % N_HASHES
+    shape = (ids.shape[0], N_HASHES)
+    return lambda: torch.full(shape, U32_MASK, dtype=torch.int64,
+                              device=ids.device).scatter_reduce_(
+                                  1, bins, u64, "amin")
+
+
+def timing(items, plan: dict, dev, consts, topk: dict) -> dict:
+    """Phase 4: the MinHash and bin-min kernels at the plain path's first
+    chunk, the rANS kernel at the default run's rep and counts lanes, the
+    top-k kernel at cell (g)'s chunk."""
     chunk = items[:CHUNK_ROWS]
     ids = u32_tensor(quantize_ids(chunk, 10), dev)
     wire = pack_chunk(chunk)
     if wire.bits != 24:
         raise AssertionError(f"first chunk ships {wire.bits}-bit ids, not 24")
     payload = torch.from_numpy(wire.payload).to(dev)
+    a0, b0 = make_params("cminhash", N_HASHES, 0).to(dev).arrays[:2]
     # The plain rANS decode takes seconds a lane (a launch of torch ops per
-    # step); phase 2 ran it on these inputs already, so it gets no warm-up.
+    # step), the plain top-k seconds a chunk (a launch of torch ops per
+    # selection step and tile); phase 2 and cell (g) ran them on these
+    # inputs already, so they get no warm-up.
     cases = {
         "minhash_and_keys": ((ids, *consts, N_BANDS),
                              minhash_bound(CHUNK_ROWS, SET_SIZE, 4), 1, 10),
+        "cminhash_binmin": ((ids, a0, b0, N_HASHES),
+                            cminhash_bound(CHUNK_ROWS, SET_SIZE), 1, 10),
         "minhash_and_keys_packed": (
             (payload, wire.shape, 3, wire.offset, *consts, N_BANDS),
             minhash_bound(CHUNK_ROWS, SET_SIZE, 3), 1, 10),
@@ -442,18 +686,24 @@ def timing(items, plan: dict, dev, consts) -> dict:
     for name, lane in plan["lanes"].items():
         cases[f"rans_decode:{name}"] = (rans_args(lane, dev),
                                         rans_bound(lane), 0, 1)
+    cases["topk_chunk"] = (topk["args"], topk_bound(topk["args"],
+                                                    N_SESSIONS), 0, 1)
+    library = {"cminhash_binmin": binmin_library(ids, a0, b0)}
     out = {}
     for case, (args, (b_ms, by), plain_warmup, plain_reps) in cases.items():
-        k = KERNELS[case.split(":")[0]]
+        name = case.split(":")[0]
+        k = KERNELS[name]
         ms = time_ms(lambda: k["wrapper"](*args))
         plain_ms = time_ms(lambda: k["plain"](*args), warmup=plain_warmup,
                            reps=plain_reps)
+        lib_ms = time_ms(library[name]) if name in library else None
         out[case] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": by}
+                     "bound_by": by, "library_ms": lib_ms}
         steps = ""
         if case.startswith("rans"):
             steps = f", {-(-args[1] // entropy.N_STREAMS)} serial steps"
-        log(f"  {case}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+        lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+        log(f"  {case}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, bound "
             f"{b_ms:.6f} ms by {by}{steps})")
     return out
 
@@ -471,33 +721,40 @@ def main() -> int:
     _build.load_extension()
     log(f"  built {', '.join(_build.SOURCES)} in {_build.build_seconds:.1f} s")
 
-    consts = make_params("kminhash", N_HASHES, 0).to(dev).arrays
+    hp = make_params("kminhash", N_HASHES, 0).to(dev)
     items, truth = synth_session_sets(N_SESSIONS, SET_SIZE, seed=0)
     log("phase 2: kernel checks (tolerance: exact)")
-    errs = minhash_checks(dev, consts)
+    errs = minhash_checks(dev, hp.arrays)
+    errs["cminhash_binmin"] = cminhash_checks(dev)
     plan = default_run_lanes(items)
     errs["rans_decode"] = rans_checks(plan, dev)
+    errs["topk_chunk"] = topk_checks(dev)
 
     log(f"phase 3: main path, {N_SESSIONS} sessions x {SET_SIZE} ids")
-    small_input_check(items, dev)
-    plain10 = run_plain(items, truth, 0, "minhash_and_keys", consts, dev)
-    plain24 = run_plain(items, truth, -1, "minhash_and_keys_packed", consts,
-                        dev)
+    small_input_check(items, truth, dev)
+    plain10 = run_plain(items, truth, 0, "minhash_and_keys", hp, dev)
+    plain24 = run_plain(items, truth, -1, "minhash_and_keys_packed", hp, dev)
+    del plain24["sig"]
     run_forced(dev)
-    default = run_default(items, truth, plan, plain10["labels"], consts, dev)
+    default = run_default(items, truth, plan, plain10["labels"], hp, dev)
+    cmin = run_cminhash(items, truth, plan, dev)
+    run_weighted(dev)
+    topk = run_topk(plain10.pop("sig"), dev)
     launches = {"minhash_and_keys": plain10["counts"]["minhash_and_keys"],
+                "cminhash_binmin": cmin["counts"]["cminhash_binmin"],
                 "minhash_and_keys_packed":
                     plain24["counts"]["minhash_and_keys_packed"],
-                "rans_decode": default["counts"]["rans_decode"]}
+                "rans_decode": default["counts"]["rans_decode"],
+                "topk_chunk": topk["counts"]["topk_chunk"]}
 
     log("phase 4: timing (CUDA events, median)")
-    times = timing(items, plan, dev, consts)
+    times = timing(items, plan, dev, hp.arrays, topk)
     times["rans_decode"] = times["rans_decode:rep"]
 
     kernels_line = [{
         "name": name, "route": "cuda", "source": k["source"],
         "replaces": k["replaces"], "launches": launches[name],
-        "max_abs_err": errs[name], **times[name], "library_ms": None,
+        "max_abs_err": errs[name], **times[name],
     } for name, k in KERNELS.items()]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

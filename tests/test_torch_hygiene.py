@@ -55,7 +55,8 @@ def test_no_handler_around_kernel_launches():
     or launch raises, nothing gives way to the plain version."""
     paths = [os.path.join(PKG, "cluster", "pipeline.py")] + [
         os.path.join(PKG, "cluster", "kernels", f)
-        for f in ("__init__.py", "minhash.py", "rans.py", "_build.py")]
+        for f in ("__init__.py", "minhash.py", "cminhash.py", "rans.py",
+                  "score.py", "_build.py")]
     for path in paths:
         tree = ast.parse(open(path, encoding="utf-8").read())
         handlers = [n.lineno for n in ast.walk(tree)
@@ -75,10 +76,11 @@ def test_resolve_device_raises_without_a_card(monkeypatch):
 
 def test_entry_point_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    params = tpipe.ClusterParams(encoding="pack24", entropy="off",
-                                 prefilter="off")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        tpipe.cluster_sessions(np.zeros((4, 4), np.uint32), params)
+    for scheme in ("kminhash", "cminhash", "weighted"):
+        params = tpipe.ClusterParams(encoding="pack24", entropy="off",
+                                     prefilter="off", scheme=scheme)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpipe.cluster_sessions(np.zeros((4, 4), np.uint32), params)
 
 
 def test_build_is_lazy_and_targets_hopper():
@@ -89,7 +91,8 @@ def test_build_is_lazy_and_targets_hopper():
                for s in _build.SOURCES)
     # One build step for every kernel; PyTorch's headers in one file only.
     names = [os.path.basename(s) for s in _build.SOURCES]
-    assert names == ["minhash.cu", "rans.cu", "binding.cpp"]
+    assert names == ["minhash.cu", "cminhash.cu", "rans.cu", "score.cu",
+                     "binding.cpp"]
     for s in _build.SOURCES:
         text = open(s, encoding="utf-8").read()
         assert ("torch/extension.h" in text) == s.endswith("binding.cpp")

@@ -107,8 +107,9 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert kernels.launch_counts() == {"minhash_and_keys": 0,
+                                       "cminhash_binmin": 0,
                                        "minhash_and_keys_packed": 0,
-                                       "rans_decode": 0}
+                                       "rans_decode": 0, "topk_chunk": 0}
 
 
 def test_wrappers_reject_bad_inputs():

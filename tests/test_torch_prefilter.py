@@ -50,3 +50,23 @@ def test_edge_cases_match_jax():
     for truth in (np.array([0, 1, 2]), np.array([0, 0, 2])):
         assert tpf.prefilter_recall(keep, truth) == jpf.prefilter_recall(
             keep, truth)
+
+
+@pytest.mark.parametrize("scheme", ["kminhash", "cminhash", "weighted"])
+def test_collide_mask_takes_the_scheme_as_jax(planted, scheme):
+    """The mask is one for every scheme; the scheme is validated."""
+    items, _ = planted
+    np.testing.assert_array_equal(
+        tpf.collide_mask(items, 1, scheme=scheme),
+        jpf.collide_mask(items, 1, scheme=scheme))
+    np.testing.assert_array_equal(tpf.collide_mask(items, 1, scheme=scheme),
+                                  tpf.collide_mask(items, 1))
+
+
+def test_collide_mask_rejects_an_unknown_scheme():
+    items = np.zeros((4, 8), np.uint32)
+    with pytest.raises(ValueError) as want:
+        jpf.collide_mask(items, scheme="minhash")
+    with pytest.raises(ValueError) as got:
+        tpf.collide_mask(items, scheme="minhash")
+    assert str(got.value) == str(want.value)

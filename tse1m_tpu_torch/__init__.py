@@ -1,9 +1,12 @@
 """tse1m_tpu_torch: the PyTorch/CUDA port of tse1m_tpu, for one NVIDIA H100.
 
 This package runs the cold, storeless, single-GPU session clustering of
-``tse1m_tpu.cluster.cluster_sessions``, the wire v3 levers (host prefilter,
-base-delta lane, rANS lanes) included, with its two MinHash kernels and its
-rANS decode written by hand in CUDA C++ for Hopper
+``tse1m_tpu.cluster.cluster_sessions`` under its three signature schemes
+(kminhash, cminhash, weighted), the wire v3 levers (host prefilter,
+base-delta lane, rANS lanes) included, and the single-shot exact top-k
+agreement scoring ``topk_agreement``.  Every TPU kernel of those paths (the
+two MinHash kernels, the one-permutation bin-min, the rANS decode and the
+top-k scorer) is written by hand in CUDA C++ for Hopper
 (``cluster/kernels/csrc/``).  It imports ``torch`` and ``numpy`` and nothing
 of the JAX package.
 
@@ -16,9 +19,12 @@ uint32 bits (``tse1m_tpu_torch.device``).
 """
 
 from .cluster import ClusterParams, adjusted_rand_index, cluster_sessions
-from .data import synth_session_sets
+from .cluster.kernels.score import topk_agreement
+from .cluster.schemes import expand_weighted
+from .data import synth_session_hitcounts, synth_session_sets
 from .device import as_u32_numpy, narrow, resolve_device, u32_tensor, widen
 
 __all__ = ["ClusterParams", "adjusted_rand_index", "as_u32_numpy",
-           "cluster_sessions", "narrow", "resolve_device",
-           "synth_session_sets", "u32_tensor", "widen"]
+           "cluster_sessions", "expand_weighted", "narrow", "resolve_device",
+           "synth_session_hitcounts", "synth_session_sets", "topk_agreement",
+           "u32_tensor", "widen"]

@@ -4,10 +4,13 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 ``reset_launch_counts`` and ``launch_counts`` read and clear them all.
 """
 
+from .cminhash import cminhash_binmin
 from .minhash import minhash_and_keys, minhash_and_keys_packed
 from .rans import rans_decode
+from .score import topk_chunk
 
-_WRAPPERS = (minhash_and_keys, minhash_and_keys_packed, rans_decode)
+_WRAPPERS = (minhash_and_keys, cminhash_binmin, minhash_and_keys_packed,
+             rans_decode, topk_chunk)
 
 
 def reset_launch_counts() -> None:
@@ -20,5 +23,6 @@ def launch_counts() -> dict:
     return {wrapper.__name__: wrapper.launches for wrapper in _WRAPPERS}
 
 
-__all__ = ["launch_counts", "minhash_and_keys", "minhash_and_keys_packed",
-           "rans_decode", "reset_launch_counts"]
+__all__ = ["cminhash_binmin", "launch_counts", "minhash_and_keys",
+           "minhash_and_keys_packed", "rans_decode", "reset_launch_counts",
+           "topk_chunk"]

@@ -1,7 +1,8 @@
 """Build the package's CUDA sources at first use.
 
-``load_extension()`` compiles ``csrc/minhash.cu`` and ``csrc/rans.cu`` (nvcc,
-``sm_90a``) and ``csrc/binding.cpp`` (the host compiler; the one file that
+``load_extension()`` compiles ``csrc/minhash.cu``, ``csrc/cminhash.cu``,
+``csrc/rans.cu`` and ``csrc/score.cu`` (nvcc, ``sm_90a``) and
+``csrc/binding.cpp`` (the host compiler; the one file that
 includes PyTorch's headers) with one ``torch.utils.cpp_extension.load`` into
 ``build/tse1m_tpu_torch/`` beside the package, and imports the result.
 ``load`` caches by content, so a second process with unchanged sources
@@ -17,11 +18,14 @@ import time
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f)
-                for f in ("minhash.cu", "rans.cu", "binding.cpp"))
+                for f in ("minhash.cu", "cminhash.cu", "rans.cu", "score.cu",
+                          "binding.cpp"))
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))), "build", "tse1m_tpu_torch")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
+# Dynamic shared memory one block may opt into on sm_90 (227 KB).
+MAX_SMEM = 232448
 
 _lock = threading.Lock()
 _ext = None

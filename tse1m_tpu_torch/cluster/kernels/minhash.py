@@ -24,12 +24,11 @@ import torch
 
 from ...device import U32_MASK, narrow
 from ..minhash import band_keys, minhash_signatures
-from ._build import load_extension
+from ._build import MAX_SMEM, load_extension
 
 # Shared memory of one block: the id tile (S rounded up to 4) and the
 # signature tile, 32 rows each (csrc/minhash.cu kTileRows).
 _TILE_ROWS = 32
-_MAX_SMEM = 232448
 
 
 def minhash_and_keys_plain(items: torch.Tensor, a: torch.Tensor,
@@ -76,9 +75,9 @@ def _check_consts(a: torch.Tensor, b: torch.Tensor, n_bands: int,
         if not (a.is_contiguous() and b.is_contiguous()):
             raise ValueError("a and b must be contiguous")
         smem = 4 * _TILE_ROWS * (-(-s // 4) * 4 + h)
-        if smem > _MAX_SMEM:
+        if smem > MAX_SMEM:
             raise ValueError(f"S={s}, H={h} need {smem} bytes of shared "
-                             f"memory per block, more than {_MAX_SMEM}")
+                             f"memory per block, more than {MAX_SMEM}")
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return h

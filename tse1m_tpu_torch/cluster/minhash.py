@@ -1,12 +1,21 @@
-"""MinHash signatures and banded LSH keys, plain PyTorch (kminhash).
+"""MinHash signatures and banded LSH keys, plain PyTorch.
 
-K independent multiply-add hashes over uint32 with natural wraparound,
-``h_i(x) = a_i * x + b_i (mod 2^32)`` with odd ``a_i``; a row's signature is
-the per-hash minimum over its ids.  Band keys fold each band's signature
-rows with an FNV-1a-style mix salted by the band index.  Bands are
-interleaved: band k folds signature rows {k, k+B, k+2B, ...}.
+Two signature families, as in the JAX package:
 
-These are the plain versions the CUDA kernel in kernels/minhash.py is held
+- **kminhash**: K independent multiply-add hashes over uint32 with natural
+  wraparound, ``h_i(x) = a_i * x + b_i (mod 2^32)`` with odd ``a_i``; a
+  row's signature is the per-hash minimum over its ids.
+- **cminhash** (also ``weighted``, over replica-expanded rows): one
+  permutation ``u = a0 * x + b0 (mod 2^32)``; each permuted value lands in
+  bin ``u mod H`` and the bin keeps its minimum (``UMAX`` = empty).  Empty
+  bins densify over a fixed schedule of donor maps, and any bin still
+  empty takes the circulant value ``rowmin(u) + offs[k]``.
+
+Band keys fold each band's signature rows with an FNV-1a-style mix salted
+by the band index.  Bands are interleaved: band k folds signature rows
+{k, k+B, k+2B, ...}.
+
+These are the plain versions the CUDA kernels in kernels/ are held
 against.  They compute in int64 (see ``tse1m_tpu_torch.device``): a product
 of two uint32 values can reach 2^64, so the multiplier is split into 16-bit
 halves and each partial product masked before it is shifted.  The hash
@@ -76,3 +85,43 @@ def band_keys(sig: torch.Tensor, n_bands: int) -> torch.Tensor:
         keys = ((keys ^ s64[:, j * n_bands:(j + 1) * n_bands])
                 * int(_FNV_PRIME)) & U32_MASK
     return narrow(keys)
+
+
+def cminhash_binmin_plain(items: torch.Tensor, a0: torch.Tensor,
+                          b0: torch.Tensor, n_hashes: int):
+    """[N, S] int32 ids, [1] int32 a0 and b0 -> ([N, H] bin minima, [N] row
+    minima), int32 carrying uint32 bits.
+
+    u = (a0 * x + b0) mod 2^32, bin = u mod H (unsigned, any H); a bin no
+    id reaches holds UMAX, as does a bin whose only value is a genuine UMAX.
+    Widened to int64 first: int32 ``amin`` would be a signed min."""
+    n = items.shape[0]
+    u = (mul_u32(widen(items), widen(a0)) + widen(b0)) & U32_MASK
+    binmin = torch.full((n, n_hashes), int(UMAX), dtype=torch.int64,
+                        device=items.device)
+    binmin.scatter_reduce_(1, u % n_hashes, u, "amin")
+    return narrow(binmin), narrow(u.amin(1))
+
+
+def cminhash_densify(v: torch.Tensor, rowmin: torch.Tensor,
+                     jmap: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Densification and circulant fallback over [N, H] bin minima (UMAX =
+    empty; -1 as int32 bits): each donor round fills an empty bin from its
+    donor ``jmap[t]`` when that one is full, chained round after round;
+    bins still empty take ``rowmin + offs`` (mod 2^32)."""
+    empty = -1  # UMAX as int32 bits
+    for t in range(jmap.shape[0]):
+        cand = v.index_select(1, jmap[t])
+        v = torch.where((v == empty) & (cand != empty), cand, v)
+    fb = narrow((widen(rowmin)[:, None] + widen(offs)[None, :]) & U32_MASK)
+    return torch.where(v == empty, fb, v)
+
+
+def cminhash_signatures(items: torch.Tensor, a0: torch.Tensor,
+                        b0: torch.Tensor, jmap: torch.Tensor,
+                        offs: torch.Tensor) -> torch.Tensor:
+    """[N, S] int32 ids -> [N, H] int32 one-permutation signatures (uint32
+    bits): bin minima, then densification.  ``jmap``: [T, H] int64 donor
+    maps; ``offs``: [H] circulant offsets."""
+    binmin, rowmin = cminhash_binmin_plain(items, a0, b0, offs.shape[0])
+    return cminhash_densify(binmin, rowmin, jmap, offs)

@@ -2,8 +2,9 @@
 
 Items [N, S] -> host prefilter (drops rows that can collide with nothing)
 -> wire plan (quantization, the base-delta lane) -> adaptive-width or
-rANS-coded wire chunks -> MinHash signatures and band keys (the CUDA
-kernels) -> bucket reps -> verified edges -> propagated labels.  A port of
+rANS-coded wire chunks -> signatures and band keys of the run's scheme
+(kminhash, cminhash or weighted; the CUDA kernels) -> bucket reps ->
+verified edges -> propagated labels.  A port of
 the single-host wire v3 flow of ``tse1m_tpu/cluster/pipeline.py``: the same
 ``ClusterParams`` and defaults, the same wire plan and chunk cuts, and
 labels equal to the JAX package's element for element.
@@ -14,9 +15,10 @@ main thread computes on chunk k.  The producer waits for the copy's event
 before it hands the chunk over, as the JAX pipeline's producer blocks on
 its ``device_put``: the wait gives the h2d stage its wall and holds the
 producer to one chunk ahead.  Byte-width chunks of the plain lane go to
-the packed kernel, which reads the wire bytes directly; sub-byte chunks are
-decoded by ``_unpack_bits`` and rANS-coded chunks by the rANS kernel, and
-go to the uint32 kernel.
+the packed kernel, which reads the wire bytes directly (the one-permutation
+schemes decode them first); sub-byte chunks are decoded by
+``_unpack_bits`` and rANS-coded chunks by the rANS kernel, and go to the
+uint32 kernel (kminhash) or the bin-min kernel (cminhash, weighted).
 
 On the encoded path the full lane streams as above and stays decoded on
 the card; the delta lane's metadata (mask, base references, counts,
@@ -541,7 +543,7 @@ def _prefilter_mask(items: np.ndarray,
         return None
     if params.prefilter == "auto" and items.nbytes < _AUTO_MIN_BYTES:
         return None
-    return collide_mask(items, params.seed)
+    return collide_mask(items, params.seed, scheme=params.scheme)
 
 
 def _prefilter_keep(items: np.ndarray, params: ClusterParams,

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .schemes import get_scheme
+
 N_BANDS = 20          # prefilter bands (keys per row)
 HASHES_PER_BAND = 2   # b-bit minwise values packed per band key
 KEY_BITS = 16         # b-bit minwise remnant per hash
@@ -74,10 +76,18 @@ def band_keys_host(items: np.ndarray, seed: int = 0) -> np.ndarray:
     return keys
 
 
-def collide_mask(items: np.ndarray, seed: int = 0) -> np.ndarray:
+def collide_mask(items: np.ndarray, seed: int = 0,
+                 scheme: str = "kminhash") -> np.ndarray:
     """[N] bool: True for rows sharing at least one band bucket with
     another row (the rows that can possibly collide on the device).  Rows
-    with False are bucketed singleton in every band and skip the wire."""
+    with False are bucketed singleton in every band and skip the wire.
+
+    ``scheme`` names the run's signature family and is validated here, as
+    in the JAX package.  The mask is one for every scheme: each estimates
+    plain Jaccard of the rows it is given, and ``weighted`` rows arrive
+    replica-expanded, so isolation in replica space is weighted-Jaccard
+    isolation."""
+    get_scheme(scheme)
     n = items.shape[0]
     collide = np.zeros(n, bool)
     if n < 2:

@@ -1,7 +1,8 @@
-"""Planted near-duplicate session sets (numpy, seeded).
+"""Planted near-duplicate session sets and their hit counts (numpy, seeded).
 
-A copy of ``tse1m_tpu.data.synth.synth_session_sets``: the same seed gives
-the same sets in both packages.
+Copies of ``tse1m_tpu.data.synth.synth_session_sets`` and
+``synth_session_hitcounts``: the same seed gives the same data in both
+packages.
 """
 
 from __future__ import annotations
@@ -47,3 +48,32 @@ def synth_session_sets(
 
     perm = rng.permutation(n_sessions)
     return items[perm], labels[perm]
+
+
+def synth_session_hitcounts(
+    items: np.ndarray,
+    labels: np.ndarray,
+    max_weight: int = 8,
+    noise_prob: float = 0.05,
+    seed: int = 0,
+) -> np.ndarray:
+    """Per-edge hit counts for the weighted workload (``--scheme
+    weighted``): [N, S] uint32 in [1, max_weight].
+
+    Members of a planted cluster share a per-cluster count profile (small
+    counts common, hot edges rare), with ``noise_prob`` of positions
+    re-rolled per row, so planted weighted Jaccard stays high within a
+    cluster.  A count of 0 never occurs: membership implies a hit."""
+    rng = np.random.default_rng(seed)
+    items = np.asarray(items)
+    labels = np.asarray(labels)
+    uniq, inv = np.unique(labels, return_inverse=True)
+    base = np.minimum(
+        1 + rng.geometric(0.45, size=(uniq.size, items.shape[1])) - 1,
+        int(max_weight)).astype(np.uint32)
+    base = np.maximum(base, np.uint32(1))
+    w = base[inv].copy()
+    noise = rng.random(w.shape) < noise_prob
+    w[noise] = rng.integers(1, int(max_weight) + 1,
+                            size=int(noise.sum())).astype(np.uint32)
+    return w
