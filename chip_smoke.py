@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--calls-per-window N]
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -11,9 +11,14 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    card, bit for bit (tolerance: exact).  The MinHash and bin-min kernels
    at the main-path chunk shape (250,368 rows x 64 ids, H=128, B=16) and at
    edge shapes; the rANS kernel at the lanes the default 1M run codes (its
-   rep and counts lanes, encoded here by the port's host codec) and at the
-   edge shapes of the CPU tests; the top-k kernel at cell (g)'s shape (64
-   queries over 1,000,448 columns, k=10) and at the CPU tests' edges;
+   rep and counts lanes, encoded here by the port's host codec), each alone
+   and both in one launch, at the edge shapes of the CPU tests, and with
+   lanes of different lengths and plane counts in one launch, their words
+   at odd offsets inside one staged buffer; the top-k kernel at cell (g)'s
+   shape (64 queries over 1,000,448 columns, k=10), at the CPU tests'
+   edges, and at 72 and 128 queries, H = 16 and 128 and column counts that
+   are not a multiple of its 256-column tile (nor of 4); an H whose count
+   block does not fit in shared memory must be refused at launch;
 3. main path, on 1,000,000 planted sessions x 64 ids.  First, 20,000-row
    slices must give the same labels on the card as on the CPU: through
    each MinHash kernel on the plain wire, through every lane of wire v3
@@ -27,10 +32,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
        and band keys over all rows, and reach ARI >= 0.98;
    (d) a forced wire v3 run on 100,000 sessions (every chunk and lane coded,
        the 24-bit full lane as three byte planes plus its offset): labels
-       equal to the plain wire's, one rANS launch a coded lane;
+       equal to the plain wire's, one rANS launch a coded chunk and one for
+       all the metadata lanes;
    (c) the default ``ClusterParams`` at 1M rows, the path users get: the
        prefilter, the delta lane and the rANS lanes engage; launches of the
-       rANS kernel (one a coded lane) and the uint32 MinHash kernel only;
+       rANS kernel (one, for the rep and counts lanes together) and the
+       uint32 MinHash kernel only;
        signatures of every kept row equal to the plain version's; labels
        equal to the 10-bit plain run's element for element; ARI >= 0.98;
    (e) (c) with ``scheme="cminhash"``: the bin-min kernel on the full lane
@@ -43,9 +50,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (g) ``topk_agreement`` of 64 queries drawn from (a)'s 1M signatures,
        k=10: one launch of the top-k kernel, its state equal to the plain
        version's, each query's first hit at 128 agreements;
-4. timing: each kernel beside its plain version (CUDA events, median after
-   warm-up) at the main-path shapes, with its bound, and the bin-min
-   kernel beside ``scatter_reduce_`` (its library yardstick);
+4. timing: each kernel beside its plain version (CUDA events around
+   ``--calls-per-window`` back-to-back calls, 5 by default, median of 20
+   windows after warm-up; 1 times each call alone, as earlier versions of
+   this script did, wrapper's host work included; the plain
+   versions one call a window) at the main-path shapes, with its bound,
+   and the bin-min kernel beside ``scatter_reduce_`` (its library
+   yardstick); the rANS kernel at the rep lane alone and at (c)'s one
+   launch, with the SM clock read by nvidia-smi meanwhile and the cycles
+   a step it gives; the top-k kernel whole and each of its passes alone;
 5. the card's name and power limit from nvidia-smi.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
@@ -55,6 +68,7 @@ prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -104,6 +118,8 @@ INT32_PIPE_OPS_PER_S = 67e12 / 4
 # shift, the cumulative-frequency subtract and the renormalization compare
 # issue on the ALU pipe (the multiply-add goes to the FMA pipe).
 RANS_ALU_OPS_PER_SYMBOL = 4
+# Back-to-back kernel calls a timing window (phase 4), by default.
+KERNEL_INNER = 5
 
 MINHASH_SOURCE = "tse1m_tpu_torch/cluster/kernels/csrc/minhash.cu"
 KERNELS = {
@@ -213,7 +229,8 @@ def default_run_lanes(items) -> dict:
     """The host half of the default 1M run, as cluster_sessions plans it:
     the prefilter's keep mask, the wire plan over the kept rows and the
     coded lanes.  Returns the keep mask, the coded lanes by name and the
-    number of rANS launches the run must make (one a coded lane or chunk)."""
+    number of rANS launches the run must make (one for the coded metadata
+    lanes together, one a coded chunk)."""
     params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS)
     keep = pipeline._prefilter_mask(items, params)
     _, enc, _ = pipeline._plan_wire(items[keep], params,
@@ -226,6 +243,9 @@ def default_run_lanes(items) -> dict:
              if lane.ent is not None}
     n_coded_chunks = sum(pack_chunk(c, entropy=params.entropy).ent
                          is not None for c in chunks)
+    # One launch decodes every coded metadata lane; each coded chunk of the
+    # full lane has its own.
+    launches = int(bool(coded)) + n_coded_chunks
     log(f"  default run plan: {int(keep.sum())} rows kept, {enc.n_full} "
         f"full + {enc.n_delta} delta, coded lanes "
         + ", ".join(f"{k} ({v.n} x {v.bits} bits, {len(v.planes)} planes)"
@@ -234,8 +254,7 @@ def default_run_lanes(items) -> dict:
     if set(coded) != {"rep", "counts"} or n_coded_chunks:
         raise AssertionError("the default run codes other lanes than rep and "
                              f"counts: {sorted(coded)}, {n_coded_chunks}")
-    return {"keep": keep, "lanes": coded,
-            "launches": len(coded) + n_coded_chunks}
+    return {"keep": keep, "lanes": coded, "launches": launches}
 
 
 def skewed(rng, n: int, bits: int) -> np.ndarray:
@@ -244,31 +263,91 @@ def skewed(rng, n: int, bits: int) -> np.ndarray:
         v.astype(np.uint32)
 
 
+def check_lanes(lanes: list, label: str) -> int:
+    """The batched rANS launch vs the plain version, lane by lane, bit for
+    bit; one launch for up to 8 lanes.  Returns the max abs err."""
+    kernels.reset_launch_counts()
+    got = krans.rans_decode_lanes(lanes)
+    launches = kernels.launch_counts()["rans_decode"]
+    want = krans.rans_decode_lanes_plain(lanes)
+    torch.cuda.synchronize()
+    coded = sum(n > 0 for _, n, _ in lanes)
+    if launches != -(-coded // 8):
+        raise AssertionError(f"{coded} lanes took {launches} launches")
+    err = max(max_abs_err((g,), (w,)) for g, w in zip(got, want))
+    if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"rans_decode_lanes [{label}] differs from its "
+                             f"plain version: max abs err {err}")
+    log(f"  rans_decode_lanes [{label}]: {len(lanes)} lanes in {launches} "
+        "launch(es), each bit-identical")
+    return err
+
+
+def staged(lanes: list, dev, gaps=(1, 3, 5, 2, 7)) -> list:
+    """The lanes' word arrays placed in one int16 buffer, each after a gap
+    of a few words, so they start at 2-byte offsets that are not 16-byte
+    aligned (x0 and freqs stay where they are)."""
+    words = [w for planes, _, _ in lanes for w, _, _ in planes]
+    offsets, at = [], 0
+    for i, w in enumerate(words):
+        at += gaps[i % len(gaps)]
+        offsets.append(at)
+        at += w.numel()
+    buf = torch.zeros(at, dtype=torch.int16, device=dev)
+    views = []
+    for w, off in zip(words, offsets):
+        buf[off:off + w.numel()] = w
+        views.append(buf[off:off + w.numel()])
+    views = iter(views)
+    return [([(next(views), x0, f) for _, x0, f in planes], n, shift)
+            for planes, n, shift in lanes]
+
+
 def rans_checks(plan: dict, dev) -> int:
-    """Phase 2, rANS: the default run's coded lanes, then the CPU tests'
-    edge shapes (direct planes up to 4,096 symbols, byte planes, step
-    boundaries, a one-symbol alphabet, an empty lane)."""
+    """Phase 2, rANS: the default run's coded lanes, each alone and both in
+    one launch; the CPU tests' edge shapes (direct planes up to 4,096
+    symbols, byte planes, step boundaries, a one-symbol alphabet, an empty
+    lane); then lanes of different lengths and plane counts in one launch,
+    their words at odd offsets inside one staged buffer."""
     err = 0
-    for name, lane in plan["lanes"].items():
-        err = max(err, check_kernel("rans_decode", rans_args(lane, dev),
+    main = {name: rans_args(lane, dev) for name, lane in plan["lanes"].items()}
+    for name, args in main.items():
+        err = max(err, check_kernel("rans_decode", args,
                                     f"1M default run's {name} lane, "
-                                    f"{lane.n} symbols"))
+                                    f"{args[1]} symbols"))
+    err = max(err, check_lanes(list(main.values()),
+                               "1M default run's " + " + ".join(main)
+                               + " lanes in one launch"))
     rng = np.random.default_rng(1)
     edges = [(1, 4097), (5, 4097), (12, 4097), (13, 1000), (18, 1000),
              (24, 1000), (32, 1000), (5, 1), (5, 31), (5, 32), (5, 33),
              (18, 33)]
+    edge_args = []
     for bits, n in edges:
         lane = entropy.encode_lane(skewed(rng, n, bits), bits, force=True)
-        err = max(err, check_kernel("rans_decode", rans_args(lane, dev),
+        edge_args.append(rans_args(lane, dev))
+        err = max(err, check_kernel("rans_decode", edge_args[-1],
                                     f"{bits}-bit lane, n={n}"))
     lane = entropy.encode_lane(np.full(100, 3, np.uint32), 5, force=True)
-    err = max(err, check_kernel("rans_decode", rans_args(lane, dev),
+    edge_args.append(rans_args(lane, dev))
+    err = max(err, check_kernel("rans_decode", edge_args[-1],
                                 "one-symbol alphabet"))
     lane = entropy.encode_lane(np.zeros(0, np.uint32), 18, force=True)
     kernels.reset_launch_counts()
     if krans.rans_decode(*rans_args(lane, dev)).numel() or \
             kernels.launch_counts()["rans_decode"]:
         raise AssertionError("an empty lane launched the rANS kernel")
+    edge_args.append(rans_args(lane, dev))
+    odd = sum(int(w.numel() % 8 != 0) for planes, _, _ in edge_args
+              for w, _, _ in planes)
+    mixed = [edge_args[i] for i in (2, 4, 7, 10, 12, 13)] + [main["counts"]]
+    err = max(err, check_lanes(
+        staged(mixed, dev), "1 to 3 planes, n = 0 to 4,097 and the counts "
+        "lane in one launch, words at odd offsets in one staged buffer"))
+    err = max(err, check_lanes(
+        staged(edge_args, dev, gaps=(3,)),
+        f"all {len(edge_args)} edge lanes, words 6 bytes into their slots, "
+        f"{odd} word arrays not a multiple of 16 bytes"))
     return err
 
 
@@ -310,10 +389,24 @@ def topk_args(store: np.ndarray, queries: np.ndarray, dev, base: int = 0,
     return (q, s_t, rid, *(state or ksc._init_state(q.shape[0], dev)))
 
 
+def exact_topk_args(store: np.ndarray, queries: np.ndarray, dev,
+                    base: int = 0, state=None) -> tuple:
+    """(q, s_t, rowids, topc, topr) of a chunk of exactly the store's rows,
+    not padded to a multiple of 512 columns."""
+    n = store.shape[0]
+    q = u32_tensor(ksc._pad_queries(queries), dev)
+    s_t = u32_tensor(np.ascontiguousarray(store.T), dev)
+    rid = torch.arange(base, base + n, dtype=torch.int32,
+                       device=dev).reshape(1, n)
+    return (q, s_t, rid, *(state or ksc._init_state(q.shape[0], dev)))
+
+
 def topk_checks(dev) -> int:
     """Phase 2, top-k: cell (g)'s shape over a 4-value alphabet (counts
     near 32 of 128, so the top k end inside a crowd of ties), then the CPU
-    tests' edges, each chained into a second chunk as its incoming state."""
+    tests' edges and the count pass's query groups, hash counts and ragged
+    column counts, each chained into a second chunk as its incoming
+    state."""
     rng = np.random.default_rng(3)
     store = u32_ids(rng, (N_SESSIONS, N_HASHES), 4)
     queries = store[rng.choice(N_SESSIONS, N_QUERIES, replace=False)]
@@ -337,6 +430,34 @@ def topk_checks(dev) -> int:
         err = max(err, check_kernel(
             "topk_chunk", (*topk_args(more, queries, dev, n, state), k),
             label + ", chained into a second chunk"))
+    # The redesigned count pass: two 64-query groups (72 and 128 queries),
+    # H = 16 and 128, column counts off its 256-column tile and off 4 (the
+    # wrapper pads those), a tile count not a multiple of the grid.
+    for qn, n, h, k in ((72, 1000, 128, 10), (128, 1000, 128, 10),
+                        (5, 1001, 16, 7), (128, 3001, 16, 20),
+                        (64, 70_003, 128, 10)):
+        store = u32_ids(rng, (n, h), 4)
+        queries = u32_ids(rng, (qn, h), 4)
+        store[7] = store[9] = queries[qn - 1]
+        args = exact_topk_args(store, queries, dev)
+        label = f"Q={qn}, N={n} (exact columns), H={h}, k={k}"
+        err = max(err, check_kernel("topk_chunk", (*args, k), label))
+        state = ksc.topk_chunk_plain(*args, k)
+        more = u32_ids(rng, (n + 37, h), 4)
+        err = max(err, check_kernel(
+            "topk_chunk", (*exact_topk_args(more, queries, dev, n, state), k),
+            label + ", chained into a second chunk"))
+    # H = 300 needs more shared memory than a count block may have: the
+    # launch is refused, and no error is left behind for the next launch.
+    try:
+        ksc.topk_chunk(*topk_args(u32_ids(rng, (64, 300), 4),
+                                  u32_ids(rng, (8, 300), 4), dev), 5)
+    except RuntimeError as e:
+        log(f"  topk_chunk at H=300 refused: {str(e).splitlines()[0]}")
+    else:
+        raise AssertionError("topk_chunk launched at H=300")
+    err = max(err, check_kernel("topk_chunk", (*args, k),
+                                label + ", after the refusal"))
     args = (*topk_args(store, queries, dev), 0)
     kernels.reset_launch_counts()
     got = ksc.topk_chunk(*args)
@@ -463,11 +584,11 @@ def run_forced(dev) -> dict:
     run = drive(small, pipeline.ClusterParams(
         n_hashes=N_HASHES, n_bands=N_BANDS, **WIRE_V3_FORCED), dev)
     info = run["info"]
-    # One launch per full-lane chunk and per metadata lane (rep, counts,
-    # pos, val), all coded.
+    # One launch per full-lane chunk and one for the metadata lanes (rep,
+    # counts, pos, val), all coded.
     expect_launches(run["counts"], {
         "minhash_and_keys": (2, None),
-        "rans_decode": len(info["chunk_bits"]) + 4})
+        "rans_decode": len(info["chunk_bits"]) + 1})
     if not (info["encoding"] == "delta" and info["prefilter_rows_dropped"]):
         raise AssertionError(f"forced run did not take wire v3: {info}")
     plain = pipeline.cluster_sessions(small, params_for(0), device=dev)
@@ -581,7 +702,11 @@ def run_topk(store: np.ndarray, dev) -> dict:
     return {"counts": launches, "wall_s": wall, "args": args}
 
 
-def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
+def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 1) -> float:
+    """Median over ``reps`` windows of the card's time a call, CUDA events
+    around ``inner`` back-to-back calls a window.  Kernels are timed with
+    ``inner`` > 1, so the wrapper's host work overlaps the kernel before it
+    and the window holds the kernels, not the host's enqueue."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -590,10 +715,11 @@ def time_ms(fn, warmup: int = 3, reps: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -659,10 +785,80 @@ def binmin_library(ids: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor):
                                   1, bins, u64, "amin")
 
 
-def timing(items, plan: dict, dev, consts, topk: dict) -> dict:
+def sm_clock_mhz(fn, seconds: float = 1.0) -> tuple:
+    """Run ``fn`` back to back for ``seconds`` while nvidia-smi samples the
+    SM clock every 20 ms; returns (median, least, most) MHz."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits", "-lms", "20"], stdout=subprocess.PIPE,
+        stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate()
+    mhz = [int(v) for v in out.split() if v.isdigit()]
+    if not mhz:
+        raise AssertionError("nvidia-smi gave no SM clock")
+    return statistics.median(mhz), min(mhz), max(mhz)
+
+
+def rans_timing(plan: dict, dev, inner: int) -> dict:
+    """Phase 4, rANS: (c)'s lanes alone and in their one launch, with the
+    SM clock read meanwhile and the cycles a step it gives."""
+    lanes = {name: rans_args(lane, dev) for name, lane in
+             plan["lanes"].items()}
+    batch = list(lanes.values())
+    out = {"batched_ms": time_ms(lambda: krans.rans_decode_lanes(batch),
+                                 inner=inner)}
+    mhz, lo, hi = sm_clock_mhz(lambda: krans.rans_decode_lanes(batch))
+    out["sm_mhz"] = mhz
+    steps = max(-(-n // entropy.N_STREAMS) for _, n, _ in batch)
+    b_ms = sum(rans_bound(lane)[0] for lane in plan["lanes"].values())
+    log(f"  rans_decode_lanes: {' + '.join(lanes)} in one launch "
+        f"{out['batched_ms']:.4f} ms ({steps} steps on the longest chain: "
+        f"{out['batched_ms'] * 1e-3 * mhz * 1e6 / steps:.1f} cycles a step "
+        f"at the SM clock of {mhz} MHz, read {lo}-{hi} MHz; bound "
+        f"{b_ms:.6f} ms by bytes)")
+    return out
+
+
+def topk_pass_timing(args: tuple, inner: int) -> dict:
+    """Phase 4, top-k: each pass alone at cell (g)'s chunk (the scratch as
+    the wrapper allocates it; the select pass reads one count pass's
+    counts and histogram)."""
+    q, s_t, rid, topc, topr, k = args
+    qp, h = q.shape
+    counts = torch.empty((qp, s_t.shape[1]), dtype=torch.int16,
+                         device=q.device)
+    hist = torch.zeros((qp, h + 1), dtype=torch.int32, device=q.device)
+    outc, outr = torch.empty_like(topc), torch.empty_like(topr)
+    ext = _build.load_extension()
+
+    def run(passes: int):
+        ext.topk_chunk(q, s_t, rid, topc, topr, k, counts, hist, outc, outr,
+                       passes)
+
+    # The count pass adds into the histogram; its values do not change
+    # the count pass's work, so it is timed without zeroing.
+    count_ms = time_ms(lambda: run(1), inner=inner)
+    hist.zero_()
+    run(1)
+    select_ms = time_ms(lambda: run(2), inner=inner)
+    log(f"  topk_chunk passes: count {count_ms:.4f} ms, select "
+        f"{select_ms:.4f} ms")
+    return {"count_ms": count_ms, "select_ms": select_ms}
+
+
+def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
     """Phase 4: the MinHash and bin-min kernels at the plain path's first
-    chunk, the rANS kernel at the default run's rep and counts lanes, the
-    top-k kernel at cell (g)'s chunk."""
+    chunk, the rANS kernel at the default run's rep and counts lanes (each
+    alone and both in one launch), the top-k kernel at cell (g)'s chunk
+    (whole and by pass)."""
     chunk = items[:CHUNK_ROWS]
     ids = u32_tensor(quantize_ids(chunk, 10), dev)
     wire = pack_chunk(chunk)
@@ -693,10 +889,11 @@ def timing(items, plan: dict, dev, consts, topk: dict) -> dict:
     for case, (args, (b_ms, by), plain_warmup, plain_reps) in cases.items():
         name = case.split(":")[0]
         k = KERNELS[name]
-        ms = time_ms(lambda: k["wrapper"](*args))
+        ms = time_ms(lambda: k["wrapper"](*args), inner=inner)
         plain_ms = time_ms(lambda: k["plain"](*args), warmup=plain_warmup,
                            reps=plain_reps)
-        lib_ms = time_ms(library[name]) if name in library else None
+        lib_ms = time_ms(library[name], inner=inner) \
+            if name in library else None
         out[case] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": by, "library_ms": lib_ms}
         steps = ""
@@ -705,10 +902,24 @@ def timing(items, plan: dict, dev, consts, topk: dict) -> dict:
         lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
         log(f"  {case}: {ms:.4f} ms (plain {plain_ms:.3f} ms{lib}, bound "
             f"{b_ms:.6f} ms by {by}{steps})")
+    out["rans_decode:rep"].update(rans_timing(plan, dev, inner))
+    rep = out["rans_decode:rep"]
+    steps = -(-plan["lanes"]["rep"].n // entropy.N_STREAMS)
+    rep["cycles_per_step"] = rep["ms"] * 1e-3 * rep["sm_mhz"] * 1e6 / steps
+    log(f"  rans_decode:rep: {rep['cycles_per_step']:.1f} cycles a step at "
+        f"{rep['sm_mhz']} MHz")
+    out["topk_chunk"].update(topk_pass_timing(topk["args"], inner))
     return out
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--calls-per-window", type=int, default=KERNEL_INNER,
+                    help="back-to-back kernel calls in each CUDA-event "
+                    "timing window of phase 4 (default %(default)s)")
+    args = ap.parse_args()
+    if args.calls_per_window < 1:
+        ap.error("--calls-per-window must be at least 1")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -747,8 +958,9 @@ def main() -> int:
                 "rans_decode": default["counts"]["rans_decode"],
                 "topk_chunk": topk["counts"]["topk_chunk"]}
 
-    log("phase 4: timing (CUDA events, median)")
-    times = timing(items, plan, dev, hp.arrays, topk)
+    log(f"phase 4: timing (CUDA events around {args.calls_per_window} "
+        "calls, median)")
+    times = timing(items, plan, dev, hp.arrays, topk, args.calls_per_window)
     times["rans_decode"] = times["rans_decode:rep"]
 
     kernels_line = [{

@@ -191,3 +191,93 @@ def test_rans_decode_rejects_bad_inputs():
     lane = tent.encode_lane(np.arange(40, dtype=np.uint32), 18, force=True)
     with pytest.raises(ValueError, match="arrays for 3 planes"):
         trans.decode_lane_device(lane, _lane_arrays(lane)[:-1])
+
+
+def _table_cases():
+    rng = np.random.default_rng(11)
+    one_hot = np.zeros(256, np.uint16)
+    one_hot[77] = tent._M
+    return {
+        "alphabet 1": np.array([tent._M], np.uint16),
+        "alphabet 2": tent.normalize_freqs(np.array([3, 5])),
+        "alphabet 256": tent.normalize_freqs(rng.integers(0, 50, 256)),
+        "alphabet 4096": tent.normalize_freqs(
+            np.bincount(rng.geometric(0.01, 20_000) % 4096, minlength=4096)),
+        "one symbol of frequency 4096": one_hot,
+    }
+
+
+@pytest.mark.parametrize("case", list(_table_cases()))
+def test_fused_decode_table_matches_jax(case):
+    """The kernel's one-entry-a-slot table, unpacked, holds JAX's slot ->
+    symbol, the symbol's frequency and slot - cum[symbol] for every slot,
+    and the renormalization bound: x >> 12 <= last_q exactly when the
+    update f * (x >> 12) + k falls below 2^16."""
+    freqs = _table_cases()[case]
+    assert int(freqs.sum()) == tent._M
+    entry = trans.fused_decode_table_plain(
+        torch.from_numpy(freqs.view(np.int16))).numpy()
+    assert entry.dtype == np.int64 and entry.shape == (tent._M,)
+    slot_sym, cume = (np.asarray(a) for a in jrans._decode_tables(
+        jnp.asarray(freqs)))
+    slots = np.arange(tent._M)
+    f, k = (entry & 0xFFF) + 1, (entry >> 12) & 0xFFF
+    last_q = (entry >> 32) & 0xFFFF
+    if freqs.size <= 256:     # the symbol in the low word, 8 bits
+        sym, spare = (entry >> 24) & 0xFF, entry >> 48
+    else:                     # the symbol in the high word
+        sym, spare = entry >> 48, (entry >> 24) & 0xFF
+    np.testing.assert_array_equal(sym, slot_sym)
+    assert not spare.any()
+    np.testing.assert_array_equal(f, freqs[slot_sym].astype(np.int64))
+    np.testing.assert_array_equal(k, slots - cume[slot_sym].astype(np.int64))
+    for q in (last_q, last_q + 1):
+        np.testing.assert_array_equal(f * q + k < tent.RANS_L, q == last_q)
+
+
+def test_rans_decode_lanes_matches_host_and_pallas():
+    """A mix of lanes in one call: direct and byte planes, n = 0, 1, 31, 33
+    and 4,097, no two of the same length; on the CPU nothing launches."""
+    rng = np.random.default_rng(5)
+    specs = [(5, 4097), (18, 33), (12, 31), (24, 1), (9, 0), (32, 1000),
+             (1, 40)]
+    lanes = [tent.encode_lane(_skewed(rng, n, bits), bits, force=True)
+             for bits, n in specs]
+    arrays = [_lane_arrays(lane) for lane in lanes]
+    args = [([a[3 * p:3 * p + 3] for p in range(len(lane.planes))], lane.n,
+             8 if lane.bits > 12 else 0) for lane, a in zip(lanes, arrays)]
+    kernels.reset_launch_counts()
+    got = trans.rans_decode_lanes(args)
+    via_frames = trans.decode_lanes_device(lanes, arrays)
+    assert kernels.launch_counts()["rans_decode"] == 0
+    assert len(got) == len(lanes)
+    for lane, g, f in zip(lanes, got, via_frames):
+        assert g.dtype == torch.int32 and g.shape == (lane.n,)
+        np.testing.assert_array_equal(as_u32_numpy(g),
+                                      tent.decode_lane_host(lane))
+        assert torch.equal(g, f)
+        want = np.zeros(lane.n, np.uint32)
+        for p, pc in enumerate(lane.planes):
+            if lane.n:
+                plane = np.asarray(jrans._rans_decode_pallas(
+                    jnp.asarray(pc.words), jnp.asarray(pc.x0),
+                    jnp.asarray(pc.freqs), lane.n, True))
+                want |= plane << np.uint32(8 * p if lane.bits > 12 else 0)
+        np.testing.assert_array_equal(as_u32_numpy(g), want)
+    assert [t.numel() for t in trans.rans_decode_lanes_plain(args)] == \
+        [n for _, n in specs]
+    assert trans.rans_decode_lanes([]) == []
+
+
+def test_decode_lanes_device_refuses_a_table_that_is_not_normalized():
+    lane = tent.encode_lane(_skewed(np.random.default_rng(3), 300, 6), 6,
+                            force=True)
+    pc = lane.planes[0]
+    bad = tent.EntropyLane(
+        n=lane.n, bits=lane.bits, crc=lane.crc,
+        planes=(tent.PlaneCode(words=pc.words, x0=pc.x0,
+                               freqs=pc.freqs // 2),))
+    with pytest.raises(ValueError, match="sum to"):
+        trans.decode_lanes_device([bad], [_lane_arrays(bad)])
+    with pytest.raises(ValueError, match="sum to"):
+        trans.decode_lane_device(bad, _lane_arrays(bad))

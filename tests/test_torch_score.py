@@ -147,3 +147,36 @@ def test_wrapper_on_cpu_runs_plain_and_counts_no_launch():
     for g, w in zip(ksc.topk_chunk(*args), ksc.topk_chunk_plain(*args)):
         assert torch.equal(g, w)
     assert kernels.launch_counts()["topk_chunk"] == 0
+
+
+@pytest.mark.parametrize("qn,n,h,k", [
+    (72, 300, 128, 10),      # two query groups of the card's count pass
+    (128, 200, 64, 10),      # two full groups
+    (72, 260, 16, 5),        # H = 16: one short stage of hashes
+    (8, 90, 300, 5),         # H = 300: past the card's count block
+])
+def test_topk_chunk_plain_matches_pallas_query_groups(qn, n, h, k):
+    """Query counts past one 64-query group and hash counts of 16, 64, 128
+    and 300, chained into a second chunk, against the Pallas kernel."""
+    rng = np.random.default_rng(qn + n + h)
+    q = _sigs(rng, (qn, h), 4)
+    stores = [_sigs(rng, (n, h), 4), _sigs(rng, (n + 37, h), 4)]
+    stores[0][5] = q[qn - 1]
+    topc = np.full((qn, ksc.K_PAD), -1, np.int32)
+    topr = np.full((qn, ksc.K_PAD), jscore.ROW_INF, np.int32)
+    jc, jr = jnp.asarray(topc), jnp.asarray(topr)
+    tc, tr = torch.from_numpy(topc), torch.from_numpy(topr)
+    base = 0
+    for store in stores:
+        s_t, rid = _chunk(store, base)
+        base += store.shape[0]
+        jc, jr = jscore._topk_chunk_pallas(jnp.asarray(q), jnp.asarray(s_t),
+                                           jnp.asarray(rid), jc, jr, k,
+                                           BLOCK_N, True)
+        tc, tr = ksc.topk_chunk_plain(u32_tensor(q), u32_tensor(s_t),
+                                      torch.from_numpy(rid), tc, tr, k)
+        want = _normalised(jc, jr)
+        np.testing.assert_array_equal(tc.numpy(), want[0])
+        np.testing.assert_array_equal(tr.numpy(), want[1])
+    assert tc[qn - 1, 0] == h and tr[qn - 1, 0] == 5
+

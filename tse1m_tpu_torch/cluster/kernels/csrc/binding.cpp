@@ -35,12 +35,13 @@ cudaError_t tse1m_launch_topk_chunk(const uint32_t* q, int qp, int h,
                                     int np, const int* topc_in,
                                     const int* topr_in, int k,
                                     int16_t* counts, int* hist, int* topc_out,
-                                    int* topr_out, cudaStream_t stream);
-void tse1m_launch_rans_decode(int n_planes, const uint16_t* const* words,
-                              const int* n_words, const uint32_t* const* x0,
-                              const uint16_t* const* freqs, int alphabet,
-                              int n, int shift_step, uint32_t* out,
-                              cudaStream_t stream);
+                                    int* topr_out, int passes,
+                                    cudaStream_t stream);
+cudaError_t tse1m_launch_rans_decode_lanes(
+    int n_lanes, const int* n_planes, const uint16_t* const* const* words,
+    const int* const* n_words, const uint32_t* const* const* x0,
+    const uint16_t* const* const* freqs, const int* alphabet, const int* n,
+    const int* byte_planes, uint32_t* const* out, cudaStream_t stream);
 
 namespace {
 
@@ -140,7 +141,8 @@ void topk_chunk(const torch::Tensor& q, const torch::Tensor& s_t,
                 const torch::Tensor& rowids, const torch::Tensor& topc,
                 const torch::Tensor& topr, int64_t k,
                 const torch::Tensor& counts, const torch::Tensor& hist,
-                const torch::Tensor& topc_out, const torch::Tensor& topr_out) {
+                const torch::Tensor& topc_out, const torch::Tensor& topr_out,
+                int64_t passes) {
   check(q, at::kInt, "q");
   check(s_t, at::kInt, "s_t");
   check(rowids, at::kInt, "rowids");
@@ -163,6 +165,10 @@ void topk_chunk(const torch::Tensor& q, const torch::Tensor& s_t,
                 "state: [Qp, 128]");
   TORCH_CHECK(counts.numel() == qp * np, "counts: [Qp, Np]");
   TORCH_CHECK(hist.numel() == qp * (h + 1), "hist: [Qp, H + 1]");
+  TORCH_CHECK(np % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(s_t.data_ptr()) % 16 == 0,
+              "s_t: 16-byte aligned, Np a multiple of 4");
+  TORCH_CHECK(passes >= 1 && passes <= 3, "passes: 1 count, 2 select, 3");
   const c10::cuda::CUDAGuard guard(q.device());
   const cudaError_t err = tse1m_launch_topk_chunk(
       u32<const uint32_t>(q), static_cast<int>(qp), static_cast<int>(h),
@@ -171,51 +177,80 @@ void topk_chunk(const torch::Tensor& q, const torch::Tensor& s_t,
       topr.data_ptr<int32_t>(), static_cast<int>(k),
       counts.data_ptr<int16_t>(), hist.data_ptr<int32_t>(),
       topc_out.data_ptr<int32_t>(), topr_out.data_ptr<int32_t>(),
-      at::cuda::getCurrentCUDAStream());
+      static_cast<int>(passes), at::cuda::getCurrentCUDAStream());
   TORCH_CHECK(err == cudaSuccess, "topk_chunk launch: ",
               cudaGetErrorString(err));
 }
 
-void rans_decode(const std::vector<torch::Tensor>& words,
-                 const std::vector<torch::Tensor>& x0,
-                 const std::vector<torch::Tensor>& freqs, int64_t n,
-                 int64_t shift_step, const torch::Tensor& out) {
-  const size_t n_planes = words.size();
-  TORCH_CHECK(n_planes >= 1 && n_planes <= 4 && x0.size() == n_planes &&
-                  freqs.size() == n_planes,
-              "need 1..4 planes of (words, x0, freqs)");
-  check(out, at::kInt, "out");
-  TORCH_CHECK(out.dim() == 1 && out.size(0) == n, "out: [n]");
-  TORCH_CHECK(shift_step >= 0 && shift_step * (int64_t)(n_planes - 1) < 32,
-              "plane shift out of range");
-  const int64_t alphabet = freqs[0].numel();
-  TORCH_CHECK(alphabet >= 1 && alphabet <= 4096, "alphabet must be 1..4096");
-  std::vector<const uint16_t*> words_p, freqs_p;
-  std::vector<const uint32_t*> x0_p;
-  std::vector<int> n_words;
-  for (size_t p = 0; p < n_planes; ++p) {
-    check(words[p], at::kShort, "words");
-    check(x0[p], at::kInt, "x0");
-    check(freqs[p], at::kShort, "freqs");
-    TORCH_CHECK(x0[p].numel() == 32, "x0: [32]");
-    TORCH_CHECK(freqs[p].numel() == alphabet, "planes differ in alphabet");
-    TORCH_CHECK(words[p].numel() < (int64_t{1} << 31), "too many words");
-    TORCH_CHECK(reinterpret_cast<uintptr_t>(words[p].data_ptr()) % 8 == 0,
-                "words must be 8-byte aligned");
-    words_p.push_back(
-        reinterpret_cast<const uint16_t*>(words[p].data_ptr<int16_t>()));
-    freqs_p.push_back(
-        reinterpret_cast<const uint16_t*>(freqs[p].data_ptr<int16_t>()));
-    x0_p.push_back(u32<const uint32_t>(x0[p]));
-    n_words.push_back(static_cast<int>(words[p].numel()));
+void rans_decode_lanes(const std::vector<std::vector<torch::Tensor>>& words,
+                       const std::vector<std::vector<torch::Tensor>>& x0,
+                       const std::vector<std::vector<torch::Tensor>>& freqs,
+                       const std::vector<int64_t>& n,
+                       const std::vector<torch::Tensor>& out) {
+  constexpr size_t kMaxLanes = 8, kMaxPlanes = 4;
+  const size_t n_lanes = words.size();
+  TORCH_CHECK(n_lanes >= 1 && n_lanes <= kMaxLanes, "need 1..8 lanes");
+  TORCH_CHECK(x0.size() == n_lanes && freqs.size() == n_lanes &&
+                  n.size() == n_lanes && out.size() == n_lanes,
+              "lane arguments differ in length");
+  const uint16_t* words_p[kMaxLanes][kMaxPlanes] = {};
+  const uint32_t* x0_p[kMaxLanes][kMaxPlanes] = {};
+  const uint16_t* freqs_p[kMaxLanes][kMaxPlanes] = {};
+  int n_words[kMaxLanes][kMaxPlanes] = {};
+  const uint16_t* const* words_l[kMaxLanes];
+  const uint32_t* const* x0_l[kMaxLanes];
+  const uint16_t* const* freqs_l[kMaxLanes];
+  const int* n_words_l[kMaxLanes];
+  int n_planes[kMaxLanes], alphabet[kMaxLanes], n_i[kMaxLanes],
+      byte_i[kMaxLanes];
+  uint32_t* out_p[kMaxLanes];
+  for (size_t l = 0; l < n_lanes; ++l) {
+    const size_t planes = words[l].size();
+    TORCH_CHECK(planes >= 1 && planes <= kMaxPlanes &&
+                    x0[l].size() == planes && freqs[l].size() == planes,
+                "need 1..4 planes of (words, x0, freqs) a lane");
+    check(out[l], at::kInt, "out");
+    TORCH_CHECK(n[l] >= 1 && out[l].dim() == 1 && out[l].size(0) == n[l],
+                "out: [n], n >= 1");
+    TORCH_CHECK(out[l].device() == out[0].device(), "lanes on two devices");
+    const int64_t a = freqs[l][0].numel();
+    TORCH_CHECK(a >= 1 && a <= 4096, "alphabet must be 1..4096");
+    TORCH_CHECK(planes == 1 || a <= 256,
+                "several planes must be byte planes of <= 256 symbols");
+    for (size_t p = 0; p < planes; ++p) {
+      check(words[l][p], at::kShort, "words");
+      check(x0[l][p], at::kInt, "x0");
+      check(freqs[l][p], at::kShort, "freqs");
+      TORCH_CHECK(words[l][p].device() == out[l].device() &&
+                      x0[l][p].device() == out[l].device() &&
+                      freqs[l][p].device() == out[l].device(),
+                  "a lane's tensors lie on two devices");
+      TORCH_CHECK(x0[l][p].numel() == 32, "x0: [32]");
+      TORCH_CHECK(freqs[l][p].numel() == a, "planes differ in alphabet");
+      TORCH_CHECK(words[l][p].numel() < (int64_t{1} << 30), "too many words");
+      words_p[l][p] =
+          reinterpret_cast<const uint16_t*>(words[l][p].data_ptr<int16_t>());
+      freqs_p[l][p] =
+          reinterpret_cast<const uint16_t*>(freqs[l][p].data_ptr<int16_t>());
+      x0_p[l][p] = u32<const uint32_t>(x0[l][p]);
+      n_words[l][p] = static_cast<int>(words[l][p].numel());
+    }
+    words_l[l] = words_p[l];
+    x0_l[l] = x0_p[l];
+    freqs_l[l] = freqs_p[l];
+    n_words_l[l] = n_words[l];
+    n_planes[l] = static_cast<int>(planes);
+    alphabet[l] = static_cast<int>(a);
+    n_i[l] = static_cast<int>(n[l]);
+    byte_i[l] = planes > 1 ? 1 : 0;
+    out_p[l] = u32<uint32_t>(out[l]);
   }
-  const c10::cuda::CUDAGuard guard(out.device());
-  tse1m_launch_rans_decode(static_cast<int>(n_planes), words_p.data(),
-                           n_words.data(), x0_p.data(), freqs_p.data(),
-                           static_cast<int>(alphabet), static_cast<int>(n),
-                           static_cast<int>(shift_step), u32<uint32_t>(out),
-                           at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  const c10::cuda::CUDAGuard guard(out[0].device());
+  const cudaError_t err = tse1m_launch_rans_decode_lanes(
+      static_cast<int>(n_lanes), n_planes, words_l, n_words_l, x0_l, freqs_l,
+      alphabet, n_i, byte_i, out_p, at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess, "rans_decode_lanes launch: ",
+              cudaGetErrorString(err));
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -227,7 +262,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "One-permutation bin minima and row minima over [N, S] uint32 ids");
   m.def("topk_chunk", &topk_chunk,
         "Exact agreement-count top-k of queries over one transposed chunk, "
-        "merged with the incoming state");
-  m.def("rans_decode", &rans_decode,
-        "Interleaved rANS decode of one coded lane, one warp per plane");
+        "merged with the incoming state (passes: 1 count, 2 select, 3 "
+        "both)");
+  m.def("rans_decode_lanes", &rans_decode_lanes,
+        "Interleaved rANS decode of up to 8 coded lanes in one launch, one "
+        "block a lane");
 }

@@ -6,7 +6,8 @@ Ports the TPU kernel of ``tse1m_tpu/cluster/kernels/score.py``:
   a [Qp, H] query block against one transposed store chunk [H, Np] by exact
   agreement count (``sum_h q[h] == s[h]``) and merge the chunk's rows into
   the running [Qp, K_PAD] top-k state.  One CUDA source (``csrc/score.cu``,
-  a count pass and a select pass).
+  a count pass that reads the chunk once per 64 queries and a select
+  pass).
 - ``topk_chunk_plain`` <- ``_topk_chunk_jnp`` and ``_merge_topk``: the same
   tile by tile, ``k`` selection steps a tile, in torch ops.
 - ``topk_agreement``: the single-shot entry over an in-memory [N, H]
@@ -24,8 +25,11 @@ finalize step maps to (-1, -1)).
 The wrapper given CUDA tensors launches the kernel on the current stream
 (it checks device, dtype, shape and contiguity, allocates the outputs and
 the scratch and never synchronises) or raises; given CPU tensors it runs
-the plain version.  ``topk_chunk.launches`` counts its kernel launches
-(one a call: both passes) and nothing else.
+the plain version.  The count pass copies the chunk by 16-byte rows, so
+on the card a chunk whose column count is not a multiple of 4 is padded
+with ``ROW_INF`` columns first (a copy; ``topk_agreement``'s chunks, a
+multiple of ``block_n`` columns, never need it).  ``topk_chunk.launches``
+counts its kernel launches (one a call: both passes) and nothing else.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device, u32_tensor
-from ._build import MAX_SMEM, load_extension
+from ._build import load_extension
 
 # Top-k state width: one state tile a query.  ``k`` beyond it raises.
 K_PAD = 128
@@ -42,9 +46,6 @@ K_PAD = 128
 # Sentinel row of empty and padding slots: loses every (count desc, row
 # asc) tie to a real row, and survives int32 round-trips.
 ROW_INF = 2**31 - 1
-
-_QG = 16  # queries a count block (csrc/score.cu kQG)
-
 
 def _require_k(k: int) -> int:
     k = int(k)
@@ -115,11 +116,7 @@ def _check(q, s_t, rowids, topc, topr, k: int) -> None:
     if topc.shape != (qp, K_PAD) or topr.shape != (qp, K_PAD):
         raise ValueError(f"state must be [{qp}, {K_PAD}], got "
                          f"{tuple(topc.shape)}, {tuple(topr.shape)}")
-    if q.device.type == "cuda":
-        if 4 * _QG * (2 * h + 1) > MAX_SMEM:
-            raise ValueError(f"H={h} needs more than {MAX_SMEM} bytes of "
-                             "shared memory a count block")
-    elif q.device.type != "cpu":
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {q.device}")
 
 
@@ -135,6 +132,10 @@ def topk_chunk(q: torch.Tensor, s_t: torch.Tensor, rowids: torch.Tensor,
     qp, h = q.shape
     if not k:
         return _init_state(qp, q.device)
+    if s_t.shape[1] % 4 or s_t.data_ptr() % 16:
+        pad = -s_t.shape[1] % 4
+        s_t = torch.nn.functional.pad(s_t, (0, pad))
+        rowids = torch.nn.functional.pad(rowids, (0, pad), value=ROW_INF)
     # The select pass writes every slot of the outputs.
     outc = torch.empty((qp, K_PAD), dtype=torch.int32, device=q.device)
     outr = torch.empty((qp, K_PAD), dtype=torch.int32, device=q.device)
@@ -142,7 +143,7 @@ def topk_chunk(q: torch.Tensor, s_t: torch.Tensor, rowids: torch.Tensor,
                          device=q.device)
     hist = torch.zeros((qp, h + 1), dtype=torch.int32, device=q.device)
     load_extension().topk_chunk(q, s_t, rowids, topc, topr, k, counts, hist,
-                                outc, outr)
+                                outc, outr, 3)
     topk_chunk.launches += 1
     return outc, outr
 

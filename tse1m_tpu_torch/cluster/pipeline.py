@@ -47,7 +47,7 @@ from .encode import (_AUTO_MIN_BYTES, _AUTO_MIN_DELTA_FRACTION,
                      encode_delta, pack_chunk, pack_delta_meta, quantize_ids,
                      width_bits)
 from .entropy import verify_frame
-from .kernels.rans import decode_lane_device
+from .kernels.rans import decode_lane_device, decode_lanes_device
 from .lsh import bucket_representatives, estimated_jaccard, propagate_labels
 from .observability import StageRecorder
 from .prefilter import N_BANDS as PREFILTER_BANDS
@@ -218,15 +218,20 @@ def _unpack_bits(packed: torch.Tensor, n: int, bits: int,
     return narrow((out + int(offset)) & U32_MASK)
 
 
+def _offset_ids(flat: torch.Tensor, wire: ChunkWire) -> torch.Tensor:
+    """A coded chunk's decoded symbols -> its ids: plus the offset mod 2^32,
+    in wire.shape."""
+    if wire.offset:
+        flat = narrow((widen(flat) + wire.offset) & U32_MASK)
+    return flat.reshape(wire.shape)
+
+
 def _decode_wire(arrays_d: tuple, wire: ChunkWire) -> torch.Tensor:
     """Device copies of ``wire.wire_arrays()`` + header -> decoded int32
     ids of wire.shape.  rANS-coded chunks decode through the rANS kernel,
     then the offset is added; bit streams through _unpack_bits."""
     if wire.ent is not None:
-        flat = decode_lane_device(wire.ent, arrays_d)
-        if wire.offset:
-            flat = narrow((widen(flat) + wire.offset) & U32_MASK)
-        return flat.reshape(wire.shape)
+        return _offset_ids(decode_lane_device(wire.ent, arrays_d), wire)
     return _unpack_bits(arrays_d[0], wire.n_values, wire.bits,
                         wire.offset).reshape(wire.shape)
 
@@ -455,23 +460,25 @@ def _put_delta_meta(enc, rec: StageRecorder, entropy: str,
     return (meta, out[0][0], *out[1:])
 
 
-def _decode_lane(lane, lane_d: tuple) -> torch.Tensor:
-    """One metadata lane's device decode: rANS frame or bit stream."""
-    if lane.ent is not None:
-        return decode_lane_device(lane.ent, lane_d)
-    return _unpack_bits(lane_d[0], lane.n, lane.bits, 0)
-
-
 def _decode_delta_meta(meta, full_d: torch.Tensor, rep_d: tuple,
                        counts_d: tuple, pos_d: tuple,
                        val_d: tuple) -> torch.Tensor:
-    """Decode the delta lanes on the device (bit streams by _unpack_bits,
-    coded lanes by the rANS kernel) and rebuild the delta rows against the
-    resident full lane."""
-    rep = _decode_lane(meta.rep, rep_d)
-    counts = _decode_lane(meta.counts, counts_d)
-    pos = _decode_lane(meta.pos, pos_d)
-    vals = _decode_wire(val_d, meta.val).reshape(-1)
+    """Decode the delta lanes on the device and rebuild the delta rows
+    against the resident full lane.  Every coded lane (rep, counts, pos and
+    a coded val frame) goes into one launch of the rANS kernel, so their
+    chains run side by side; bit streams go through _unpack_bits."""
+    lanes = ((meta.rep, rep_d), (meta.counts, counts_d), (meta.pos, pos_d),
+             (meta.val, val_d))
+    coded = [(lane.ent, arrays) for lane, arrays in lanes
+             if lane.ent is not None]
+    decoded = iter(decode_lanes_device([c[0] for c in coded],
+                                       [c[1] for c in coded]))
+    rep, counts, pos = (
+        next(decoded) if lane.ent is not None
+        else _unpack_bits(arrays[0], lane.n, lane.bits, 0)
+        for lane, arrays in lanes[:3])
+    vals = (_offset_ids(next(decoded), meta.val) if meta.val.ent is not None
+            else _decode_wire(val_d, meta.val)).reshape(-1)
     return _decode_delta_raw(full_d, rep, counts, pos, vals)
 
 
