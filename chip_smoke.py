@@ -10,7 +10,13 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 2. kernel checks: hold each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance: exact).  The MinHash and bin-min kernels
    at the main-path chunk shape (250,368 rows x 64 ids, H=128, B=16) and at
-   edge shapes; the rANS kernel at the lanes the default 1M run codes (its
+   edge shapes (for the MinHash kernels also the default run's 507,704
+   delta rows, N off their 8-row unit, S = 1, 13 and 300 at 4 warps a
+   block, 1,000 at 2, 2,000 and the widest S accepted at 1, H/B = 1 to 32,
+   k = 1-4 at offsets 0 and 0xFFFFFF00, ids and byte runs off 16-byte
+   alignment; an S too wide for shared memory must be refused before
+   launch); the
+   rANS kernel at the lanes the default 1M run codes (its
    rep and counts lanes, encoded here by the port's host codec), each alone
    and both in one launch, at the edge shapes of the CPU tests, and with
    lanes of different lengths and plane counts in one launch, their words
@@ -56,9 +62,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    this script did, wrapper's host work included; the plain
    versions one call a window) at the main-path shapes, with its bound,
    and the bin-min kernel beside ``scatter_reduce_`` (its library
-   yardstick); the rANS kernel at the rep lane alone and at (c)'s one
-   launch, with the SM clock read by nvidia-smi meanwhile and the cycles
-   a step it gives; the top-k kernel whole and each of its passes alone;
+   yardstick); the uint32 MinHash kernel also at (c)'s 507,704 delta
+   rows; the rANS kernel at the rep lane alone and at (c)'s one launch,
+   with the SM clock read by nvidia-smi meanwhile and the cycles a step it
+   gives; the top-k kernel whole and each of its passes alone;
 5. the card's name and power limit from nvidia-smi.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
@@ -103,6 +110,7 @@ SET_SIZE = 64
 N_HASHES = 128
 N_BANDS = 16
 CHUNK_ROWS = 250_368          # the plain path's chunk: 4 chunks of 1M rows
+DELTA_ROWS = 507_704          # cell (c)'s delta rows: its largest kernel 1
 ARI_MIN = 0.98
 # H100 SXM peaks at the 700 W limit.  HBM: 3.35 TB/s (NVIDIA data sheet).
 # Integer: the data sheet's 67 TFLOP/s float32 is 132 SMs x 128 FMA lanes x
@@ -177,15 +185,27 @@ def u32_ids(rng, shape, high: int = 1 << 32) -> np.ndarray:
     return rng.integers(0, high, size=shape, dtype=np.uint64).astype(np.uint32)
 
 
-def packed_args(rng, n: int, s: int, k: int, offset: int, consts, dev):
+def packed_args(rng, n: int, s: int, k: int, offset: int, consts, dev,
+                lead: int = 0):
+    """Packed-kernel arguments; with ``lead`` the payload starts that many
+    bytes into its buffer, so its byte runs sit off 16-byte alignment."""
     vals = u32_ids(rng, (n, s), 1 << (8 * k))
     payload = np.ascontiguousarray(
         vals.astype("<u4")[..., None].view(np.uint8)[..., :k]).reshape(-1)
-    return (torch.from_numpy(payload).to(dev), (n, s), k, offset, *consts)
+    buf = torch.from_numpy(np.concatenate([np.zeros(lead, np.uint8),
+                                           payload])).to(dev)
+    return (buf[lead:], (n, s), k, offset, *consts)
 
 
 def minhash_checks(dev, consts) -> dict:
-    """Phase 2, MinHash: main-path shapes, then the edges."""
+    """Phase 2, MinHash: main-path shapes (the plain path's chunk and the
+    default run's 507,704 delta rows, so persistent warps walk many units
+    and the last is ragged), then the edges: N off the 8-row unit, one id
+    a row and S off 4, band widths H/B = 1 to 32 (the kernel's register
+    groups of a band's hashes), ids and byte runs off 16-byte alignment,
+    k = 1-4 at offsets 0 and 0xFFFFFF00, S = 300 (opt-in shared memory),
+    S = 1,000, 2,000 and the widest accepted (2 and 1 warps a block), and
+    an S too wide for shared memory, refused before launch."""
     rng = np.random.default_rng(0)
     errs = {}
     a, b = consts
@@ -197,22 +217,83 @@ def minhash_checks(dev, consts) -> dict:
         "minhash_and_keys_packed",
         (*packed_args(rng, CHUNK_ROWS, SET_SIZE, 3, 123_456, consts, dev),
          N_BANDS), f"{CHUNK_ROWS}x{SET_SIZE}, k=3, offset 123456")
+    delta_ids = u32_tensor(u32_ids(rng, (DELTA_ROWS, SET_SIZE)), dev)
+    check_kernel("minhash_and_keys", (delta_ids, a, b, N_BANDS),
+                 f"{DELTA_ROWS}x{SET_SIZE} (the default run's delta rows)")
+    del main_ids, delta_ids
     a32, b32 = (t[:32].contiguous() for t in consts)
-    for n, s in ((1000, SET_SIZE), (1, SET_SIZE), (33, 13)):
+    for n, s in ((1000, SET_SIZE), (1, SET_SIZE), (33, 13), (1000, 1),
+                 (33, 1)):
         high = u32_tensor(u32_ids(rng, (n, s)) | np.uint32(1 << 31), dev)
         check_kernel("minhash_and_keys", (high, a, b, N_BANDS),
                      f"N={n}, S={s}, ids >= 2^31")
         check_kernel("minhash_and_keys", (high, a32, b32, 8),
                      f"N={n}, S={s}, H=32, B=8, ids >= 2^31")
-    # S=300 needs 54 KB of shared memory a block: the opt-in launch path.
+    for h, nb in ((32, 32), (128, 128), (128, 32), (128, 8), (128, 4)):
+        ah, bh = (t[:h].contiguous() for t in consts)
+        high = u32_tensor(u32_ids(rng, (1000, SET_SIZE)) | np.uint32(1 << 31),
+                          dev)
+        check_kernel("minhash_and_keys", (high, ah, bh, nb),
+                     f"N=1000, H={h}, B={nb} (H/B = {h // nb})")
+        check_kernel("minhash_and_keys_packed",
+                     (*packed_args(rng, 1000, SET_SIZE, 3, 0xFFFFFF00,
+                                   (ah, bh), dev), nb),
+                     f"N=1000, k=3, H={h}, B={nb} (H/B = {h // nb})")
+    for s in (13, SET_SIZE):
+        flat = u32_tensor(u32_ids(rng, (1 + 1000 * s,)), dev)
+        check_kernel("minhash_and_keys",
+                     (flat[1:].view(1000, s), a, b, N_BANDS),
+                     f"N=1000, S={s}, ids 4 bytes off 16-byte alignment")
+    # S=300 takes 114 KB of shared memory a block: the opt-in launch path.
     wide = u32_tensor(u32_ids(rng, (100, 300)), dev)
     check_kernel("minhash_and_keys", (wide, a, b, N_BANDS), "N=100, S=300")
-    for k, n, s, off in ((1, 777, SET_SIZE, 0), (2, 777, SET_SIZE, 65_000),
-                         (3, 1, SET_SIZE, 7), (4, 1000, SET_SIZE, 0),
-                         (3, 1000, SET_SIZE, 0xFFFFFF00), (3, 33, 13, 5)):
+    # Wider rows take 2 warps a block (S = 1,000) or 1 (S = 2,000 and the
+    # widest S the wrapper accepts, found by its own carve-up, so a drift
+    # from the kernel's shows as a refused launch).  2,115 rows are 264
+    # whole 8-row units and a ragged one: more than one a warp on the card.
+    widest = {k: max(s for s in range(1, 4096)
+                     if kmod.block_smem(s, N_HASHES, k)[0]) for k in (3, 4)}
+    for s in (1000, 2000, widest[4]):
+        warps = kmod.block_smem(s, N_HASHES, 4)[0]
+        ids = u32_tensor(u32_ids(rng, (2115, s)) | np.uint32(1 << 31), dev)
+        check_kernel("minhash_and_keys", (ids, a, b, N_BANDS),
+                     f"N=2115, S={s}, {warps} warps a block")
+    for k, s, off in ((4, 1000, 0), (4, 2000, 0xFFFFFF00),
+                      (4, widest[4], 7), (3, 1000, 0xFFFFFF00),
+                      (3, 2000, 0), (3, widest[3], 0xFFFFFF00)):
+        warps = kmod.block_smem(s, N_HASHES, k)[0]
         check_kernel("minhash_and_keys_packed",
-                     (*packed_args(rng, n, s, k, off, consts, dev), N_BANDS),
-                     f"N={n}, S={s}, k={k}, offset {off}")
+                     (*packed_args(rng, 2115, s, k, off, consts, dev),
+                      N_BANDS),
+                     f"N=2115, S={s}, k={k}, offset {off}, {warps} warps a "
+                     "block")
+    for k, n, s, off, lead in (
+            (1, 1000, SET_SIZE, 0, 0), (1, 1000, SET_SIZE, 0xFFFFFF00, 0),
+            (2, 1000, SET_SIZE, 0, 0), (2, 777, SET_SIZE, 65_000, 0),
+            (2, 1000, SET_SIZE, 0xFFFFFF00, 0), (3, 1, SET_SIZE, 7, 0),
+            (3, 1000, SET_SIZE, 0, 0), (3, 1000, SET_SIZE, 0xFFFFFF00, 0),
+            (4, 1000, SET_SIZE, 0, 0), (4, 1000, SET_SIZE, 0xFFFFFF00, 0),
+            (3, 33, 13, 5, 0), (3, 33, 13, 5, 5),
+            (3, 1000, 13, 0xFFFFFF00, 3), (2, 33, 1, 9, 1),
+            (3, 100, 300, 0, 0)):
+        check_kernel("minhash_and_keys_packed",
+                     (*packed_args(rng, n, s, k, off, consts, dev, lead),
+                      N_BANDS),
+                     f"N={n}, S={s}, k={k}, offset {off}"
+                     + (f", byte runs {lead} B off 16-byte alignment"
+                        if lead else ""))
+    # Not even one warp's stages of 4,000 ids a row fit in a block's shared
+    # memory: refused before launch.
+    kernels.reset_launch_counts()
+    try:
+        kmod.minhash_and_keys(u32_tensor(u32_ids(rng, (8, 4000)), dev), a, b,
+                              N_BANDS)
+    except ValueError as e:
+        log(f"  minhash_and_keys at S=4000 refused: {e}")
+    else:
+        raise AssertionError("minhash_and_keys launched at S=4000")
+    if kernels.launch_counts()["minhash_and_keys"]:
+        raise AssertionError("the refused shape counted a launch")
     return errs
 
 
@@ -254,7 +335,8 @@ def default_run_lanes(items) -> dict:
     if set(coded) != {"rep", "counts"} or n_coded_chunks:
         raise AssertionError("the default run codes other lanes than rep and "
                              f"counts: {sorted(coded)}, {n_coded_chunks}")
-    return {"keep": keep, "lanes": coded, "launches": launches}
+    return {"keep": keep, "lanes": coded, "launches": launches,
+            "n_delta": enc.n_delta}
 
 
 def skewed(rng, n: int, bits: int) -> np.ndarray:
@@ -856,9 +938,10 @@ def topk_pass_timing(args: tuple, inner: int) -> dict:
 
 def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
     """Phase 4: the MinHash and bin-min kernels at the plain path's first
-    chunk, the rANS kernel at the default run's rep and counts lanes (each
-    alone and both in one launch), the top-k kernel at cell (g)'s chunk
-    (whole and by pass)."""
+    chunk, the uint32 MinHash kernel also at the default run's delta rows
+    (its largest launch there), the rANS kernel at the default run's rep
+    and counts lanes (each alone and both in one launch), the top-k kernel
+    at cell (g)'s chunk (whole and by pass)."""
     chunk = items[:CHUNK_ROWS]
     ids = u32_tensor(quantize_ids(chunk, 10), dev)
     wire = pack_chunk(chunk)
@@ -878,6 +961,10 @@ def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
         "minhash_and_keys_packed": (
             (payload, wire.shape, 3, wire.offset, *consts, N_BANDS),
             minhash_bound(CHUNK_ROWS, SET_SIZE, 3), 1, 10),
+        "minhash_and_keys:delta": (
+            (u32_tensor(quantize_ids(items[:plan["n_delta"]], 10), dev),
+             *consts, N_BANDS),
+            minhash_bound(plan["n_delta"], SET_SIZE, 4), 1, 10),
     }
     for name, lane in plan["lanes"].items():
         cases[f"rans_decode:{name}"] = (rans_args(lane, dev),

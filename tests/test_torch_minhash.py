@@ -54,6 +54,14 @@ def test_hash_params_carry_over_bit_for_bit(n_hashes, seed):
     (300, 16, 32, 8, 0),            # ragged vs block_n=128
     (129, 32, 128, 16, 1 << 31),    # ids >= 2^31
     (1, 7, 32, 4, 1 << 24),         # one row, odd S, ids >= 2^24
+    # Band widths H/B = 1, 4, 16, 32: the kernel's register groups of a
+    # band's hashes (8, then 4, 2, 1).
+    (150, 16, 32, 32, 0),
+    (150, 16, 128, 32, 1 << 31),
+    (150, 16, 128, 8, 0),
+    (150, 16, 128, 4, 0),
+    (70, 1, 128, 16, 0),            # one id a row
+    (70, 13, 128, 16, 1 << 31),     # S not a multiple of 4
 ])
 def test_minhash_and_keys_matches_pallas(n, s, h, bands, low):
     rng = np.random.default_rng(n)
@@ -66,19 +74,63 @@ def test_minhash_and_keys_matches_pallas(n, s, h, bands, low):
                  want)
 
 
-@pytest.mark.parametrize("k,offset", [(1, 0), (2, 65_000), (3, 123_456),
-                                      (4, 0), (3, 0xFFFFFF00)])
-def test_minhash_and_keys_packed_matches_pallas(k, offset):
+_PACKED_SHAPE = (200, 16, 32, 8)    # n, S, H, B
+
+
+@pytest.mark.parametrize("k,offset,shape", [
+    *(pytest.param(k, off, _PACKED_SHAPE, id=f"{k}-{off}")
+      for k, off in ((1, 0), (2, 65_000), (3, 123_456), (4, 0),
+                     (3, 0xFFFFFF00))),
+    # Band widths H/B = 1, 4, 16, 32; one id a row; S not a multiple of 4.
+    pytest.param(3, 0xFFFFFF00, (150, 16, 32, 32), id="H32-B32"),
+    pytest.param(2, 7, (150, 16, 128, 32), id="H128-B32"),
+    pytest.param(3, 5, (150, 16, 128, 8), id="H128-B8"),
+    pytest.param(1, 0xFFFFFF00, (150, 16, 128, 4), id="H128-B4"),
+    pytest.param(2, 65_000, (70, 1, 128, 16), id="S1"),
+    pytest.param(3, 0xFFFFFF00, (70, 13, 128, 16), id="S13"),
+])
+def test_minhash_and_keys_packed_matches_pallas(k, offset, shape):
     rng = np.random.default_rng(k)
-    n, s, bands = 200, 16, 8
+    n, s, h, bands = shape
     payload = _payload(_ids(rng, (n, s), high=1 << (8 * k)), k)
-    jhp = jschemes.make_params("kminhash", 32, seed=1)
+    jhp = jschemes.make_params("kminhash", h, seed=1)
     want = j_minhash_packed(jnp.asarray(payload), (n, s), k, offset,
                             *jhp.arrays, bands, use_pallas="interpret")
-    hp = tschemes.params_from_numpy("kminhash", 32, jhp.arrays)
+    hp = tschemes.params_from_numpy("kminhash", h, jhp.arrays)
     got = kmod.minhash_and_keys_packed(torch.from_numpy(payload), (n, s), k,
                                        offset, *hp.arrays, bands)
     _assert_same(got, want)
+
+
+# (warps a block, bytes) worked out by hand from the carve-up of
+# csrc/minhash.cu (minhash_smem): a and b, then per warp two stages (an
+# mbarrier and its unit number in 16 bytes, an 8-row unit's bytes from their
+# 16-byte floor) and an id buffer of 8 rows of S rounded up to 4 (+4 where
+# that is a multiple of 8).
+@pytest.mark.parametrize("s,h,k,warps,smem", [
+    (64, 128, 4, 4, 26_368),      # the main-path chunk, uint32 ids
+    (64, 128, 3, 4, 22_272),      # the plain wire's 24-bit chunks
+    (300, 128, 4, 4, 116_480),    # wide rows still take 4 warps a block
+    (300, 128, 3, 4, 97_280),
+    (1000, 128, 4, 2, 193_408),   # wider rows take fewer warps a block
+    (1000, 128, 3, 2, 161_408),
+    (2000, 128, 4, 1, 193_216),
+    (2000, 128, 3, 1, 161_216),
+    (2409, 128, 4, 1, 232_448),   # the widest uint32 row: exactly MAX_SMEM
+])
+def test_block_smem_fits(s, h, k, warps, smem):
+    assert kmod.MAX_SMEM == 232_448
+    assert kmod.block_smem(s, h, k) == (warps, smem)
+    kmod.check_fits(s, h, k)
+
+
+@pytest.mark.parametrize("s,h,k", [(2410, 128, 4), (2500, 128, 4),
+                                   (4000, 128, 3), (64, 32768, 4)])
+def test_block_smem_refuses_what_does_not_fit(s, h, k):
+    warps, smem = kmod.block_smem(s, h, k)
+    assert warps == 0 and smem > kmod.MAX_SMEM
+    with pytest.raises(ValueError, match="shared memory"):
+        kmod.check_fits(s, h, k)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4])

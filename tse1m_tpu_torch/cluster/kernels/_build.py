@@ -5,9 +5,12 @@
 ``csrc/binding.cpp`` (the host compiler; the one file that
 includes PyTorch's headers) with one ``torch.utils.cpp_extension.load`` into
 ``build/tse1m_tpu_torch/`` beside the package, and imports the result.
-``load`` caches by content, so a second process with unchanged sources
-loads the library without compiling.  It builds nothing but these sources
-and is never called when a module is imported.
+The ``.cu`` files share ``csrc/sm90_async.cuh``.  ``load`` versions its
+cache by the listed sources only, so a second process with unchanged
+sources loads the library without compiling; an edit of the header alone
+is seen through ninja's dependency file, which rebuilds the objects that
+include it.  It builds nothing but these sources and is never called when
+a module is imported.
 """
 
 from __future__ import annotations

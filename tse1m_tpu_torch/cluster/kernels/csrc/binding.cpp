@@ -17,15 +17,17 @@
 #include <cstdint>
 #include <vector>
 
-void tse1m_launch_minhash_u32(const uint32_t* items, int n, int s,
-                              const uint32_t* a, const uint32_t* b, int h,
-                              int n_bands, uint32_t* sig, uint32_t* keys,
-                              cudaStream_t stream);
-void tse1m_launch_minhash_packed(const uint8_t* payload, int n, int s, int k,
-                                 uint32_t offset, const uint32_t* a,
-                                 const uint32_t* b, int h, int n_bands,
-                                 uint32_t* sig, uint32_t* keys,
-                                 cudaStream_t stream);
+cudaError_t tse1m_launch_minhash_u32(const uint32_t* items, int n, int s,
+                                     const uint32_t* a, const uint32_t* b,
+                                     int h, int n_bands, uint32_t* sig,
+                                     uint32_t* keys, int* next_tile,
+                                     cudaStream_t stream);
+cudaError_t tse1m_launch_minhash_packed(const uint8_t* payload, int n, int s,
+                                        int k, uint32_t offset,
+                                        const uint32_t* a, const uint32_t* b,
+                                        int h, int n_bands, uint32_t* sig,
+                                        uint32_t* keys, int* next_tile,
+                                        cudaStream_t stream);
 void tse1m_launch_cminhash_binmin(const uint32_t* items, int n, int s,
                                   const uint32_t* a0, const uint32_t* b0,
                                   int h, uint32_t* binmin, uint32_t* rowmin,
@@ -59,7 +61,9 @@ T* u32(const torch::Tensor& t) {
 
 void check_outputs(const torch::Tensor& a, const torch::Tensor& b,
                    const torch::Tensor& sig, const torch::Tensor& keys,
-                   int64_t n) {
+                   const torch::Tensor& scratch, int64_t n) {
+  check(scratch, at::kInt, "scratch");
+  TORCH_CHECK(scratch.numel() >= 1, "scratch: [1]");
   check(a, at::kInt, "a");
   check(b, at::kInt, "b");
   check(sig, at::kInt, "sig");
@@ -77,40 +81,41 @@ void check_outputs(const torch::Tensor& a, const torch::Tensor& b,
 
 void minhash_u32(const torch::Tensor& items, const torch::Tensor& a,
                  const torch::Tensor& b, const torch::Tensor& sig,
-                 const torch::Tensor& keys) {
+                 const torch::Tensor& keys, const torch::Tensor& scratch) {
   check(items, at::kInt, "items");
   TORCH_CHECK(items.dim() == 2, "items: [N, S]");
   const int64_t n = items.size(0);
-  check_outputs(a, b, sig, keys, n);
+  check_outputs(a, b, sig, keys, scratch, n);
   const c10::cuda::CUDAGuard guard(items.device());
-  tse1m_launch_minhash_u32(u32<const uint32_t>(items), static_cast<int>(n),
-                           static_cast<int>(items.size(1)),
-                           u32<const uint32_t>(a), u32<const uint32_t>(b),
-                           static_cast<int>(a.size(0)),
-                           static_cast<int>(keys.size(1)), u32<uint32_t>(sig),
-                           u32<uint32_t>(keys),
-                           at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  const cudaError_t err = tse1m_launch_minhash_u32(
+      u32<const uint32_t>(items), static_cast<int>(n),
+      static_cast<int>(items.size(1)), u32<const uint32_t>(a),
+      u32<const uint32_t>(b), static_cast<int>(a.size(0)),
+      static_cast<int>(keys.size(1)), u32<uint32_t>(sig), u32<uint32_t>(keys),
+      scratch.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream());
+  TORCH_CHECK(err == cudaSuccess, "minhash_u32 launch: ",
+              cudaGetErrorString(err));
 }
 
 void minhash_packed(const torch::Tensor& payload, int64_t n, int64_t s,
                     int64_t k, int64_t offset, const torch::Tensor& a,
                     const torch::Tensor& b, const torch::Tensor& sig,
-                    const torch::Tensor& keys) {
+                    const torch::Tensor& keys, const torch::Tensor& scratch) {
   check(payload, at::kByte, "payload");
   TORCH_CHECK(k >= 1 && k <= 4, "k must be 1..4 bytes per id");
   TORCH_CHECK(payload.numel() >= n * s * k, "payload shorter than N*S*k");
   TORCH_CHECK(offset >= 0 && offset <= 0xFFFFFFFFLL, "offset must be uint32");
-  check_outputs(a, b, sig, keys, n);
+  check_outputs(a, b, sig, keys, scratch, n);
   const c10::cuda::CUDAGuard guard(payload.device());
-  tse1m_launch_minhash_packed(
+  const cudaError_t err = tse1m_launch_minhash_packed(
       payload.data_ptr<uint8_t>(), static_cast<int>(n), static_cast<int>(s),
       static_cast<int>(k), static_cast<uint32_t>(offset),
       u32<const uint32_t>(a), u32<const uint32_t>(b),
       static_cast<int>(a.size(0)), static_cast<int>(keys.size(1)),
-      u32<uint32_t>(sig), u32<uint32_t>(keys),
+      u32<uint32_t>(sig), u32<uint32_t>(keys), scratch.data_ptr<int32_t>(),
       at::cuda::getCurrentCUDAStream());
-  C10_CUDA_KERNEL_LAUNCH_CHECK();
+  TORCH_CHECK(err == cudaSuccess, "minhash_packed launch: ",
+              cudaGetErrorString(err));
 }
 
 void cminhash_binmin(const torch::Tensor& items, const torch::Tensor& a0,

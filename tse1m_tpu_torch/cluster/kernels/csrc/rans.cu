@@ -63,6 +63,8 @@
 
 #include <cstdint>
 
+#include "sm90_async.cuh"
+
 namespace {
 
 constexpr int kStreams = 32;
@@ -93,63 +95,6 @@ struct Lane {
 struct Lanes {
   Lane lane[kMaxLanes];
 };
-
-// ---- mbarrier and bulk-copy primitives (sm_90) ----
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ bool bar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}"
-      : "=r"(ok)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t ok;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(ok)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!ok);
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// Announce `bytes` of bulk-copy traffic on `bar`, then copy them.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // ---- a plane's word stream, seen from 16-byte granules ----
 
@@ -392,7 +337,7 @@ __device__ void run_lane(const Lane& L, unsigned char* smem) {
       bar_init(&full[b], 1);
       bar_init(&empty[b], 1);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
   if (warp == producer) {

@@ -57,6 +57,8 @@
 
 #include <cstdint>
 
+#include "sm90_async.cuh"
+
 namespace {
 
 constexpr int kQG = 64;                // queries a count block
@@ -72,51 +74,6 @@ constexpr int kRowInf = 0x7FFFFFFF;    // ROW_INF
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kBarBytes = 128;         // the ring's 2 x kStages mbarriers
 constexpr int kStageBytes = kRows * kTC * 4;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t ok;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(ok)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!ok);
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // c += (a == b), as one compare on the ALU pipe and one predicated
 // multiply-add by `unit` (1, a kernel argument, so the compiler cannot
@@ -161,7 +118,7 @@ topk_count_kernel(const uint32_t* __restrict__ q, int qp, int h,
       bar_init(&full[s], 1);
       bar_init(&empty[s], kCountWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 
@@ -184,7 +141,7 @@ topk_count_kernel(const uint32_t* __restrict__ q, int qp, int h,
         }
         __syncwarp();
         if (lane < rows)
-          bulk_load(ring + (s * kRows + lane) * kTC,
+          bulk_copy(ring + (s * kRows + lane) * kTC,
                     s_t + static_cast<size_t>(h0 + lane) * np + c0,
                     static_cast<uint32_t>(cols * 4), &full[s]);
       }

@@ -26,9 +26,50 @@ from ...device import U32_MASK, narrow
 from ..minhash import band_keys, minhash_signatures
 from ._build import MAX_SMEM, load_extension
 
-# Shared memory of one block: the id tile (S rounded up to 4) and the
-# signature tile, 32 rows each (csrc/minhash.cu kTileRows).
-_TILE_ROWS = 32
+# Carve-up of a block's shared memory (csrc/minhash.cu minhash_smem).
+_UNIT_ROWS = 8
+_STAGES = 2
+_WARPS = (4, 2, 1)
+
+
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def block_smem(s: int, h: int, k: int) -> tuple:
+    """(warps a block, dynamic shared memory of a block in bytes) of the
+    kernel at S ids a row, H hashes and k bytes an id in device memory (4
+    for uint32 ids), as ``minhash_warps`` and ``minhash_smem`` in
+    csrc/minhash.cu pick them: a and b, then per warp a ring of stages
+    (each an mbarrier and its unit number, 16 bytes, and an 8-row unit's
+    bytes from their 16-byte floor) and an id buffer of 8 rows of S
+    rounded up to 4 (+4 where that is a multiple of 8).  The most warps of
+    4, 2, 1 that fit in ``MAX_SMEM``; warps 0, and the bytes of 1, if none
+    do."""
+    s4 = -(-s // 4) * 4
+    stride = s4 + (4 if s4 % 8 == 0 else 0)
+    per_warp = (_STAGES * (16 + _align16(_UNIT_ROWS * s * k + 15))
+                + 4 * _UNIT_ROWS * stride)
+    for warps in _WARPS:
+        smem = _align16(8 * h) + warps * per_warp
+        if smem <= MAX_SMEM:
+            return warps, smem
+    return 0, smem
+
+
+def check_fits(s: int, h: int, k: int) -> None:
+    """Raise ValueError where not even one warp's stages of S ids a row fit
+    in a block's shared memory (the kernel would refuse the launch)."""
+    warps, smem = block_smem(s, h, k)
+    if not warps:
+        raise ValueError(f"S={s}, H={h}, {k} bytes an id need {smem} bytes "
+                         f"of shared memory per block, more than {MAX_SMEM}")
+
+
+def _unit_counter(device: torch.device) -> torch.Tensor:
+    """One int32 of scratch: the kernel's counter of 8-row units, which the
+    launch zeroes on the stream before the kernel runs."""
+    return torch.empty(1, dtype=torch.int32, device=device)
 
 
 def minhash_and_keys_plain(items: torch.Tensor, a: torch.Tensor,
@@ -59,8 +100,9 @@ def minhash_and_keys_packed_plain(payload: torch.Tensor, shape: tuple, k: int,
 
 
 def _check_consts(a: torch.Tensor, b: torch.Tensor, n_bands: int,
-                  device: torch.device, s: int) -> int:
-    """Validate the hash constants against the ids; returns H."""
+                  device: torch.device, s: int, k: int) -> int:
+    """Validate the hash constants against the ids (S a row, k bytes an
+    id); returns H."""
     for name, t in (("a", a), ("b", b)):
         if t.dtype != torch.int32 or t.dim() != 1:
             raise ValueError(f"{name} must be a 1-D int32 tensor, got "
@@ -74,10 +116,7 @@ def _check_consts(a: torch.Tensor, b: torch.Tensor, n_bands: int,
     if device.type == "cuda":
         if not (a.is_contiguous() and b.is_contiguous()):
             raise ValueError("a and b must be contiguous")
-        smem = 4 * _TILE_ROWS * (-(-s // 4) * 4 + h)
-        if smem > MAX_SMEM:
-            raise ValueError(f"S={s}, H={h} need {smem} bytes of shared "
-                             f"memory per block, more than {MAX_SMEM}")
+        check_fits(s, h, k)
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return h
@@ -91,7 +130,7 @@ def minhash_and_keys(items: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"items must be a 2-D int32 tensor, got "
                          f"{items.dtype} {tuple(items.shape)}")
     n, s = items.shape
-    h = _check_consts(a, b, n_bands, items.device, s)
+    h = _check_consts(a, b, n_bands, items.device, s, 4)
     if items.device.type == "cpu":
         return minhash_and_keys_plain(items, a, b, n_bands)
     if not items.is_contiguous():
@@ -99,7 +138,8 @@ def minhash_and_keys(items: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     sig = torch.empty((n, h), dtype=torch.int32, device=items.device)
     keys = torch.empty((n, n_bands), dtype=torch.int32, device=items.device)
     if n:
-        load_extension().minhash_u32(items, a, b, sig, keys)
+        load_extension().minhash_u32(items, a, b, sig, keys,
+                                     _unit_counter(items.device))
         minhash_and_keys.launches += 1
     return sig, keys
 
@@ -124,7 +164,7 @@ def minhash_and_keys_packed(payload: torch.Tensor, shape: tuple, k: int,
                          f"{rows}x{s} ids of {k} bytes")
     if not 0 <= int(offset) <= U32_MASK:
         raise ValueError(f"offset {offset} is not a uint32")
-    h = _check_consts(a, b, n_bands, payload.device, s)
+    h = _check_consts(a, b, n_bands, payload.device, s, k)
     if payload.device.type == "cpu":
         return minhash_and_keys_packed_plain(payload, shape, k, offset, a, b,
                                              n_bands)
@@ -135,7 +175,8 @@ def minhash_and_keys_packed(payload: torch.Tensor, shape: tuple, k: int,
                        device=payload.device)
     if rows:
         load_extension().minhash_packed(payload, rows, s, k, int(offset), a, b,
-                                        sig, keys)
+                                        sig, keys,
+                                        _unit_counter(payload.device))
         minhash_and_keys_packed.launches += 1
     return sig, keys
 
@@ -143,5 +184,6 @@ def minhash_and_keys_packed(payload: torch.Tensor, shape: tuple, k: int,
 minhash_and_keys_packed.launches = 0
 
 
-__all__ = ["combine_bytes", "minhash_and_keys", "minhash_and_keys_packed",
-           "minhash_and_keys_packed_plain", "minhash_and_keys_plain"]
+__all__ = ["block_smem", "check_fits", "combine_bytes", "minhash_and_keys",
+           "minhash_and_keys_packed", "minhash_and_keys_packed_plain",
+           "minhash_and_keys_plain"]
