@@ -56,7 +56,18 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (g) ``topk_agreement`` of 64 queries drawn from (a)'s 1M signatures,
        k=10: one launch of the top-k kernel, its state equal to the plain
        version's, each query's first hit at 128 agreements;
-4. timing: each kernel beside its plain version (CUDA events around
+4. the RQ path (torch ops, no kernel of its own): the frozen golden study
+   (tests/goldens/generate_goldens.py) through the port on the card, its
+   two RQ1 CSVs equal to tests/goldens/synth8/rq1/ byte for byte; then a
+   study of the paper's scale (446 projects x 1,600 days, ~1M fuzzing
+   builds, cutoff 2026-01-01) generated, written to sqlite under the
+   gitignored build/, extracted, and the fused six-RQ suite and the six
+   single calls on the card held against TorchBackend("cpu") on the same
+   arrays (exact, Spearman and mean within 2e-5); the extraction, each RQ
+   and the suite timed warm (median of 5), printed as one ``rq_path``
+   JSON line with the row counts, peak device memory, host generation
+   and write times and the card's name and power limit;
+5. timing: each kernel beside its plain version (CUDA events around
    ``--calls-per-window`` back-to-back calls, 5 by default, median of 20
    windows after warm-up; 1 times each call alone, as earlier versions of
    this script did, wrapper's host work included; the plain
@@ -66,7 +77,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    rows; the rANS kernel at the rep lane alone and at (c)'s one launch,
    with the SM clock read by nvidia-smi meanwhile and the cycles a step it
    gives; the top-k kernel whole and each of its passes alone;
-5. the card's name and power limit from nvidia-smi.
+6. the card's name and power limit from nvidia-smi.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -77,6 +88,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -88,6 +100,8 @@ import torch
 from tse1m_tpu_torch import (adjusted_rand_index, expand_weighted,
                              synth_session_hitcounts, synth_session_sets,
                              topk_agreement)
+from tse1m_tpu_torch.analysis.rq1 import run_rq1
+from tse1m_tpu_torch.backend import TorchBackend
 from tse1m_tpu_torch.cluster import entropy, kernels, pipeline
 from tse1m_tpu_torch.cluster.encode import (pack_chunk, pack_delta_meta,
                                             quantize_ids)
@@ -98,6 +112,10 @@ from tse1m_tpu_torch.cluster.kernels import rans as krans
 from tse1m_tpu_torch.cluster.kernels import score as ksc
 from tse1m_tpu_torch.cluster.minhash import mul_u32
 from tse1m_tpu_torch.cluster.schemes import make_params
+from tse1m_tpu_torch.config import Config as StudyConfig
+from tse1m_tpu_torch.data.columnar import StudyArrays
+from tse1m_tpu_torch.data.synth import SynthSpec, generate_study
+from tse1m_tpu_torch.db import connect
 from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
 
 N_SESSIONS = 1_000_000
@@ -126,8 +144,9 @@ INT32_PIPE_OPS_PER_S = 67e12 / 4
 # shift, the cumulative-frequency subtract and the renormalization compare
 # issue on the ALU pipe (the multiply-add goes to the FMA pipe).
 RANS_ALU_OPS_PER_SYMBOL = 4
-# Back-to-back kernel calls a timing window (phase 4), by default.
+# Back-to-back kernel calls a timing window (phase 5), by default.
 KERNEL_INNER = 5
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 MINHASH_SOURCE = "tse1m_tpu_torch/cluster/kernels/csrc/minhash.cu"
 KERNELS = {
@@ -890,7 +909,7 @@ def sm_clock_mhz(fn, seconds: float = 1.0) -> tuple:
 
 
 def rans_timing(plan: dict, dev, inner: int) -> dict:
-    """Phase 4, rANS: (c)'s lanes alone and in their one launch, with the
+    """Phase 5, rANS: (c)'s lanes alone and in their one launch, with the
     SM clock read meanwhile and the cycles a step it gives."""
     lanes = {name: rans_args(lane, dev) for name, lane in
              plan["lanes"].items()}
@@ -910,7 +929,7 @@ def rans_timing(plan: dict, dev, inner: int) -> dict:
 
 
 def topk_pass_timing(args: tuple, inner: int) -> dict:
-    """Phase 4, top-k: each pass alone at cell (g)'s chunk (the scratch as
+    """Phase 5, top-k: each pass alone at cell (g)'s chunk (the scratch as
     the wrapper allocates it; the select pass reads one count pass's
     counts and histogram)."""
     q, s_t, rid, topc, topr, k = args
@@ -937,7 +956,7 @@ def topk_pass_timing(args: tuple, inner: int) -> dict:
 
 
 def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
-    """Phase 4: the MinHash and bin-min kernels at the plain path's first
+    """Phase 5: the MinHash and bin-min kernels at the plain path's first
     chunk, the uint32 MinHash kernel also at the default run's delta rows
     (its largest launch there), the rANS kernel at the default run's rep
     and counts lanes (each alone and both in one launch), the top-k kernel
@@ -999,11 +1018,216 @@ def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
     return out
 
 
+RQ_DIR = os.path.join(ROOT, "build", "rq_smoke")  # gitignored
+# The frozen golden study (tests/goldens/generate_goldens.py:33) and its
+# committed RQ1 artifacts.
+GOLDEN_SPEC = dict(n_projects=8, days=400, seed=42, fuzz_rate=1.2,
+                   ineligible_fraction=0.0)
+GOLDEN_RQ1 = os.path.join(ROOT, "tests", "goldens", "synth8", "rq1")
+RQ1_FILES = ("rq1_detection_rate_stats.csv",
+             "rq1_raw_issues_for_analysis.csv")
+# ~1M fuzzing builds, the JAX bench's extraction and RQ-suite study
+# (bench.py:31-50, 81-117) and the reference's 1.19M build logs.
+RQ_SPEC = dict(n_projects=446, days=1600, fuzz_rate=1.4,
+               ineligible_fraction=0.0, seed=0)
+RQ_CUTOFF = "2026-01-01"
+RQ_MIN_PROJECTS = 100
+RQ_REPS = 5
+RQS = ("rq1", "rq2cp", "rq2tr", "rq3", "rq4a", "rq4b")
+# Float32 sums in another order: within rtol = atol = 2e-5 (the repo's
+# cross-engine tolerance); every other field exact.
+RQ_CLOSE = {("rq2tr", "spearman"), ("rq2tr", "mean")}
+RQ_TOL = 2e-5
+
+
+def card_name_and_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def fresh_sqlite(path: str) -> None:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(path + suffix):
+            os.remove(path + suffix)
+
+
+def rq_golden(dev) -> None:
+    """The frozen golden study through the port on the card: its two RQ1
+    CSVs equal the committed goldens byte for byte."""
+    path = os.path.join(RQ_DIR, "golden.sqlite")
+    out = os.path.join(RQ_DIR, "golden_out")
+    fresh_sqlite(path)
+    generate_study(SynthSpec(**GOLDEN_SPEC)).to_db(path)
+    run_rq1(StudyConfig(sqlite_path=path, result_dir=out, test_mode=True),
+            device=dev)
+    for name in RQ1_FILES:
+        with open(os.path.join(out, "rq1", name), "rb") as f:
+            got = f.read()
+        with open(os.path.join(GOLDEN_RQ1, name), "rb") as f:
+            want = f.read()
+        if got != want:
+            raise AssertionError(f"{name} differs from the golden")
+    log(f"  golden study on the card: {', '.join(RQ1_FILES)} equal "
+        "tests/goldens/synth8/rq1/ byte for byte")
+
+
+def rq_calls(backend, arrays, limit_ns: int, g1, g2) -> dict:
+    return {
+        "rq1": lambda: backend.rq1_detection(arrays, limit_ns,
+                                             RQ_MIN_PROJECTS),
+        "rq2cp": lambda: backend.rq2_change_points(arrays, limit_ns),
+        "rq2tr": lambda: backend.rq2_trends(arrays, limit_ns),
+        "rq3": lambda: backend.rq3_coverage_at_detection(arrays, limit_ns),
+        "rq4a": lambda: backend.rq4a_detection_trend(
+            arrays, limit_ns, g1, g2, RQ_MIN_PROJECTS),
+        "rq4b": lambda: backend.rq4b_group_trends(arrays, limit_ns, g1, g2),
+        "suite": lambda: backend.rq_suite(arrays, limit_ns, RQ_MIN_PROJECTS,
+                                          g1, g2),
+    }
+
+
+def rq_compare(got, want, rq: str, label: str) -> float:
+    """Every field and dtype of ``got`` against ``want``: exact, or within
+    RQ_TOL for RQ_CLOSE.  Returns the largest share of its tolerance
+    (|x - y| over RQ_TOL * (1 + |y|)) that a RQ_CLOSE value used."""
+    worst = 0.0
+    for f in want.__dataclass_fields__:
+        x, y = getattr(got, f), getattr(want, f)
+        if not isinstance(y, np.ndarray):
+            if x != y:
+                raise AssertionError(f"{label} {rq}.{f} differs")
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{label} {rq}.{f}: {x.dtype}{x.shape} vs "
+                                 f"{y.dtype}{y.shape}")
+        if (rq, f) in RQ_CLOSE:
+            ok = np.allclose(x, y, rtol=RQ_TOL, atol=RQ_TOL, equal_nan=True)
+        else:
+            ok = np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+        if not ok:
+            raise AssertionError(f"{label} {rq}.{f} differs beyond its "
+                                 "tolerance")
+        both = ~(np.isnan(x) | np.isnan(y))
+        if (rq, f) in RQ_CLOSE and both.any():
+            share = np.abs(x - y)[both] / (RQ_TOL * (1 + np.abs(y[both])))
+            worst = max(worst, float(share.max()))
+    return worst
+
+
+def wall_s(fn, reps: int = RQ_REPS) -> float:
+    """Median host wall of ``reps`` warm calls, each ending with the card
+    idle (every RQ call ends with its device-to-host copy)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def device_busy_share(fn) -> float | None:
+    """Share of one warm call's wall the card spent in kernels and copies,
+    by torch.profiler; None when the trace holds no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(getattr(e, "self_device_time_total", 0)
+                  for e in prof.key_averages())
+    return busy_us * 1e-6 / wall if busy_us else None
+
+
+def rq_phase(dev) -> dict:
+    """Phase 4: the golden study on the card, then the 1M-build study:
+    generated and written to sqlite, extracted, the suite and the six
+    single calls on the card held against TorchBackend("cpu"), and timed."""
+    t_phase = time.perf_counter()
+    rq_golden(dev)
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    path = os.path.join(RQ_DIR, "study.sqlite")
+    fresh_sqlite(path)
+    t0 = time.perf_counter()
+    study = generate_study(SynthSpec(**RQ_SPEC))
+    gen_s = time.perf_counter() - t0
+    rows = {t: len(next(iter(getattr(study, t).values())))
+            for t in ("buildlog_data", "total_coverage", "issues")}
+    t0 = time.perf_counter()
+    study.to_db(path)
+    write_s = time.perf_counter() - t0
+    del study
+    log(f"  1M-build study: {rows} rows generated in {gen_s:.3f} s, "
+        f"written to sqlite in {write_s:.3f} s")
+    cfg = StudyConfig(sqlite_path=path, limit_date=RQ_CUTOFF)
+
+    def extract():
+        with connect(path) as db:
+            return StudyArrays.from_db(db, cfg)
+
+    arrays = extract()
+    extract_s = wall_s(extract)
+    extracted = {t: len(getattr(arrays, t))
+                 for t in ("fuzz", "covb", "issues", "cov")}
+    log(f"  extracted {arrays.n_projects} projects, {extracted} rows, in "
+        f"{extract_s:.3f} s (median of {RQ_REPS})")
+    limit_ns = int(np.datetime64(RQ_CUTOFF, "ns").astype(np.int64))
+    g1 = np.arange(0, arrays.n_projects, 2)
+    g2 = np.arange(1, arrays.n_projects, 2)
+    card = rq_calls(TorchBackend(dev), arrays, limit_ns, g1, g2)
+    cpu = rq_calls(TorchBackend("cpu"), arrays, limit_ns, g1, g2)
+    t0 = time.perf_counter()
+    fused = card["suite"]()
+    cold_suite_s = time.perf_counter() - t0
+    got = {rq: card[rq]() for rq in RQS}
+    fused_cpu = cpu["suite"]()
+    want = {rq: cpu[rq]() for rq in RQS}
+    worst = 0.0
+    for rq in RQS:
+        worst = max(worst, rq_compare(fused[rq], fused_cpu[rq], rq,
+                                      "suite, card vs CPU"),
+                    rq_compare(got[rq], want[rq], rq, "card vs CPU"))
+        rq_compare(fused[rq], got[rq], rq, "card suite vs single calls")
+    log(f"  suite and six single calls on the card == TorchBackend('cpu') "
+        f"(exact; Spearman and mean within rtol = atol = {RQ_TOL}, at most "
+        f"{worst:.3f} of it); the card's suite == its single calls")
+    times = {rq: wall_s(fn) for rq, fn in card.items()}
+    cpu_times = {rq: wall_s(fn, reps=1) for rq, fn in cpu.items()}
+    busy = device_busy_share(card["suite"])
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 2**30
+    log("  warm s on the card (CPU, one call): " + ", ".join(
+        f"{rq} {times[rq]:.4f} ({cpu_times[rq]:.4f})" for rq in times))
+    report = {
+        "study": RQ_SPEC, "cutoff": RQ_CUTOFF,
+        "min_projects": RQ_MIN_PROJECTS, "rows_generated": rows,
+        "rows_extracted": extracted, "n_projects": arrays.n_projects,
+        "generate_s": gen_s, "write_s": write_s, "extract_s": extract_s,
+        "suite_cold_s": cold_suite_s,
+        "card_s": times, "cpu_s": cpu_times,
+        "suite_device_busy_share": busy,
+        "peak_device_gib": peak, "tolerance_share_vs_cpu": worst,
+        "reps": RQ_REPS, "phase_s": time.perf_counter() - t_phase,
+        "card": card_name_and_limit(),
+    }
+    print(json.dumps({"rq_path": report}), flush=True)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls-per-window", type=int, default=KERNEL_INNER,
                     help="back-to-back kernel calls in each CUDA-event "
-                    "timing window of phase 4 (default %(default)s)")
+                    "timing window of phase 5 (default %(default)s)")
     args = ap.parse_args()
     if args.calls_per_window < 1:
         ap.error("--calls-per-window must be at least 1")
@@ -1045,7 +1269,12 @@ def main() -> int:
                 "rans_decode": default["counts"]["rans_decode"],
                 "topk_chunk": topk["counts"]["topk_chunk"]}
 
-    log(f"phase 4: timing (CUDA events around {args.calls_per_window} "
+    log(f"phase 4: the RQ path, the golden study and a "
+        f"{RQ_SPEC['n_projects']}-project study (tolerance: exact, "
+        f"Spearman and mean {RQ_TOL})")
+    rq_phase(dev)
+
+    log(f"phase 5: timing (CUDA events around {args.calls_per_window} "
         "calls, median)")
     times = timing(items, plan, dev, hp.arrays, topk, args.calls_per_window)
     times["rans_decode"] = times["rans_decode:rep"]
@@ -1055,13 +1284,10 @@ def main() -> int:
         "replaces": k["replaces"], "launches": launches[name],
         "max_abs_err": errs[name], **times[name],
     } for name, k in KERNELS.items()]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    card = card_name_and_limit()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels_line}))
-    print(card.splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Rules of the tse1m_tpu_torch port that hold by construction: it imports
-nothing of JAX or the JAX package, its entry points run on the card unless
-asked for the CPU and raise without one, and no kernel launch sits behind a
-handler that could fall back to a plain version."""
+nothing of JAX, the JAX package, pandas or matplotlib, its entry points run
+on the card unless asked for the CPU and raise without one, and no kernel
+launch sits behind a handler that could fall back to a plain version."""
 
 import ast
 import os
@@ -36,7 +36,7 @@ def _imported_modules(path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "tse1m_tpu")
+    return top in ("jax", "jaxlib", "tse1m_tpu", "pandas", "matplotlib")
 
 
 def test_port_imports_nothing_of_jax():
@@ -48,12 +48,17 @@ def test_port_imports_nothing_of_jax():
     # The rule tells the JAX package from the port by exact name.
     assert _forbidden("tse1m_tpu.cluster") and not _forbidden(
         "tse1m_tpu_torch.cluster")
+    # The card machine has neither pandas nor matplotlib.
+    assert _forbidden("pandas") and _forbidden("matplotlib.pyplot")
 
 
 def test_no_handler_around_kernel_launches():
-    """No try/except in the kernels package or the pipeline: a failed build
-    or launch raises, nothing gives way to the plain version."""
-    paths = [os.path.join(PKG, "cluster", "pipeline.py")] + [
+    """No try/except in the kernels package, the pipeline, the RQ backend
+    or its segment ops: a failed build or launch raises, nothing gives way
+    to the plain version or the CPU."""
+    paths = [os.path.join(PKG, "cluster", "pipeline.py"),
+             os.path.join(PKG, "backend", "torch_backend.py"),
+             os.path.join(PKG, "ops", "segment.py")] + [
         os.path.join(PKG, "cluster", "kernels", f)
         for f in ("__init__.py", "minhash.py", "cminhash.py", "rans.py",
                   "score.py", "_build.py")]

@@ -7,6 +7,7 @@ command line.  Tolerance: exact labels and exact wire accounting."""
 
 import dataclasses
 import json
+import time
 
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from tse1m_tpu.cluster import schemes as jschemes
 from tse1m_tpu.cluster.metrics import adjusted_rand_index as j_ari
 from tse1m_tpu.data.synth import synth_session_hitcounts as j_hitcounts
 from tse1m_tpu.data.synth import synth_session_sets as j_synth
+from tse1m_tpu.utils import calibration as jcal
 from tse1m_tpu_torch import adjusted_rand_index, synth_session_sets
 from tse1m_tpu_torch.__main__ import main as cli_main
 from tse1m_tpu_torch.cluster import encode as tenc
@@ -26,6 +28,7 @@ from tse1m_tpu_torch.cluster import schemes as tschemes
 from tse1m_tpu_torch.cluster.kernels import cminhash as kcm
 from tse1m_tpu_torch.cluster.kernels import minhash as kmod
 from tse1m_tpu_torch.device import u32_tensor
+from tse1m_tpu_torch.utils import calibration as tcal
 
 PLAIN_WIRE = dict(encoding="pack24", entropy="off", prefilter="off")
 
@@ -180,13 +183,81 @@ def test_params_keep_jax_fields_and_defaults():
 
 
 @pytest.mark.parametrize("kw,shape,item", [
-    (dict(PLAIN_WIRE, sig_store="/nonexistent"), (8, 4), "item 9"),
+    (dict(PLAIN_WIRE, sig_store="/nonexistent"), (8, 4),
+     "Warm path and the serve signer"),
 ])
 def test_levers_not_ported_raise(kw, shape, item):
     items = np.zeros(shape, np.uint32)
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 {item}"):
+                       match=f'ROADMAP.md Queue 1, "{item}"'):
         tpipe.cluster_sessions(items, tpipe.ClusterParams(**kw), device="cpu")
+
+
+def _write_calibration(path, state: str, monkeypatch) -> None:
+    """The machine calibration as the JAX package writes it: a persisted
+    8-bit floor, fresh, stale (older than the TTL) or of another schema;
+    or no file at all."""
+    if state == "none":
+        return
+    if state == "stale":
+        monkeypatch.setattr(jcal, "_now", lambda: time.time() - 7 * 3600)
+    jcal.update_calibration(str(path), wire={"quant_bits": 8})
+    monkeypatch.setattr(jcal, "_now", time.time)
+    if state == "schema":
+        saved = json.loads(path.read_text())
+        saved["schema_version"] = jcal.SCHEMA_VERSION - 1
+        path.write_text(json.dumps(saved))
+
+
+@pytest.mark.parametrize("state", ["floor", "none", "stale", "schema"])
+@pytest.mark.parametrize("quant_bits", [0, -1, 12, 6])
+def test_quant_bits_clamp_to_calibrated_floor_as_jax(tmp_path, monkeypatch,
+                                                      state, quant_bits):
+    """The degraded floor in the machine calibration clamps the port's
+    storeless wire width as it clamps JAX's: 0 and 12 drop to the 8-bit
+    floor, -1 and 6 keep theirs; a stale entry or another schema is no
+    floor."""
+    path = tmp_path / "cal.json"
+    _write_calibration(path, state, monkeypatch)
+    monkeypatch.setenv("TSE1M_ROUTER_CAL", str(path))
+    items = np.random.default_rng(11).integers(
+        0, 1 << 24, size=(1000, 64), dtype=np.uint32)
+    want = jpipe._quant_bits(items, jpipe.ClusterParams(
+        wire_quant_bits=quant_bits))
+    got = tpipe._quant_bits(items, tpipe.ClusterParams(
+        wire_quant_bits=quant_bits))
+    assert got == want
+    assert got == (8 if state == "floor" and quant_bits in (0, 12)
+                   else max(quant_bits, 0))
+
+
+def test_calibration_path_from_the_ini_as_jax(tmp_path, monkeypatch):
+    ini = tmp_path / "envFile.ini"
+    ini.write_text(f"[FRAMEWORK]\nrouter_cal_path = {tmp_path / 'c.json'}\n")
+    monkeypatch.delenv("TSE1M_ROUTER_CAL")
+    monkeypatch.setenv("TSE1M_ENVFILE", str(ini))
+    assert tcal.calibration_path() == jcal.calibration_path() == str(
+        tmp_path / "c.json")
+    monkeypatch.setenv("TSE1M_ENVFILE", str(tmp_path / "absent.ini"))
+    assert tcal.calibration_path() is None is jcal.calibration_path()
+
+
+def test_labels_with_calibrated_floor_match_jax(sets, tmp_path, monkeypatch):
+    """With the floor present both packages quantize a small storeless run
+    to 8 bits and give equal labels.  The port runs first: it never writes
+    the file, while the JAX run clears the floor after a clean run."""
+    path = tmp_path / "cal.json"
+    _write_calibration(path, "floor", monkeypatch)
+    monkeypatch.setenv("TSE1M_ROUTER_CAL", str(path))
+    items, _ = sets
+    items = items[:600]
+    got = tpipe.cluster_sessions(items, tpipe.ClusterParams(
+        block_n=128, **PLAIN_WIRE), device="cpu")
+    assert tpipe.last_run_info["wire_quant_bits"] == 8
+    want = jpipe.cluster_sessions(items, jpipe.ClusterParams(
+        use_pallas="interpret", block_n=128, **PLAIN_WIRE))
+    assert jpipe.last_run_info["wire_quant_bits"] == 8
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kw", [dict(prefilter="on", sig_store="/store"),
@@ -262,7 +333,7 @@ def test_weighted_rows_keep_the_chunk_plan():
 
 def test_mesh_and_unknown_values_raise():
     items = np.zeros((8, 4), np.uint32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match='Queue 1, "Multi-GPU"'):
         tpipe.cluster_sessions(items, tpipe.ClusterParams(**PLAIN_WIRE),
                                mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown signature scheme"):

@@ -1,17 +1,31 @@
-"""Command line of the port: storeless single-GPU session clustering.
+"""Command line of the port: session clustering and the paper's RQ1.
 
     python -m tse1m_tpu_torch cluster --n 1000000 --seed 0 \
         [--wire-quant-bits N] [--prefilter {off,auto,on}] \
         [--entropy {off,auto,force}] \
         [--scheme {kminhash,cminhash,weighted}] [--device cuda]
+    python -m tse1m_tpu_torch rq1 --db PATH --result-dir DIR \
+        [--limit-date 2025-01-08] [--min-coverage-days 365] \
+        [--test-mode] [--device cuda]
 
-Synthesizes planted near-duplicate sessions, clusters them with default
-``ClusterParams`` (wire v3: at >= 64 MiB of ids the host prefilter, the
-base-delta lane and the rANS lanes switch on), and prints one JSON line:
+``cluster`` synthesizes planted near-duplicate sessions, clusters them
+with default ``ClusterParams`` (wire v3: at >= 64 MiB of ids the host
+prefilter, the base-delta lane and the rANS lanes switch on), and prints
+one JSON line:
 ARI against the planted truth, the wire chosen, the wall and the stage
 walls.  ``--scheme weighted`` also synthesizes per-edge hit counts and
 expands each session into replica ids on the host before clustering, as
 the JAX package's command line does.
+
+``rq1`` runs RQ1 over a sqlite study on the card: it prints the summary
+lines of the reference transcript and writes
+``<result-dir>/rq1/rq1_detection_rate_stats.csv`` and
+``rq1_raw_issues_for_analysis.csv``.  The defaults of ``--db``,
+``--result-dir`` and ``--test-mode`` come from TSE1M_SQLITE_PATH,
+TSE1M_RESULT_DIR and TSE1M_TEST_MODE, else the JAX package's defaults.
+
+Both run on the card unless ``--device cpu`` is given, and fail without
+one.
 """
 
 from __future__ import annotations
@@ -27,6 +41,7 @@ import torch
 from .cluster import ClusterParams, adjusted_rand_index, cluster_sessions
 from .cluster.pipeline import last_run_info
 from .cluster.schemes import expand_weighted
+from .config import DEFAULT_LIMIT_DATE, Config, load_config
 from .data import synth_session_hitcounts, synth_session_sets
 from .device import resolve_device
 
@@ -65,6 +80,19 @@ def _cmd_cluster(args) -> int:
     return 0
 
 
+def _cmd_rq1(args) -> int:
+    from .analysis.rq1 import run_rq1
+
+    resolve_device(args.device)
+    cfg = Config(sqlite_path=args.db, result_dir=args.result_dir,
+                 limit_date=args.limit_date,
+                 min_coverage_days=args.min_coverage_days,
+                 test_mode=args.test_mode)
+    out = run_rq1(cfg, device=args.device)
+    print(f"wrote {out['stats_csv']}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m tse1m_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -92,8 +120,26 @@ def main(argv: list[str] | None = None) -> int:
                         "expansion on the host)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
+    env = load_config()
+    r = sub.add_parser("rq1", help="RQ1 detection rate over a sqlite study "
+                       "on the GPU")
+    r.add_argument("--db", default=env.sqlite_path,
+                   help="sqlite study file (default %(default)s)")
+    r.add_argument("--result-dir", default=env.result_dir,
+                   help="artifact root; CSVs go to <dir>/rq1 "
+                        "(default %(default)s)")
+    r.add_argument("--limit-date", default=DEFAULT_LIMIT_DATE,
+                   help="study cutoff (default %(default)s)")
+    r.add_argument("--min-coverage-days", type=int, default=365,
+                   help="eligibility: non-zero coverage days before the "
+                        "cutoff (default %(default)s)")
+    r.add_argument("--test-mode", action="store_true", default=env.test_mode,
+                   help="first 10 eligible projects, 1 project an "
+                        "iteration (the reference's TEST_MODE)")
+    r.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    return _cmd_cluster(args)
+    return _cmd_rq1(args) if args.cmd == "rq1" else _cmd_cluster(args)
 
 
 if __name__ == "__main__":

@@ -27,9 +27,10 @@ positions, values) follows in one staged copy, is decoded on the card
 row order (``_cluster_encoded_labels``).
 
 Levers of ``ClusterParams`` this port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP.md item; the watchdog, the OOM
-ladder, the CPU failover and the calibrated quantization floor of the JAX
-pipeline are not ported (ROADMAP.md Queue 1 item 7).
+``NotImplementedError`` naming their ROADMAP.md item by its title; the
+watchdog, the OOM ladder and the CPU failover of the JAX pipeline are not
+ported (ROADMAP.md Queue 1, "Device-side resilience").  Storeless runs
+clamp to the calibrated quantization floor as the JAX pipeline does.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import U32_MASK, narrow, resolve_device, widen
+from ..utils.calibration import degraded_quant_floor
 from .encode import (_AUTO_MIN_BYTES, _AUTO_MIN_DELTA_FRACTION,
                      _AUTO_QUANT_BITS, ChunkWire, chunk_wire_bits,
                      encode_delta, pack_chunk, pack_delta_meta, quantize_ids,
@@ -96,8 +98,8 @@ _ALIGN = 16  # byte alignment of each array in a staged copy
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to tse1m_tpu_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})")
+        f"{what} is not ported to tse1m_tpu_torch yet (ROADMAP.md Queue 1, "
+        f"\"{item}\")")
 
 
 def _validate_encoding(params: ClusterParams) -> None:
@@ -126,18 +128,28 @@ def _validate_encoding(params: ClusterParams) -> None:
             "signature verification every proposed edge is accepted, so "
             "bucket isolation proves nothing about labels.")
     if params.sig_store:
-        raise _not_ported("sig_store (the warm path)", "9")
+        raise _not_ported("sig_store (the warm path)",
+                          "Warm path and the serve signer")
 
 
 def _quant_bits(items: np.ndarray, params: ClusterParams) -> int:
-    """Effective wire_quant_bits under the policy; 0 = off or no gain."""
+    """Effective wire_quant_bits under the policy; 0 = off or no gain.
+
+    Storeless runs with ``wire_quant_bits >= 0`` also clamp to the degraded
+    floor that an earlier run of the JAX package persisted to the machine
+    calibration (``utils/calibration.py``), so both packages ship the same
+    wire on that machine."""
     b = params.wire_quant_bits
     if b < 0 or items.size == 0:
         return 0
     if b == 0:
         b = _AUTO_QUANT_BITS if items.nbytes >= _AUTO_MIN_BYTES else 0
-    if b and width_bits(int(items.max())) <= b:
+    width = width_bits(int(items.max()))
+    if b and width <= b:
         b = 0  # already at or below the target universe
+    floor = degraded_quant_floor()
+    if floor and (b == 0 or floor < b) and width > floor:
+        return floor
     return b
 
 
@@ -620,7 +632,7 @@ def cluster_sessions(items, params: ClusterParams | None = None,
     dev = resolve_device(device)
     _validate_encoding(params)
     if mesh is not None:
-        raise _not_ported("a mesh (multi-GPU clustering)", "11")
+        raise _not_ported("a mesh (multi-GPU clustering)", "Multi-GPU")
     items = np.ascontiguousarray(items, dtype=np.uint32)
     hp = make_params(params.scheme, params.n_hashes, params.seed).to(dev)
     rec = StageRecorder()
