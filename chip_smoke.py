@@ -57,16 +57,23 @@ Phases, in order; any failure ends the run with a non-zero exit code:
        k=10: one launch of the top-k kernel, its state equal to the plain
        version's, each query's first hit at 128 agreements;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
-   (tests/goldens/generate_goldens.py) through the port on the card, its
-   two RQ1 CSVs equal to tests/goldens/synth8/rq1/ byte for byte; then a
-   study of the paper's scale (446 projects x 1,600 days, ~1M fuzzing
+   (tests/goldens/generate_goldens.py) and its corpus CSV through the
+   port's six drivers on the card, run as ``all`` runs them, all eight
+   committed artifacts equal to tests/goldens/synth8/ byte for byte; then
+   a study of the paper's scale (446 projects x 1,600 days, ~1M fuzzing
    builds, cutoff 2026-01-01) generated, written to sqlite under the
-   gitignored build/, extracted, and the fused six-RQ suite and the six
-   single calls on the card held against TorchBackend("cpu") on the same
-   arrays (exact, Spearman and mean within 2e-5); the extraction, each RQ
-   and the suite timed warm (median of 5), printed as one ``rq_path``
-   JSON line with the row counts, peak device memory, host generation
-   and write times and the card's name and power limit;
+   gitignored build/ with its corpus CSV, extracted, and the fused six-RQ
+   suite and the six single calls on the card held against
+   TorchBackend("cpu") on the same arrays (exact, Spearman and mean
+   within 2e-5); the extraction, each RQ and the suite timed warm (median
+   of 5), printed as one ``rq_path`` JSON line with the row counts, peak
+   device memory, host generation and write times and the card's name
+   and power limit; then ``all`` once over that study on the card with
+   the corpus CSV's G1/G2 groups: every step ok in run_manifest.json,
+   every driver's manifest naming TorchBackend on the card, each
+   artifact's row count the one the single calls' results imply; each
+   driver's wall and phases printed as one ``rq_drivers`` JSON line with
+   the card's name and power limit;
 5. timing: each kernel beside its plain version (CUDA events around
    ``--calls-per-window`` back-to-back calls, 5 by default, median of 20
    windows after warm-up; 1 times each call alone, as earlier versions of
@@ -87,8 +94,11 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import csv
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -100,7 +110,8 @@ import torch
 from tse1m_tpu_torch import (adjusted_rand_index, expand_weighted,
                              synth_session_hitcounts, synth_session_sets,
                              topk_agreement)
-from tse1m_tpu_torch.analysis.rq1 import run_rq1
+from tse1m_tpu_torch.analysis import RQ_DRIVERS, run_rqs
+from tse1m_tpu_torch.analysis.corpus import g4_prepost, load_corpus_groups
 from tse1m_tpu_torch.backend import TorchBackend
 from tse1m_tpu_torch.cluster import entropy, kernels, pipeline
 from tse1m_tpu_torch.cluster.encode import (pack_chunk, pack_delta_meta,
@@ -1020,12 +1031,29 @@ def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
 
 RQ_DIR = os.path.join(ROOT, "build", "rq_smoke")  # gitignored
 # The frozen golden study (tests/goldens/generate_goldens.py:33) and its
-# committed RQ1 artifacts.
+# eight committed artifacts (generate_goldens.py:37-46).
 GOLDEN_SPEC = dict(n_projects=8, days=400, seed=42, fuzz_rate=1.2,
                    ineligible_fraction=0.0)
-GOLDEN_RQ1 = os.path.join(ROOT, "tests", "goldens", "synth8", "rq1")
-RQ1_FILES = ("rq1_detection_rate_stats.csv",
-             "rq1_raw_issues_for_analysis.csv")
+GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens", "synth8")
+GOLDEN_FILES = (
+    "rq1/rq1_detection_rate_stats.csv",
+    "rq1/rq1_raw_issues_for_analysis.csv",
+    "rq2/coverage_by_session_index.csv",
+    "rq3/all_coverage_change_analysis.csv",
+    "rq3/detected_coverage_changes.csv",
+    "rq4/bug/rq4_g1_g2_detection_trend.csv",
+    "rq4/bug/rq4_gc_introduction_iteration.csv",
+    "rq4/coverage/g2_g1_trend_stats.csv",
+)
+# Each driver's manifest, under the result directory.
+DRIVER_MANIFESTS = {
+    "rq1": "rq1/rq1_manifest.json",
+    "rq2a": "rq3/rq2_changepoints_manifest.json",
+    "rq2b": "rq2/rq2_trends_manifest.json",
+    "rq3": "rq3/rq3_manifest.json",
+    "rq4a": "rq4/bug/rq4a_manifest.json",
+    "rq4b": "rq4/coverage/rq4b_manifest.json",
+}
 # ~1M fuzzing builds, the JAX bench's extraction and RQ-suite study
 # (bench.py:31-50, 81-117) and the reference's 1.19M build logs.
 RQ_SPEC = dict(n_projects=446, days=1600, fuzz_rate=1.4,
@@ -1055,24 +1083,140 @@ def fresh_sqlite(path: str) -> None:
             os.remove(path + suffix)
 
 
+def run_drivers(cfg, dev, transcript: str):
+    """``run_rqs`` over all six drivers, as ``all`` runs them, with their
+    printed transcript sent to a file beside the study."""
+    with open(transcript, "w") as f, contextlib.redirect_stdout(f):
+        return run_rqs(cfg, device=dev)
+
+
+def check_drivers_ran(out: str, dev) -> dict:
+    """Every step of ``all`` ok in run_manifest.json, and each driver's
+    manifest naming TorchBackend on the card; returns run_manifest.json."""
+    with open(os.path.join(out, "run_manifest.json")) as f:
+        run = json.load(f)
+    steps = {s["name"]: s for s in run["steps"]}
+    bad = {n: s.get("error") for n, s in steps.items() if s["status"] != "ok"}
+    if list(steps) != list(RQ_DRIVERS) or bad:
+        raise AssertionError(f"all: steps {list(steps)}, not ok: {bad}")
+    for name, rel in DRIVER_MANIFESTS.items():
+        with open(os.path.join(out, rel)) as f:
+            m = json.load(f)
+        if (m["backend"], m["device"]) != ("torch_cuda",
+                                          torch.cuda.get_device_name(dev)):
+            raise AssertionError(f"{name} ran on {m['backend']} "
+                                 f"{m['device']}")
+    return run
+
+
+def fresh_dir(path: str) -> str:
+    """``path`` emptied: no artifact of an earlier run can pass a check."""
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
 def rq_golden(dev) -> None:
-    """The frozen golden study through the port on the card: its two RQ1
-    CSVs equal the committed goldens byte for byte."""
+    """The frozen golden study through the port's six drivers on the card,
+    run as ``all`` runs them: its eight artifacts equal the committed
+    goldens byte for byte."""
     path = os.path.join(RQ_DIR, "golden.sqlite")
-    out = os.path.join(RQ_DIR, "golden_out")
+    corpus = os.path.join(RQ_DIR, "golden_corpus.csv")
+    out = fresh_dir(os.path.join(RQ_DIR, "golden_out"))
     fresh_sqlite(path)
-    generate_study(SynthSpec(**GOLDEN_SPEC)).to_db(path)
-    run_rq1(StudyConfig(sqlite_path=path, result_dir=out, test_mode=True),
-            device=dev)
-    for name in RQ1_FILES:
-        with open(os.path.join(out, "rq1", name), "rb") as f:
+    study = generate_study(SynthSpec(**GOLDEN_SPEC))
+    study.to_db(path)
+    study.write_corpus_csv(corpus)
+    cfg = StudyConfig(sqlite_path=path, result_dir=out, test_mode=True,
+                      corpus_csv=corpus)
+    runner = run_drivers(cfg, dev, os.path.join(RQ_DIR, "golden_all.log"))
+    if runner.exit_code():
+        raise AssertionError(f"golden all: {runner.summary()}")
+    check_drivers_ran(out, dev)
+    for rel in GOLDEN_FILES:
+        with open(os.path.join(out, rel), "rb") as f:
             got = f.read()
-        with open(os.path.join(GOLDEN_RQ1, name), "rb") as f:
+        with open(os.path.join(GOLDEN_DIR, rel), "rb") as f:
             want = f.read()
         if got != want:
-            raise AssertionError(f"{name} differs from the golden")
-    log(f"  golden study on the card: {', '.join(RQ1_FILES)} equal "
-        "tests/goldens/synth8/rq1/ byte for byte")
+            raise AssertionError(f"{rel} differs from the golden")
+    log(f"  golden study through the six drivers on the card: all "
+        f"{len(GOLDEN_FILES)} files equal tests/goldens/synth8/ byte for "
+        "byte")
+
+
+def csv_rows(path: str, header: bool = True) -> int:
+    with open(path, newline="") as f:
+        return sum(1 for _ in csv.reader(f)) - int(header)
+
+
+def rq_drivers(dev, path: str, corpus: str, arrays, got: dict,
+               limit_ns: int) -> dict:
+    """Phase 4's last step: ``all`` once on the card over the 446-project
+    study at RQ_CUTOFF and RQ_MIN_PROJECTS, with the corpus CSV's G1/G2
+    groups; every step ok, and each artifact's row count the one the
+    single calls' results imply; returns the ``rq_drivers`` report."""
+    out = fresh_dir(os.path.join(RQ_DIR, "all_out"))
+    cfg = StudyConfig(sqlite_path=path, limit_date=RQ_CUTOFF, result_dir=out,
+                      corpus_csv=corpus,
+                      min_projects_per_iteration=RQ_MIN_PROJECTS)
+    t0 = time.perf_counter()
+    run_drivers(cfg, dev, os.path.join(RQ_DIR, "all.log"))
+    all_s = time.perf_counter() - t0
+    run = check_drivers_ran(out, dev)
+    # The rows each artifact must hold, from the backend's own results on
+    # the same arrays; RQ4a's and the introduction CSV's from the corpus
+    # CSV's groups.
+    groups = load_corpus_groups(corpus, set(arrays.projects))
+    pidx = arrays.project_index()
+    cg1, cg2 = (groups.indices(k, pidx) for k in ("group1", "group2"))
+    rq4a = TorchBackend(dev).rq4a_detection_trend(
+        arrays, limit_ns, cg1, cg2, RQ_MIN_PROJECTS)
+    cp = got["rq2cp"]
+    want = {
+        "rq1/rq1_detection_rate_stats.csv": got["rq1"].iterations.size,
+        "rq1/rq1_raw_issues_for_analysis.csv": int(got["rq1"].linked.sum()),
+        "rq3/all_coverage_change_analysis.csv": cp.project_idx.size,
+        "rq2/coverage_by_session_index.csv": got["rq2tr"].matrix.shape[1],
+        "rq3/detected_coverage_changes.csv": got["rq3"].det_diff_percent.size,
+        "rq3/non_detected_coverage_changes.csv":
+            got["rq3"].nondet_diff_percent.size,
+        "rq4/bug/rq4_g1_g2_detection_trend.csv": rq4a.iterations.size,
+        "rq4/bug/rq4_gc_introduction_iteration.csv": len(g4_prepost(
+            arrays, limit_ns, groups, cfg.analysis_iterations
+        ).intro_iteration),
+        "rq4/coverage/g2_g1_trend_stats.csv": got["rq4b"].matrix.shape[1],
+    }
+    rows = {rel: csv_rows(os.path.join(out, rel),
+                          header=not rel.startswith("rq2/"))
+            for rel in want}
+    per_project = os.path.join(out, "rq3", "change_analysis")
+    n_files = len(os.listdir(per_project))
+    rows["rq3/change_analysis/*.csv"] = sum(
+        csv_rows(os.path.join(per_project, f))
+        for f in os.listdir(per_project))
+    want["rq3/change_analysis/*.csv"] = cp.project_idx.size
+    wrong = {rel: (rows[rel], n) for rel, n in want.items()
+             if rows[rel] != int(n)}
+    if wrong or n_files != np.unique(cp.project_idx).size:
+        raise AssertionError(f"all: rows (got, want) {wrong}, "
+                             f"{n_files} change_analysis files")
+    drivers = {}
+    for name, rel in DRIVER_MANIFESTS.items():
+        with open(os.path.join(out, rel)) as f:
+            phases = json.load(f)["timings"]
+        drivers[name] = {"wall_s": next(s["wall_s"] for s in run["steps"]
+                                        if s["name"] == name),
+                         "phases_s": phases}
+    log(f"  all on the card in {all_s:.3f} s, every step ok, "
+        f"{sum(rows.values()):,} artifact rows as the results imply "
+        f"({n_files} change_analysis files); " + ", ".join(
+            f"{n} {d['wall_s']:.3f} s" for n, d in drivers.items()))
+    report = {"all_s": all_s, "drivers": drivers, "rows": rows,
+              "change_analysis_files": n_files,
+              "groups": {k: len(v) for k, v in groups.groups.items()},
+              "card": card_name_and_limit()}
+    print(json.dumps({"rq_drivers": report}), flush=True)
+    return report
 
 
 def rq_calls(backend, arrays, limit_ns: int, g1, g2) -> dict:
@@ -1166,6 +1310,8 @@ def rq_phase(dev) -> dict:
     t0 = time.perf_counter()
     study.to_db(path)
     write_s = time.perf_counter() - t0
+    corpus = os.path.join(RQ_DIR, "study_corpus.csv")
+    study.write_corpus_csv(corpus)
     del study
     log(f"  1M-build study: {rows} rows generated in {gen_s:.3f} s, "
         f"written to sqlite in {write_s:.3f} s")
@@ -1220,6 +1366,7 @@ def rq_phase(dev) -> dict:
         "card": card_name_and_limit(),
     }
     print(json.dumps({"rq_path": report}), flush=True)
+    rq_drivers(dev, path, corpus, arrays, got, limit_ns)
     return report
 
 
@@ -1269,9 +1416,9 @@ def main() -> int:
                 "rans_decode": default["counts"]["rans_decode"],
                 "topk_chunk": topk["counts"]["topk_chunk"]}
 
-    log(f"phase 4: the RQ path, the golden study and a "
-        f"{RQ_SPEC['n_projects']}-project study (tolerance: exact, "
-        f"Spearman and mean {RQ_TOL})")
+    log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
+        f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
+        f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
     rq_phase(dev)
 
     log(f"phase 5: timing (CUDA events around {args.calls_per_window} "

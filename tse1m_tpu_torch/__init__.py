@@ -13,7 +13,8 @@ It also runs the paper's RQ analysis: a sqlite study (``db/``, written by
 ``data/synth.py``) is extracted into per-project CSR arrays
 (``data/columnar.py``) and answered by ``TorchBackend`` (``backend/``,
 torch ops in ``ops/segment.py``), all six research questions in one pass
-on the card with ``rq_suite``; ``analysis/rq1.py`` writes RQ1's artifacts.
+on the card with ``rq_suite``; the six drivers under ``analysis/`` write
+every RQ's artifacts, as the JAX package's drivers do.
 It imports ``torch`` and ``numpy`` and the standard library, and nothing of
 the JAX package, pandas or matplotlib.
 
@@ -23,7 +24,8 @@ Ids, hash constants, signatures and band keys are int32 tensors carrying
 uint32 bits (``tse1m_tpu_torch.device``).
 
     python -m tse1m_tpu_torch cluster --n 1000000
-    python -m tse1m_tpu_torch rq1 --db study.sqlite --result-dir out
+    python -m tse1m_tpu_torch synth --db study.sqlite
+    python -m tse1m_tpu_torch all --db study.sqlite --result-dir out
 """
 
 from .backend import TorchBackend

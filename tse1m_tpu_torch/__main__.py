@@ -1,12 +1,15 @@
-"""Command line of the port: session clustering and the paper's RQ1.
+"""Command line of the port: session clustering and the paper's RQs.
 
     python -m tse1m_tpu_torch cluster --n 1000000 --seed 0 \
         [--wire-quant-bits N] [--prefilter {off,auto,on}] \
         [--entropy {off,auto,force}] \
         [--scheme {kminhash,cminhash,weighted}] [--device cuda]
-    python -m tse1m_tpu_torch rq1 --db PATH --result-dir DIR \
-        [--limit-date 2025-01-08] [--min-coverage-days 365] \
-        [--test-mode] [--device cuda]
+    python -m tse1m_tpu_torch synth --db PATH [--projects 24] [--days 450] \
+        [--seed 0]
+    python -m tse1m_tpu_torch {rq1,rq2a,rq2b,rq3,rq4a,rq4b,all} --db PATH \
+        --result-dir DIR [--limit-date 2025-01-08] \
+        [--min-coverage-days 365] [--test-mode] [--corpus-csv PATH] \
+        [--device cuda]
 
 ``cluster`` synthesizes planted near-duplicate sessions, clusters them
 with default ``ClusterParams`` (wire v3: at >= 64 MiB of ids the host
@@ -17,21 +20,31 @@ walls.  ``--scheme weighted`` also synthesizes per-edge hit counts and
 expands each session into replica ids on the host before clustering, as
 the JAX package's command line does.
 
-``rq1`` runs RQ1 over a sqlite study on the card: it prints the summary
-lines of the reference transcript and writes
-``<result-dir>/rq1/rq1_detection_rate_stats.csv`` and
-``rq1_raw_issues_for_analysis.csv``.  The defaults of ``--db``,
-``--result-dir`` and ``--test-mode`` come from TSE1M_SQLITE_PATH,
-TSE1M_RESULT_DIR and TSE1M_TEST_MODE, else the JAX package's defaults.
+``synth`` writes a synthetic study into the sqlite file and its
+corpus-analysis CSV (which RQ4a and RQ4b read) at the config's
+``corpus_csv``; it is host work only and touches no device.
 
-Both run on the card unless ``--device cpu`` is given, and fail without
-one.
+``rq1`` ... ``rq4b`` run one research question over a sqlite study on the
+card, printing the reference transcript's lines and writing its CSVs
+under ``--result-dir``; ``all`` runs the six in the JAX package's order,
+each to completion whatever the others do.  Every step is recorded in
+``<result-dir>/run_manifest.json``, and the exit code is 1 when any step
+failed.  The defaults of ``--db``, ``--result-dir``, ``--limit-date``,
+``--test-mode`` and ``--corpus-csv`` (and synth's corpus CSV) come from
+``load_config``: the INI at TSE1M_ENVFILE (else program/envFile.ini),
+then TSE1M_SQLITE_PATH, TSE1M_CORPUS_CSV, TSE1M_RESULT_DIR and
+TSE1M_TEST_MODE.
+
+``cluster`` and the RQ commands run on the card unless ``--device cpu``
+is given, and fail without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import logging
 import sys
 import time
 
@@ -41,7 +54,7 @@ import torch
 from .cluster import ClusterParams, adjusted_rand_index, cluster_sessions
 from .cluster.pipeline import last_run_info
 from .cluster.schemes import expand_weighted
-from .config import DEFAULT_LIMIT_DATE, Config, load_config
+from .config import load_config
 from .data import synth_session_hitcounts, synth_session_sets
 from .device import resolve_device
 
@@ -80,20 +93,43 @@ def _cmd_cluster(args) -> int:
     return 0
 
 
-def _cmd_rq1(args) -> int:
-    from .analysis.rq1 import run_rq1
+def _cmd_synth(args) -> int:
+    from .data.synth import SynthSpec, generate_study
 
-    resolve_device(args.device)
-    cfg = Config(sqlite_path=args.db, result_dir=args.result_dir,
-                 limit_date=args.limit_date,
-                 min_coverage_days=args.min_coverage_days,
-                 test_mode=args.test_mode)
-    out = run_rq1(cfg, device=args.device)
-    print(f"wrote {out['stats_csv']}")
+    corpus_csv = load_config().corpus_csv
+    study = generate_study(SynthSpec(n_projects=args.projects,
+                                     days=args.days, seed=args.seed))
+    study.to_db(args.db)
+    # RQ4 reads the corpus-analysis CSV from the config's corpus_csv
+    # (rq4a_bug.py:34): a synthetic study always writes it there.
+    study.write_corpus_csv(corpus_csv)
+    print(f"wrote {len(study.buildlog_data['name']):,} builds, "
+          f"{len(study.issues['number']):,} issues and "
+          f"{len(study.total_coverage['date']):,} coverage rows to "
+          f"{args.db}; corpus analysis CSV at {corpus_csv}")
     return 0
 
 
-def main(argv: list[str] | None = None) -> int:
+def _cmd_rq(args) -> int:
+    from .analysis import RQ_DRIVERS, run_rqs
+
+    cfg = dataclasses.replace(
+        load_config(), sqlite_path=args.db, result_dir=args.result_dir,
+        limit_date=args.limit_date, min_coverage_days=args.min_coverage_days,
+        test_mode=args.test_mode, corpus_csv=args.corpus_csv)
+    names = tuple(RQ_DRIVERS) if args.cmd == "all" else (args.cmd,)
+    # run_rqs resolves the device first: without a card it raises before
+    # any step runs or any manifest is written.
+    runner = run_rqs(cfg, names, device=args.device)
+    for rec in runner.failed:
+        print(f"step {rec.name} failed: {rec.error}\n{rec.traceback}",
+              file=sys.stderr)
+    return runner.exit_code()
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The command line, its defaults from ``load_config()`` as it stands
+    now (the INI, then the environment)."""
     ap = argparse.ArgumentParser(prog="python -m tse1m_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("cluster", help="MinHash+LSH session dedup on the GPU")
@@ -121,25 +157,63 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
     env = load_config()
-    r = sub.add_parser("rq1", help="RQ1 detection rate over a sqlite study "
-                       "on the GPU")
-    r.add_argument("--db", default=env.sqlite_path,
+    y = sub.add_parser("synth", help="write a synthetic study (sqlite) and "
+                       "its corpus-analysis CSV; host only")
+    y.add_argument("--db", default=env.sqlite_path,
                    help="sqlite study file (default %(default)s)")
-    r.add_argument("--result-dir", default=env.result_dir,
-                   help="artifact root; CSVs go to <dir>/rq1 "
-                        "(default %(default)s)")
-    r.add_argument("--limit-date", default=DEFAULT_LIMIT_DATE,
-                   help="study cutoff (default %(default)s)")
-    r.add_argument("--min-coverage-days", type=int, default=365,
-                   help="eligibility: non-zero coverage days before the "
-                        "cutoff (default %(default)s)")
-    r.add_argument("--test-mode", action="store_true", default=env.test_mode,
-                   help="first 10 eligible projects, 1 project an "
-                        "iteration (the reference's TEST_MODE)")
-    r.add_argument("--device", default="cuda",
-                   help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
-    return _cmd_rq1(args) if args.cmd == "rq1" else _cmd_cluster(args)
+    y.add_argument("--projects", type=int, default=24)
+    y.add_argument("--days", type=int, default=450)
+    y.add_argument("--seed", type=int, default=0)
+    helps = {
+        "rq1": "RQ1 detection rate",
+        "rq2a": "RQ2 change points (CSVs under <dir>/rq3, as the "
+                "reference)",
+        "rq2b": "RQ2 coverage trends",
+        "rq3": "RQ3 coverage change at detection",
+        "rq4a": "RQ4a corpus effect on detection",
+        "rq4b": "RQ4b corpus effect on coverage",
+        "all": "the six RQs in order (rq1 rq2a rq2b rq3 rq4a rq4b), each "
+               "to completion; leaves out the JAX package's graftlint and "
+               "graftspec steps, which check that package's own code",
+    }
+    for name, text in helps.items():
+        r = sub.add_parser(name, help=text + " over a sqlite study on the "
+                           "GPU")
+        r.add_argument("--db", default=env.sqlite_path,
+                       help="sqlite study file (default %(default)s)")
+        r.add_argument("--result-dir", default=env.result_dir,
+                       help="artifact root (default %(default)s)")
+        r.add_argument("--limit-date", default=env.limit_date,
+                       help="study cutoff (default %(default)s)")
+        r.add_argument("--min-coverage-days", type=int,
+                       default=env.min_coverage_days,
+                       help="eligibility: non-zero coverage days before "
+                            "the cutoff (default %(default)s)")
+        r.add_argument("--test-mode", action="store_true",
+                       default=env.test_mode,
+                       help="first 10 eligible projects, 1 project an "
+                            "iteration (the reference's TEST_MODE)")
+        if name in ("rq4a", "rq4b", "all"):
+            r.add_argument("--corpus-csv", default=env.corpus_csv,
+                           help="corpus-analysis CSV the corpus groups "
+                                "come from (default %(default)s)")
+        else:
+            r.set_defaults(corpus_csv=env.corpus_csv)
+        r.add_argument("--device", default="cuda",
+                       help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.cmd == "cluster":
+        return _cmd_cluster(args)
+    if args.cmd == "synth":
+        return _cmd_synth(args)
+    logging.basicConfig(level=logging.INFO, datefmt="%H:%M:%S",
+                        format="%(asctime)s %(levelname)-7s %(name)s: "
+                               "%(message)s")
+    return _cmd_rq(args)
 
 
 if __name__ == "__main__":

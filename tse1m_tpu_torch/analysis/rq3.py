@@ -1,0 +1,188 @@
+"""RQ3, the coverage change when bugs are detected and when not: a port of
+``tse1m_tpu/analysis/rq3.py:46-137, 219-288`` over ``TorchBackend``.
+
+Artifacts, as the JAX package writes them (under ``rq3/``):
+``detected_coverage_changes.csv`` and ``non_detected_coverage_changes.csv``,
+header ``CoverageChangePercent,CoveredLinesChange,TotalLinesChange``
+(rq3:307-318).
+
+The statistics stay on the host in scipy over the already-reduced delta
+vectors: the summary table per group (rq3:25-66), Anderson-Darling
+normality per group (rq3:329-339), Levene (rq3:344) and Brunner-Munzel
+(rq3:349).  The boxplot and histogram PDFs need matplotlib, which this
+package does not import (ROADMAP.md Queue 1, "RQ figures").
+"""
+
+from __future__ import annotations
+
+import csv
+import os
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..utils.atomic import atomic_write
+from ..utils.manifest import RunManifest
+from ..utils.timing import PhaseTimer
+from .common import StudyContext, limit_date_ns
+
+
+def summary_statistics(data: np.ndarray) -> dict:
+    """The reference's summary table block (rq3:25-66)."""
+    data = np.asarray(data, dtype=np.float64)
+    n = data.size
+    if n == 0:
+        return {"count": 0}
+    return {
+        "count": int(n),
+        "positive_pct": float((data > 0).sum() / n * 100),
+        "zero_pct": float((data == 0).sum() / n * 100),
+        "negative_pct": float((data < 0).sum() / n * 100),
+        "mean": float(data.mean()),
+        "median": float(np.median(data)),
+        "std": float(data.std()),
+        "min": float(data.min()),
+        "q1": float(np.percentile(data, 25)),
+        "q3": float(np.percentile(data, 75)),
+        "max": float(data.max()),
+    }
+
+
+def print_summary_statistics(data: np.ndarray, name: str) -> dict:
+    s = summary_statistics(data)
+    print(f"\n--- Summary Statistics for '{name}' Group ---")
+    if not s["count"]:
+        print("No data available.")
+        return s
+    rows = [
+        ("Count", f"{s['count']}"),
+        ("Positive Change Rate (%)", f"{s['positive_pct']:.2f}"),
+        ("Zero Change Rate (%)", f"{s['zero_pct']:.2f}"),
+        ("Negative Change Rate (%)", f"{s['negative_pct']:.2f}"),
+        ("Mean", f"{s['mean']:.4f}"),
+        ("Median", f"{s['median']:.4f}"),
+        ("Std. Deviation", f"{s['std']:.4f}"),
+        ("Min", f"{s['min']:.4f}"),
+        ("Q1", f"{s['q1']:.4f}"),
+        ("Q3", f"{s['q3']:.4f}"),
+        ("Max", f"{s['max']:.4f}"),
+    ]
+    print("+--------------------------+----------------------+")
+    print("| Metric                   | Value                |")
+    print("+--------------------------+----------------------+")
+    for k, v in rows:
+        print(f"| {k:<24} | {v:<20} |")
+    print("+--------------------------+----------------------+")
+    return s
+
+
+def statistical_tests(detected: np.ndarray, non_detected: np.ndarray) -> dict:
+    """Anderson-Darling per group, Levene, Brunner-Munzel (rq3:329-352)."""
+    import warnings
+
+    from scipy import stats
+
+    out: dict = {}
+    for name, data in (("detected", detected), ("non_detected", non_detected)):
+        if data.size >= 3:
+            with warnings.catch_warnings():
+                # scipy >= 1.17 deprecates the critical-value result shape;
+                # kept because the reference prints critical values
+                # (rq3:331-333).
+                warnings.simplefilter("ignore", FutureWarning)
+                r = stats.anderson(data, dist="norm")
+            out[f"anderson_{name}"] = {
+                "statistic": float(r.statistic),
+                "critical_values": [float(v) for v in r.critical_values],
+                "significance_levels": [float(v) for v in r.significance_level],
+            }
+    if detected.size >= 2 and non_detected.size >= 2:
+        stat, p = stats.levene(detected, non_detected)
+        out["levene"] = {"statistic": float(stat), "p_value": float(p)}
+        stat, p = stats.brunnermunzel(detected, non_detected)
+        out["brunner_munzel"] = {"statistic": float(stat), "p_value": float(p)}
+    return out
+
+
+def save_changes_csv(path: str, pct, cov, tot) -> None:
+    with atomic_write(path, newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["CoverageChangePercent", "CoveredLinesChange",
+                    "TotalLinesChange"])
+        for row in zip(pct, cov, tot):
+            w.writerow([row[0], _int_if_whole(row[1]), _int_if_whole(row[2])])
+
+
+def _int_if_whole(x: float):
+    # The covered/total line deltas are integral counts; the reference
+    # writes them as ints straight from the DB (rq3:299-300).
+    return int(x) if float(x).is_integer() else x
+
+
+def run_rq3(cfg: Config | None = None, db=None,
+            device: str | torch.device = "cuda") -> dict:
+    timer = PhaseTimer()
+    print("--- RQ3 Analysis Started ---")
+    with timer.phase("extract"):
+        ctx = StudyContext.open(cfg, db=db, announce=False, device=device)
+    manifest = RunManifest("rq3", ctx.backend.name, str(ctx.backend.device))
+    n_issues = len(ctx.arrays.issues)
+    print(f"Fetched {n_issues} fixed issues from target projects.")
+
+    with timer.phase("rq3_kernel"):
+        result = ctx.backend.rq3_coverage_at_detection(
+            ctx.arrays, limit_date_ns(ctx.cfg))
+    detected = result.det_diff_percent
+    non_detected = result.nondet_diff_percent
+    print(f"\nFound {detected.size} instances of coverage change on bug "
+          "detection.")
+
+    out_dir = ctx.out_dir("rq3")
+    with timer.phase("artifacts"):
+        det_path = os.path.join(out_dir, "detected_coverage_changes.csv")
+        save_changes_csv(det_path, detected, result.det_diff_covered,
+                         result.det_diff_total)
+        manifest.add_artifact(det_path)
+        nondet_path = os.path.join(out_dir, "non_detected_coverage_changes.csv")
+        save_changes_csv(nondet_path, non_detected,
+                         result.nondet_diff_covered, result.nondet_diff_total)
+        manifest.add_artifact(nondet_path)
+
+    with timer.phase("stats"):
+        stats_summary = {
+            "detected": print_summary_statistics(detected, "Detected"),
+            "non_detected": print_summary_statistics(non_detected,
+                                                     "Not Detected"),
+            "detected_total": print_summary_statistics(
+                result.det_diff_total, "Detected Total"),
+        }
+        tests = statistical_tests(detected, non_detected)
+    for name in ("detected", "non_detected"):
+        t = tests.get(f"anderson_{name}")
+        if t:
+            print("Detected" if name == "detected" else "Not Detected")
+            print("Test statistic (A²):", t["statistic"])
+    if "levene" in tests:
+        print(f"Levene's test statistic: {tests['levene']['statistic']:.4f}")
+        print(f"P-value: {tests['levene']['p_value']:.4f}")
+    if "brunner_munzel" in tests:
+        print(f"Brunner-Munzel W statistic: "
+              f"{tests['brunner_munzel']['statistic']:.4f}")
+        print(f"P-value: {tests['brunner_munzel']['p_value']:.4f}")
+
+    manifest.record(
+        n_issues=n_issues,
+        n_detected=int(detected.size),
+        n_non_detected=int(non_detected.size),
+        summary=stats_summary,
+        tests=tests,
+    )
+    manifest.save(out_dir, timer.as_dict())
+    print("\n--- RQ3 Analysis Finished ---")
+    return {"result": result, "summary": stats_summary, "tests": tests,
+            "detected_csv": det_path, "non_detected_csv": nondet_path}
+
+
+__all__ = ["print_summary_statistics", "run_rq3", "save_changes_csv",
+           "statistical_tests", "summary_statistics"]

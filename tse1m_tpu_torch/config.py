@@ -2,16 +2,18 @@
 ``tse1m_tpu/config.py``.
 
 The study-wide constants (the result and status vocabularies, the study
-cutoff) and the fields the RQ path reads, with the JAX package's defaults.
-``load_config`` applies the same environment overrides as the JAX package
-for the sqlite path, the result directory and test mode.  This package
-reads sqlite only and has no backend switch: the RQ path runs on
+cutoff) and the fields the RQ drivers read, with the JAX package's
+defaults.  ``load_config`` reads them as the JAX package does: the
+``[FRAMEWORK]`` section of the INI at ``TSE1M_ENVFILE`` (else
+``program/envFile.ini``), then the environment.  This package reads
+sqlite only and has no backend switch: the RQ path runs on
 ``TorchBackend``.
 """
 
 from __future__ import annotations
 
 import os
+from configparser import ConfigParser
 from dataclasses import dataclass
 
 # The build-result and issue-status vocabularies (queries1.py:3-4 of the
@@ -20,6 +22,7 @@ RESULT_OK = ("Finish", "Halfway")
 FIXED_STATUSES = ("Fixed", "Fixed (Verified)")
 
 DEFAULT_LIMIT_DATE = "2025-01-08"
+DEFAULT_INI = "program/envFile.ini"
 
 
 @dataclass
@@ -33,16 +36,44 @@ class Config:
     # RQ1 keeps iterations with at least this many projects (rq1:233).
     min_projects_per_iteration: int = 100
     result_dir: str = "data/result_data"
+    # The corpus-analysis CSV that RQ4a and RQ4b group projects by
+    # (rq4a_bug.py:34).
+    corpus_csv: str = "data/processed_data/csv/project_corpus_analysis.csv"
+    # RQ4's pre/post window half-width N and the G3/G4 boundary in days
+    # (rq4a_bug.py:43-44).
+    analysis_iterations: int = 7
+    days_threshold: int = 7
     # The reference's TEST_MODE: the first 10 eligible projects, and a
     # per-iteration floor of 1 project (rq1_detection_rate.py:20,155-158).
     test_mode: bool = False
 
 
-def load_config() -> Config:
-    """Defaults, then the environment: TSE1M_SQLITE_PATH,
-    TSE1M_RESULT_DIR, TSE1M_TEST_MODE (1/true/yes)."""
+def ini_path(path: str | None = None) -> str | None:
+    """The INI to read: ``path``, else ``TSE1M_ENVFILE``, else
+    ``program/envFile.ini``; None when it names no file."""
+    path = path or os.environ.get("TSE1M_ENVFILE", DEFAULT_INI)
+    return path if path and os.path.exists(path) else None
+
+
+def load_config(ini: str | None = None) -> Config:
+    """Defaults, then the INI's ``[FRAMEWORK]`` keys sqlite_path,
+    limit_date, result_dir, corpus_csv and test_mode, then the
+    environment: TSE1M_SQLITE_PATH, TSE1M_CORPUS_CSV, TSE1M_RESULT_DIR,
+    TSE1M_TEST_MODE (1/true/yes)."""
     cfg = Config()
+    path = ini_path(ini)
+    if path:
+        parser = ConfigParser()
+        parser.read(path)
+        if parser.has_section("FRAMEWORK"):
+            fw = parser["FRAMEWORK"]
+            cfg.sqlite_path = fw.get("sqlite_path", cfg.sqlite_path)
+            cfg.limit_date = fw.get("limit_date", cfg.limit_date)
+            cfg.result_dir = fw.get("result_dir", cfg.result_dir)
+            cfg.corpus_csv = fw.get("corpus_csv", cfg.corpus_csv)
+            cfg.test_mode = fw.getboolean("test_mode", cfg.test_mode)
     cfg.sqlite_path = os.environ.get("TSE1M_SQLITE_PATH", cfg.sqlite_path)
+    cfg.corpus_csv = os.environ.get("TSE1M_CORPUS_CSV", cfg.corpus_csv)
     cfg.result_dir = os.environ.get("TSE1M_RESULT_DIR", cfg.result_dir)
     if "TSE1M_TEST_MODE" in os.environ:
         cfg.test_mode = os.environ["TSE1M_TEST_MODE"].lower() in (
@@ -50,5 +81,5 @@ def load_config() -> Config:
     return cfg
 
 
-__all__ = ["Config", "DEFAULT_LIMIT_DATE", "FIXED_STATUSES", "RESULT_OK",
-           "load_config"]
+__all__ = ["Config", "DEFAULT_INI", "DEFAULT_LIMIT_DATE", "FIXED_STATUSES",
+           "RESULT_OK", "ini_path", "load_config"]

@@ -180,6 +180,13 @@ class Segmented:
     offsets: np.ndarray  # [P+1] int64
     columns: dict = field(default_factory=dict)
 
+    def segment(self, p: int) -> dict:
+        """Project ``p``'s rows of every column: numpy slices, and
+        ``CodedColumn`` / ``BytesColumn`` views over the same vocab or
+        arena."""
+        lo, hi = self.offsets[p], self.offsets[p + 1]
+        return {k: v[lo:hi] for k, v in self.columns.items()}
+
     def counts(self) -> np.ndarray:
         return np.diff(self.offsets)
 
@@ -246,6 +253,9 @@ class StudyArrays:
     @property
     def n_projects(self) -> int:
         return len(self.projects)
+
+    def project_index(self) -> dict:
+        return {p: i for i, p in enumerate(self.projects)}
 
     @classmethod
     def from_db(cls, db, cfg, projects: list | None = None

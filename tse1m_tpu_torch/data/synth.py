@@ -11,9 +11,12 @@ formats the timestamps in bulk at the end.
 
 from __future__ import annotations
 
+import csv
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from ..utils.atomic import atomic_write
 
 _CRASH_TYPES = [
     "Heap-buffer-overflow READ", "Heap-buffer-overflow WRITE",
@@ -95,6 +98,18 @@ class SynthStudy:
             load_total_coverage(db, _rows(self.total_coverage))
             load_issues(db, _rows(self.issues))
             derive_projects(db)
+
+    def write_corpus_csv(self, path: str) -> None:
+        """The corpus-analysis table as the CSV that RQ4a and RQ4b read,
+        byte for byte what the JAX package's
+        ``corpus_analysis.to_csv(path, index=False)`` writes: a header,
+        '\n' line ends, ``True``/``False``, empty cells and each float's
+        shortest repr."""
+        table = self.corpus_analysis
+        with atomic_write(path, newline="") as f:
+            w = csv.writer(f, lineterminator="\n")
+            w.writerow(list(table))
+            w.writerows(zip(*table.values()))
 
 
 def _fmt_s(secs: list) -> list:

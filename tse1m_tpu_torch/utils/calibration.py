@@ -19,9 +19,10 @@ import json
 import os
 import time
 
+from ..config import ini_path
+
 SCHEMA_VERSION = 2
 _DEFAULT_TTL_S = 6 * 3600.0
-DEFAULT_INI = "program/envFile.ini"
 
 
 def ttl_s() -> float:
@@ -59,8 +60,8 @@ def calibration_path() -> str | None:
     env = os.environ.get("TSE1M_ROUTER_CAL")
     if env is not None:
         return env or None
-    ini = os.environ.get("TSE1M_ENVFILE", DEFAULT_INI)
-    if not ini or not os.path.exists(ini):
+    ini = ini_path()
+    if ini is None:
         return None
     parser = configparser.ConfigParser()
     try:

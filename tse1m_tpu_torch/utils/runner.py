@@ -1,0 +1,93 @@
+"""Run-to-completion of multi-step commands (``all``): a trimmed copy of
+``tse1m_tpu/resilience/runner.py:27-195`` without the retry policy and the
+telemetry planes.
+
+Each step runs isolated: a failure is recorded (status, one-line error,
+full traceback) and the remaining steps still run.  The manifest
+``<result_dir>/run_manifest.json`` is rewritten atomically after every
+step and before each one starts, so an interrupted run leaves an
+accurate partial record that names the step it was in.
+``exit_code()`` is non-zero when any step failed.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+import traceback
+from dataclasses import asdict, dataclass
+
+from .atomic import atomic_write
+
+
+@dataclass
+class StepRecord:
+    name: str
+    status: str = "pending"   # pending | running | ok | failed
+    wall_s: float = 0.0
+    error: str | None = None      # one-line summary
+    traceback: str | None = None  # full text, failures only
+
+
+class StepRunner:
+    """Run named steps to completion, recording each into a JSON manifest
+    (none when ``manifest_path`` is None)."""
+
+    def __init__(self, manifest_path: str | None):
+        self.manifest_path = manifest_path
+        self.steps: list[StepRecord] = []
+        self.started_at = time.time()
+
+    def run(self, name: str, fn, *args, **kwargs) -> StepRecord:
+        """Run one step isolated; never raises, apart from a
+        KeyboardInterrupt, which is recorded first (the record carries the
+        failure)."""
+        rec = StepRecord(name=name, status="running")
+        self.steps.append(rec)
+        self._write()  # a killed run shows the step it was in
+        t0 = time.time()
+        try:
+            fn(*args, **kwargs)
+            rec.status = "ok"
+        # BaseException: a driver's SystemExit (a missing corpus CSV) is a
+        # failed step too; an interrupt is recorded, then re-raised.
+        except BaseException as e:  # noqa: BLE001 - isolation is the point
+            rec.status = "failed"
+            rec.error = f"{type(e).__name__}: {e}".strip().rstrip(":")
+            rec.traceback = traceback.format_exc()
+            if isinstance(e, KeyboardInterrupt):
+                rec.wall_s = round(time.time() - t0, 3)
+                self._write()
+                raise
+        rec.wall_s = round(time.time() - t0, 3)
+        self._write()
+        return rec
+
+    @property
+    def failed(self) -> list[StepRecord]:
+        return [s for s in self.steps if s.status == "failed"]
+
+    def exit_code(self) -> int:
+        return 1 if self.failed or not self.steps else 0
+
+    def summary(self) -> dict:
+        by: dict = {}
+        for s in self.steps:
+            by[s.status] = by.get(s.status, 0) + 1
+        return by
+
+    def _write(self) -> None:
+        if not self.manifest_path:
+            return
+        payload = {
+            "started_at": self.started_at,
+            "wall_seconds": round(time.time() - self.started_at, 3),
+            "ok": not self.failed,
+            "summary": self.summary(),
+            "steps": [asdict(s) for s in self.steps],
+        }
+        with atomic_write(self.manifest_path) as f:
+            json.dump(payload, f, indent=2, default=str)
+
+
+__all__ = ["StepRecord", "StepRunner"]
