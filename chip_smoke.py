@@ -24,7 +24,12 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    shape (64 queries over 1,000,448 columns, k=10), at the CPU tests'
    edges, and at 72 and 128 queries, H = 16 and 128 and column counts that
    are not a multiple of its 256-column tile (nor of 4); an H whose count
-   block does not fit in shared memory must be refused at launch;
+   block does not fit in shared memory must be refused at launch; then the
+   warm path's launch patterns: the two MinHash kernels and the bin-min
+   kernel at the pow2 novel batches of 1, 2, 4 ... 65,536 rows x 64 ids,
+   and the top-k kernel on a 16,384-column chunk whose incoming state is
+   the previous chunk's, and on a shard's tail chunk of 77 rows padded
+   with ROW_INF columns;
 3. main path, on 1,000,000 planted sessions x 64 ids.  First, 20,000-row
    slices must give the same labels on the card as on the CPU: through
    each MinHash kernel on the plain wire, through every lane of wire v3
@@ -56,6 +61,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (g) ``topk_agreement`` of 64 queries drawn from (a)'s 1M signatures,
        k=10: one launch of the top-k kernel, its state equal to the plain
        version's, each query's first hit at 128 agreements;
+3b. the warm path through a signature store (``ClusterParams.sig_store``)
+   under the gitignored build/warm_smoke/.  First, 20,000-row slices
+   under kminhash, cminhash and weighted give the same labels on the card
+   as on the CPU through a populate (union), an accreted +4% run (merge)
+   and a shuffled copy (union), and ``minhash_novel_rows`` at K = 1, 3, 8,
+   9, 37 and wire_quant_bits 0, 10, -1 the CPU's signatures.  Then
+   ``synth_session_sets(1_050_000, seed=0)``, each run driven with the
+   launch counts set to 0 just before and read just after:
+   (1) the first 1,000,000 rows populate the store: union, hit rate 0,
+       the MinHash kernel launched, labels equal a storeless run at (a)'s
+       plain 10-bit wire;
+   (2) all 1,050,000 rows (a 4.76% tail): merge, at most 50,000 novel
+       rows, kernel launches only for their chunks, under a tenth of run
+       1's wire, labels equal a storeless run's;
+   (3) the same rows again: merge, no novel row, no launch, run 2's labels;
+   (4) a seeded permutation of them: union, hit rate >= 0.95, labels equal
+       a storeless run's over the permuted rows;
+   (5) ``bulk_topk_store`` of 64 queries drawn from the store, k=10, in
+       16,384-column chunks: one top-k launch a chunk, ranks equal to
+       ``topk_agreement``'s over the store's signatures in scan order, each
+       first hit at 128 agreements; the same without overlap;
+   one ``warm_path`` JSON line with each run's wall, stages and cache
+   keys, the store's bytes on disk, peak device memory and the card;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
@@ -83,7 +111,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    yardstick); the uint32 MinHash kernel also at (c)'s 507,704 delta
    rows; the rANS kernel at the rep lane alone and at (c)'s one launch,
    with the SM clock read by nvidia-smi meanwhile and the cycles a step it
-   gives; the top-k kernel whole and each of its passes alone;
+   gives; the top-k kernel whole and each of its passes alone; both
+   MinHash kernels at the 65,536-row pow2 novel batch and the top-k kernel
+   at the scan's first 16,384-column chunk, each beside its bound (in the
+   ``kernels`` line under ``warm_shapes``, with the warm path's launches
+   under ``warm_launches``);
 6. the card's name and power limit from nvidia-smi.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
@@ -107,9 +139,10 @@ import time
 import numpy as np
 import torch
 
-from tse1m_tpu_torch import (adjusted_rand_index, expand_weighted,
-                             synth_session_hitcounts, synth_session_sets,
-                             topk_agreement)
+from tse1m_tpu_torch import (SignatureStore, adjusted_rand_index,
+                             bulk_topk_store, expand_weighted,
+                             store_scan_locator, synth_session_hitcounts,
+                             synth_session_sets, topk_agreement)
 from tse1m_tpu_torch.analysis import RQ_DRIVERS, run_rqs
 from tse1m_tpu_torch.analysis.corpus import g4_prepost, load_corpus_groups
 from tse1m_tpu_torch.backend import TorchBackend
@@ -140,6 +173,14 @@ N_HASHES = 128
 N_BANDS = 16
 CHUNK_ROWS = 250_368          # the plain path's chunk: 4 chunks of 1M rows
 DELTA_ROWS = 507_704          # cell (c)'s delta rows: its largest kernel 1
+# The warm path (phase 3b): yesterday's 1M sessions, then a day's 50,000
+# new ones (4.76%, under ClusterParams.merge_max_novel's 5%).
+WARM_ROWS = 1_050_000
+WARM_BASE = 1_000_000
+WARM_SMALL_TAIL = 800         # +4% on the 20,000-row card-vs-CPU slices
+NOVEL_K = (1, 3, 8, 9, 37)    # minhash_novel_rows batch sizes
+POW2_MAX = 65_536             # the largest pow2 novel batch checked
+SCAN_CHUNK = 16_384           # bulk_topk_store's chunk columns
 ARI_MIN = 0.98
 # H100 SXM peaks at the 700 W limit.  HBM: 3.35 TB/s (NVIDIA data sheet).
 # Integer: the data sheet's 67 TFLOP/s float32 is 132 SMs x 128 FMA lanes x
@@ -493,10 +534,12 @@ def cminhash_checks(dev) -> int:
 
 
 def topk_args(store: np.ndarray, queries: np.ndarray, dev, base: int = 0,
-              state=None) -> tuple:
-    """(q, s_t, rowids, topc, topr) as topk_agreement stages them."""
+              state=None, n_cols: int | None = None) -> tuple:
+    """(q, s_t, rowids, topc, topr) as topk_agreement stages them (or, with
+    ``n_cols``, as bulk_topk_store stages a chunk of that many columns)."""
     n = store.shape[0]
-    s_t, rid = ksc._stage_chunk(store, base, -(-n // 512) * 512, dev)
+    s_t, rid = ksc._stage_block(store, base, n_cols or -(-n // 512) * 512,
+                                dev)
     q = u32_tensor(ksc._pad_queries(queries), dev)
     return (q, s_t, rid, *(state or ksc._init_state(q.shape[0], dev)))
 
@@ -577,6 +620,56 @@ def topk_checks(dev) -> int:
             torch.equal(g, w)
             for g, w in zip(got, ksc.topk_chunk_plain(*args))):
         raise AssertionError("k=0 launched the top-k kernel or differs")
+    return err
+
+
+def novel_shape_checks(dev, consts) -> int:
+    """Phase 2, the warm path's MinHash shapes: minhash_novel_rows pads a
+    novel batch to a power of two, so the two MinHash kernels and the
+    bin-min kernel launch at 1, 2, 4 ... 65,536 rows x 64 ids."""
+    rng = np.random.default_rng(5)
+    a0, b0 = make_params("cminhash", N_HASHES, 0).to(dev).arrays[:2]
+    err = 0
+    for e in range(POW2_MAX.bit_length()):
+        n = 1 << e
+        ids = u32_tensor(u32_ids(rng, (n, SET_SIZE)), dev)
+        label = f"N={n} (pow2 novel batch), S={SET_SIZE}"
+        err = max(err, check_kernel("minhash_and_keys",
+                                    (ids, *consts, N_BANDS), label))
+        err = max(err, check_kernel(
+            "minhash_and_keys_packed",
+            (*packed_args(rng, n, SET_SIZE, 3, 123_456, consts, dev),
+             N_BANDS), label + ", k=3"))
+        err = max(err, check_kernel("cminhash_binmin",
+                                    (ids, a0, b0, N_HASHES), label))
+    return err
+
+
+def scan_chunk_checks(dev) -> int:
+    """Phase 2, the scan's launches: a 16,384-column chunk whose incoming
+    state is the previous chunk's output, and a shard's tail chunk of 77
+    rows padded with ROW_INF columns to 16,384."""
+    rng = np.random.default_rng(6)
+    store = u32_ids(rng, (3 * SCAN_CHUNK, N_HASHES), 4)
+    queries = store[rng.choice(store.shape[0], N_QUERIES, replace=False)]
+    args = topk_args(store[:SCAN_CHUNK], queries, dev, n_cols=SCAN_CHUNK)
+    err = check_kernel("topk_chunk", (*args, TOPK_K),
+                       f"{N_QUERIES} queries x {SCAN_CHUNK} columns, the "
+                       "empty state")
+    state = ksc.topk_chunk(*args, TOPK_K)
+    args = topk_args(store[SCAN_CHUNK:2 * SCAN_CHUNK], queries, dev,
+                     SCAN_CHUNK, state, SCAN_CHUNK)
+    err = max(err, check_kernel(
+        "topk_chunk", (*args, TOPK_K),
+        f"{N_QUERIES} queries x {SCAN_CHUNK} columns, the previous chunk's "
+        "state"))
+    state = ksc.topk_chunk(*args, TOPK_K)
+    tail = topk_args(store[2 * SCAN_CHUNK:2 * SCAN_CHUNK + 77], queries, dev,
+                     2 * SCAN_CHUNK, state, SCAN_CHUNK)
+    err = max(err, check_kernel(
+        "topk_chunk", (*tail, TOPK_K),
+        f"a tail chunk of 77 rows and {SCAN_CHUNK - 77} ROW_INF columns, "
+        "the chained state"))
     return err
 
 
@@ -814,6 +907,225 @@ def run_topk(store: np.ndarray, dev) -> dict:
     return {"counts": launches, "wall_s": wall, "args": args}
 
 
+WARM_DIR = os.path.join(ROOT, "build", "warm_smoke")  # gitignored
+
+
+def store_params(store: str, quant_bits: int = 0,
+                 scheme: str = "kminhash") -> pipeline.ClusterParams:
+    """Default ClusterParams with a signature store."""
+    return pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS,
+                                  wire_quant_bits=quant_bits, scheme=scheme,
+                                  sig_store=store)
+
+
+def warm_small_check(items, truth, dev) -> None:
+    """Phase 3b, first: 20,000-row slices under each scheme give the same
+    labels, through the same modes, on the card as on the CPU: a store
+    populated (union), an accreted +4% run (merge), a shuffled copy
+    (union).  Then minhash_novel_rows at K = 1, 3, 8, 9 and 37 (padded to
+    1, 4, 8, 16 and 64 rows) at wire_quant_bits 0, 10 and -1 gives the
+    CPU's signatures bit for bit."""
+    n = N_SMALL + WARM_SMALL_TAIL
+    small = items[:n]
+    perm = np.random.default_rng(2).permutation(n)
+    rows_of = {"kminhash": small, "cminhash": small,
+               "weighted": expand_weighted(small, synth_session_hitcounts(
+                   small, truth[:n]))}
+    for scheme, rows in rows_of.items():
+        runs = (("populate", rows[:N_SMALL], "union"),
+                ("accreted +4%", rows, "merge"),
+                ("shuffled", rows[perm], "union"))
+        labels = ([], [])
+        for got_labels, where in zip(labels, ("card", "cpu")):
+            d = fresh_dir(os.path.join(WARM_DIR, f"{scheme}_{where}"))
+            for label, r, mode in runs:
+                got_labels.append(pipeline.cluster_sessions(
+                    r, store_params(d, scheme=scheme),
+                    device=dev if where == "card" else "cpu"))
+                got = pipeline.last_run_info["cache_mode"]
+                if got != mode:
+                    raise AssertionError(f"{scheme} {label} on {where}: "
+                                         f"cache_mode {got}, not {mode}")
+        for (label, r, mode), a, b in zip(runs, *labels):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"card and CPU labels differ: {scheme}"
+                                     f", {label} ({len(r)} rows, {mode})")
+            log(f"  {scheme}, {label} ({len(r)} rows x {r.shape[1]} ids, "
+                f"{mode}): card labels == CPU labels")
+        for wq in (0, 10, -1):
+            # The width a store of these rows would hold (store runs take
+            # no calibrated floor).
+            params = store_params(WARM_DIR, wq, scheme)
+            qbits = pipeline._quant_bits(rows[:N_SMALL], params)
+            for k in NOVEL_K:
+                novel = rows[N_SMALL:N_SMALL + k]
+                got = pipeline.minhash_novel_rows(novel, params, qbits,
+                                                  device=dev)
+                want = pipeline.minhash_novel_rows(novel, params, qbits,
+                                                   device="cpu")
+                if not np.array_equal(got, want):
+                    raise AssertionError(f"minhash_novel_rows differs: "
+                                         f"{scheme}, K={k}, bits {qbits}")
+        log(f"  {scheme}: minhash_novel_rows at K = {NOVEL_K}, "
+            "wire_quant_bits 0, 10, -1: bit-identical to the plain version")
+
+
+def warm_run(items, params, dev, label: str) -> dict:
+    """One store run, the launch counts set to 0 just before and read just
+    after, its peak device memory taken from a reset."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    labels = pipeline.cluster_sessions(items, params, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    info = dict(pipeline.last_run_info)
+    run = {"wall_s": wall, "launches": counts,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+           **{k: info.get(k) for k in (
+               "cache_mode", "cache_hit_rate", "cache_novel_rows",
+               "cache_store_rows", "wire_mb", "wire_quant_bits",
+               "chunk_bits")},
+           "stages": info["stages"]}
+    log(f"  {label}: wall {wall:.3f} s, {run['cache_mode']}, hit rate "
+        f"{run['cache_hit_rate']}, novel {run['cache_novel_rows']}, wire "
+        f"{run['wire_mb']} MiB, launches {counts}")
+    log(f"    stages {json.dumps(info['stages'])}")
+    return {"labels": labels, "run": run}
+
+
+def expect_equal_to_storeless(labels, items, dev, label: str) -> float:
+    """Labels equal a storeless run of the same rows at (a)'s plain 10-bit
+    wire, element for element; returns that run's wall."""
+    t0 = time.perf_counter()
+    want = pipeline.cluster_sessions(items, params_for(0), device=dev)
+    wall = time.perf_counter() - t0
+    if not np.array_equal(labels, want):
+        raise AssertionError(f"{label}: labels differ from a storeless run "
+                             f"({int((labels != want).sum())} rows)")
+    log(f"  {label}: labels == a storeless plain-wire run's, element for "
+        f"element (that run {wall:.3f} s)")
+    return wall
+
+
+def scan_run(store, queries, dev, overlap: bool) -> tuple:
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = bulk_topk_store(store, queries, TOPK_K, device=dev,
+                          chunk_rows=SCAN_CHUNK, overlap=overlap)
+    wall = time.perf_counter() - t0
+    return out, wall, kernels.launch_counts()
+
+
+def warm_scan(store_dir: str, dev) -> dict:
+    """Phase 3b, run 5: bulk_topk_store of 64 queries drawn (seed 1) from
+    the store's signatures, k=10, 16,384-column chunks: one launch a chunk,
+    ranks equal topk_agreement's over the signatures in scan order, each
+    query's first hit a full agreement; the same without overlap."""
+    store = SignatureStore.open_existing(store_dir)
+    n = store.n_rows
+    loc = store_scan_locator(store, np.arange(n))
+    sigs = store.load_signatures(loc[:, 0], loc[:, 1])
+    rng = np.random.default_rng(1)
+    queries = sigs[rng.choice(n, N_QUERIES, replace=False)]
+    chunks = sum(-(-int(e["rows"]) // SCAN_CHUNK) for e in store.shards)
+    (counts, rows), wall, launches = scan_run(store, queries, dev, True)
+    log(f"  run 5, scan of {n} rows in {len(store.shards)} shards: wall "
+        f"{wall:.3f} s, launches {launches}")
+    expect_launches(launches, {"topk_chunk": chunks})
+    want = topk_agreement(queries, sigs, TOPK_K, device=dev)
+    if not all(np.array_equal(a, b) for a, b in zip((counts, rows), want)):
+        raise AssertionError("bulk_topk_store differs from topk_agreement "
+                             "over the signatures in scan order")
+    if not (counts[:, 0] == N_HASHES).all():
+        raise AssertionError("a query's first hit is not a full agreement")
+    (c2, r2), wall2, launches2 = scan_run(store, queries, dev, False)
+    expect_launches(launches2, {"topk_chunk": chunks})
+    if not (np.array_equal(c2, counts) and np.array_equal(r2, rows)):
+        raise AssertionError("the scan without overlap differs")
+    log(f"  ranks == topk_agreement's over the {n} signatures in scan "
+        f"order; first hits 128 agreements; without overlap {wall2:.3f} s, "
+        "the same ranks")
+    return {"run": {"wall_s": wall, "wall_s_no_overlap": wall2,
+                    "launches": launches["topk_chunk"], "chunks": chunks,
+                    "rows": n, "shards": len(store.shards)},
+            "args": topk_args(sigs[:SCAN_CHUNK], queries, dev,
+                              n_cols=SCAN_CHUNK)}
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def warm_phase(dev) -> dict:
+    """Phase 3b: the warm path at 1,050,000 sessions x 64 ids (a day's
+    re-cluster: yesterday's 1M sessions and 50,000 new ones), through a
+    signature store under the gitignored build/warm_smoke/."""
+    t_phase = time.perf_counter()
+    items, truth = synth_session_sets(WARM_ROWS, SET_SIZE, seed=0)
+    warm_small_check(items, truth, dev)
+    store = fresh_dir(os.path.join(WARM_DIR, "store"))
+    params = store_params(store)
+    runs, oracle_s = {}, []
+    r = warm_run(items[:WARM_BASE], params, dev, f"run 1, populate "
+                 f"{WARM_BASE} rows")
+    runs["populate"] = r["run"]
+    if not (r["run"]["cache_mode"] == "union"
+            and r["run"]["cache_hit_rate"] == 0.0):
+        raise AssertionError(f"populate: {r['run']}")
+    expect_launches(r["run"]["launches"], {"minhash_and_keys": (1, None),
+                                           "rans_decode": (0, None)})
+    oracle_s.append(expect_equal_to_storeless(
+        r["labels"], items[:WARM_BASE], dev, "run 1"))
+    r2 = warm_run(items, params, dev, f"run 2, accreted to {WARM_ROWS} rows")
+    runs["accreted"] = run2 = r2["run"]
+    tail = WARM_ROWS - WARM_BASE
+    if not (run2["cache_mode"] == "merge"
+            and 0 < run2["cache_novel_rows"] <= tail
+            and run2["wire_mb"] <= 0.1 * runs["populate"]["wire_mb"]):
+        raise AssertionError(f"accreted run: {run2}")
+    # The novel rows' chunks, each to the uint32 kernel, and nothing else.
+    expect_launches(run2["launches"], {
+        "minhash_and_keys": len(run2["chunk_bits"]),
+        "rans_decode": (0, None)})
+    oracle_s.append(expect_equal_to_storeless(r2["labels"], items, dev,
+                                              "run 2"))
+    r3 = warm_run(items, params, dev, "run 3, all hits")
+    runs["all_hit"] = r3["run"]
+    if not (r3["run"]["cache_mode"] == "merge"
+            and r3["run"]["cache_novel_rows"] == 0):
+        raise AssertionError(f"all-hit run: {r3['run']}")
+    expect_launches(r3["run"]["launches"], {})
+    if not np.array_equal(r3["labels"], r2["labels"]):
+        raise AssertionError("all-hit labels differ from run 2's")
+    log("  run 3: no kernel launched; labels == run 2's")
+    perm = np.random.default_rng(3).permutation(WARM_ROWS)
+    r4 = warm_run(items[perm], params, dev, "run 4, union of a permutation")
+    runs["union"] = r4["run"]
+    if not (r4["run"]["cache_mode"] == "union"
+            and r4["run"]["cache_hit_rate"] >= 0.95):
+        raise AssertionError(f"union run: {r4['run']}")
+    oracle_s.append(expect_equal_to_storeless(r4["labels"], items[perm], dev,
+                                              "run 4"))
+    scan = warm_scan(store, dev)
+    runs["scan"] = scan["run"]
+    line = {"runs": runs, "storeless_oracle_s": oracle_s,
+            "store_bytes": dir_bytes(store),
+            "peak_device_gib": max(runs[k]["peak_device_gib"] for k in (
+                "populate", "accreted", "all_hit", "union")),
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_name_and_limit()}
+    print(json.dumps({"warm_path": line}))
+    return {"launches": {
+        "minhash_and_keys": runs["populate"]["launches"]["minhash_and_keys"]
+        + run2["launches"]["minhash_and_keys"],
+        "topk_chunk": scan["run"]["launches"]}, "scan_args": scan["args"]}
+
+
 def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 1) -> float:
     """Median over ``reps`` windows of the card's time a call, CUDA events
     around ``inner`` back-to-back calls a window.  Kernels are timed with
@@ -966,12 +1278,15 @@ def topk_pass_timing(args: tuple, inner: int) -> dict:
     return {"count_ms": count_ms, "select_ms": select_ms}
 
 
-def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
+def timing(items, plan: dict, dev, consts, topk: dict, scan_args: tuple,
+           inner: int) -> dict:
     """Phase 5: the MinHash and bin-min kernels at the plain path's first
     chunk, the uint32 MinHash kernel also at the default run's delta rows
     (its largest launch there), the rANS kernel at the default run's rep
     and counts lanes (each alone and both in one launch), the top-k kernel
-    at cell (g)'s chunk (whole and by pass)."""
+    at cell (g)'s chunk (whole and by pass); then the warm path's shapes:
+    both MinHash kernels at the largest pow2 novel batch (65,536 rows) and
+    the top-k kernel at the scan's first 16,384-column chunk."""
     chunk = items[:CHUNK_ROWS]
     ids = u32_tensor(quantize_ids(chunk, 10), dev)
     wire = pack_chunk(chunk)
@@ -1001,6 +1316,19 @@ def timing(items, plan: dict, dev, consts, topk: dict, inner: int) -> dict:
                                         rans_bound(lane), 0, 1)
     cases["topk_chunk"] = (topk["args"], topk_bound(topk["args"],
                                                     N_SESSIONS), 0, 1)
+    novel = items[:POW2_MAX]
+    novel_wire = pack_chunk(novel)
+    if novel_wire.bits != 24:
+        raise AssertionError(f"novel batch ships {novel_wire.bits}-bit ids")
+    cases["minhash_and_keys:novel"] = (
+        (u32_tensor(quantize_ids(novel, 10), dev), *consts, N_BANDS),
+        minhash_bound(POW2_MAX, SET_SIZE, 4), 1, 10)
+    cases["minhash_and_keys_packed:novel"] = (
+        (torch.from_numpy(novel_wire.payload).to(dev), novel_wire.shape, 3,
+         novel_wire.offset, *consts, N_BANDS),
+        minhash_bound(POW2_MAX, SET_SIZE, 3), 1, 10)
+    scan = (*scan_args, TOPK_K)
+    cases["topk_chunk:scan"] = (scan, topk_bound(scan, SCAN_CHUNK), 0, 1)
     library = {"cminhash_binmin": binmin_library(ids, a0, b0)}
     out = {}
     for case, (args, (b_ms, by), plain_warmup, plain_reps) in cases.items():
@@ -1399,6 +1727,10 @@ def main() -> int:
     errs["rans_decode"] = rans_checks(plan, dev)
     errs["topk_chunk"] = topk_checks(dev)
 
+    errs["minhash_and_keys"] = max(errs["minhash_and_keys"],
+                                   novel_shape_checks(dev, hp.arrays))
+    errs["topk_chunk"] = max(errs["topk_chunk"], scan_chunk_checks(dev))
+
     log(f"phase 3: main path, {N_SESSIONS} sessions x {SET_SIZE} ids")
     small_input_check(items, truth, dev)
     plain10 = run_plain(items, truth, 0, "minhash_and_keys", hp, dev)
@@ -1416,6 +1748,10 @@ def main() -> int:
                 "rans_decode": default["counts"]["rans_decode"],
                 "topk_chunk": topk["counts"]["topk_chunk"]}
 
+    log(f"phase 3b: warm path, {WARM_BASE} then {WARM_ROWS} sessions x "
+        f"{SET_SIZE} ids through a signature store")
+    warm = warm_phase(dev)
+
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
         f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
         f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
@@ -1423,13 +1759,18 @@ def main() -> int:
 
     log(f"phase 5: timing (CUDA events around {args.calls_per_window} "
         "calls, median)")
-    times = timing(items, plan, dev, hp.arrays, topk, args.calls_per_window)
+    times = timing(items, plan, dev, hp.arrays, topk, warm["scan_args"],
+                   args.calls_per_window)
     times["rans_decode"] = times["rans_decode:rep"]
 
     kernels_line = [{
         "name": name, "route": "cuda", "source": k["source"],
         "replaces": k["replaces"], "launches": launches[name],
         "max_abs_err": errs[name], **times[name],
+        "warm_launches": warm["launches"].get(name, 0),
+        "warm_shapes": {case.split(":")[1]: t for case, t in times.items()
+                        if case.split(":")[0] == name
+                        and case.endswith((":novel", ":scan"))},
     } for name, k in KERNELS.items()]
     card = card_name_and_limit()
     log(f"total {time.perf_counter() - t_start:.1f} s")

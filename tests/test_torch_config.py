@@ -131,3 +131,27 @@ def test_cli_rq1_runs_on_the_ini(tmp_path, monkeypatch, capsys, small_db):
     assert cli_main(["rq1", "--device", "cpu", "--limit-date", "2024-08-15",
                      "--result-dir", str(tmp_path / "cli")]) == 0
     assert "projects before 2024-08-15." in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("ini,env,want", [
+    (None, None, None),
+    ("ini_store", None, "ini_store"),
+    (None, "env_store", "env_store"),
+    ("ini_store", "env_store", "env_store"),
+])
+def test_sig_store_from_the_ini_and_the_environment_as_jax(
+        tmp_path, monkeypatch, ini, env, want):
+    """``sig_store``: the INI's ``[FRAMEWORK] sig_store``, then
+    TSE1M_SIG_STORE, as JAX reads it; ``cluster --sig-store`` defaults to
+    it and the command line overrides it."""
+    fw = {"sig_store": str(tmp_path / ini)} if ini else {}
+    monkeypatch.setenv("TSE1M_ENVFILE", _write_ini(tmp_path / "env.ini",
+                                                   **fw))
+    if env:
+        monkeypatch.setenv("TSE1M_SIG_STORE", str(tmp_path / env))
+    expect = str(tmp_path / want) if want else None
+    assert tconfig.load_config().sig_store == expect
+    assert jconfig.load_config().sig_store == expect
+    assert build_parser().parse_args(["cluster"]).sig_store == expect
+    assert build_parser().parse_args(
+        ["cluster", "--sig-store", "cli_store"]).sig_store == "cli_store"

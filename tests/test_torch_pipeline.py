@@ -183,10 +183,15 @@ def test_params_keep_jax_fields_and_defaults():
 
 
 @pytest.mark.parametrize("kw,shape,item", [
-    (dict(PLAIN_WIRE, sig_store="/nonexistent"), (8, 4),
-     "Warm path and the serve signer"),
+    (dict(PLAIN_WIRE, sig_store="pod_root"), (8, 4), "Multi-GPU"),
 ])
-def test_levers_not_ported_raise(kw, shape, item):
+def test_levers_not_ported_raise(tmp_path, kw, shape, item):
+    """The store lever runs since the warm path was ported; a pod-sharded
+    store root (its pod_topology.json) still waits for Multi-GPU."""
+    root = tmp_path / kw["sig_store"]
+    root.mkdir()
+    (root / "pod_topology.json").write_text('{"n_ranges": 2}')
+    kw = dict(kw, sig_store=str(root))
     items = np.zeros(shape, np.uint32)
     with pytest.raises(NotImplementedError,
                        match=f'ROADMAP.md Queue 1, "{item}"'):

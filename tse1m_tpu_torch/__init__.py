@@ -1,13 +1,15 @@
 """tse1m_tpu_torch: the PyTorch/CUDA port of tse1m_tpu, for one NVIDIA H100.
 
-This package runs the cold, storeless, single-GPU session clustering of
+This package runs the single-GPU session clustering of
 ``tse1m_tpu.cluster.cluster_sessions`` under its three signature schemes
-(kminhash, cminhash, weighted), the wire v3 levers (host prefilter,
-base-delta lane, rANS lanes) included, and the single-shot exact top-k
-agreement scoring ``topk_agreement``.  Every TPU kernel of those paths (the
-two MinHash kernels, the one-permutation bin-min, the rANS decode and the
-top-k scorer) is written by hand in CUDA C++ for Hopper
-(``cluster/kernels/csrc/``).
+(kminhash, cminhash, weighted), cold with the wire v3 levers (host
+prefilter, base-delta lane, rANS lanes) or warm through the persistent
+signature store (``SignatureStore``: accreted-tail merges and union
+runs, ``minhash_novel_rows``), and exact top-k agreement scoring, single
+shot (``topk_agreement``) or streamed over a store (``bulk_topk_store``).
+Every TPU kernel of those paths (the two MinHash kernels, the
+one-permutation bin-min, the rANS decode and the top-k scorer) is written
+by hand in CUDA C++ for Hopper (``cluster/kernels/csrc/``).
 
 It also runs the paper's RQ analysis: a sqlite study (``db/``, written by
 ``data/synth.py``) is extracted into per-project CSR arrays
@@ -23,19 +25,24 @@ which runs the kernels' plain PyTorch versions; without a card they raise.
 Ids, hash constants, signatures and band keys are int32 tensors carrying
 uint32 bits (``tse1m_tpu_torch.device``).
 
-    python -m tse1m_tpu_torch cluster --n 1000000
+    python -m tse1m_tpu_torch cluster --n 1000000 [--sig-store DIR]
     python -m tse1m_tpu_torch synth --db study.sqlite
     python -m tse1m_tpu_torch all --db study.sqlite --result-dir out
 """
 
 from .backend import TorchBackend
-from .cluster import ClusterParams, adjusted_rand_index, cluster_sessions
+from .cluster import (ClusterParams, SignatureStore, adjusted_rand_index,
+                      bulk_topk_store, cluster_sessions, host_cluster,
+                      minhash_novel_rows, row_digests, score_topk_host,
+                      store_scan_locator)
 from .cluster.kernels.score import topk_agreement
 from .cluster.schemes import expand_weighted
 from .data import synth_session_hitcounts, synth_session_sets
 from .device import as_u32_numpy, narrow, resolve_device, u32_tensor, widen
 
-__all__ = ["ClusterParams", "TorchBackend", "adjusted_rand_index",
-           "as_u32_numpy", "cluster_sessions", "expand_weighted", "narrow",
-           "resolve_device", "synth_session_hitcounts", "synth_session_sets",
-           "topk_agreement", "u32_tensor", "widen"]
+__all__ = ["ClusterParams", "SignatureStore", "TorchBackend",
+           "adjusted_rand_index", "as_u32_numpy", "bulk_topk_store",
+           "cluster_sessions", "expand_weighted", "host_cluster",
+           "minhash_novel_rows", "narrow", "resolve_device", "row_digests",
+           "score_topk_host", "store_scan_locator", "synth_session_hitcounts",
+           "synth_session_sets", "topk_agreement", "u32_tensor", "widen"]

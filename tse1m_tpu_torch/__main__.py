@@ -3,7 +3,8 @@
     python -m tse1m_tpu_torch cluster --n 1000000 --seed 0 \
         [--wire-quant-bits N] [--prefilter {off,auto,on}] \
         [--entropy {off,auto,force}] \
-        [--scheme {kminhash,cminhash,weighted}] [--device cuda]
+        [--scheme {kminhash,cminhash,weighted}] [--sig-store DIR] \
+        [--ari-sample 10000] [--device cuda]
     python -m tse1m_tpu_torch synth --db PATH [--projects 24] [--days 450] \
         [--seed 0]
     python -m tse1m_tpu_torch {rq1,rq2a,rq2b,rq3,rq4a,rq4b,all} --db PATH \
@@ -16,9 +17,15 @@ with default ``ClusterParams`` (wire v3: at >= 64 MiB of ids the host
 prefilter, the base-delta lane and the rANS lanes switch on), and prints
 one JSON line:
 ARI against the planted truth, the wire chosen, the wall and the stage
-walls.  ``--scheme weighted`` also synthesizes per-edge hit counts and
-expands each session into replica ids on the host before clustering, as
-the JAX package's command line does.
+walls, and the ARI of the first ``--ari-sample`` rows' labels against the
+host oracle's (``host_cluster``; the sample is clustered without the
+store unless it is every row).  ``--scheme weighted`` also synthesizes
+per-edge hit counts and expands each session into replica ids on the host
+before clustering, as the JAX package's command line does.  With
+``--sig-store DIR`` (default: the config's ``sig_store``, from
+TSE1M_SIG_STORE or the INI) the run goes through the persistent signature
+store, and the report adds ``sig_store`` and the ``cache_*`` keys: a
+second run over the same sessions merges (``cache_mode: "merge"``).
 
 ``synth`` writes a synthetic study into the sqlite file and its
 corpus-analysis CSV (which RQ4a and RQ4b read) at the config's
@@ -51,7 +58,8 @@ import time
 import numpy as np
 import torch
 
-from .cluster import ClusterParams, adjusted_rand_index, cluster_sessions
+from .cluster import (ClusterParams, adjusted_rand_index, cluster_sessions,
+                      host_cluster)
 from .cluster.pipeline import last_run_info
 from .cluster.schemes import expand_weighted
 from .config import load_config
@@ -68,10 +76,11 @@ def _cmd_cluster(args) -> int:
     params = ClusterParams(seed=args.seed, prefilter=args.prefilter,
                            entropy=args.entropy,
                            wire_quant_bits=args.wire_quant_bits,
-                           scheme=args.scheme)
+                           scheme=args.scheme, sig_store=args.sig_store)
     t0 = time.perf_counter()
     labels = cluster_sessions(items, params, device=dev)
     wall = time.perf_counter() - t0
+    info = dict(last_run_info)
     report = {
         "n_sessions": args.n,
         "scheme": args.scheme,
@@ -81,14 +90,31 @@ def _cmd_cluster(args) -> int:
         "n_clusters": int(np.unique(labels).size),
         "ari_vs_planted": round(float(adjusted_rand_index(labels, truth)), 5),
         "cluster_wall_s": round(wall, 4),
-        "encoding": last_run_info.get("encoding"),
-        "prefilter_rows_dropped": last_run_info.get("prefilter_rows_dropped"),
-        "wire_quant_bits": last_run_info.get("wire_quant_bits"),
-        "chunk_bits": last_run_info.get("chunk_bits"),
-        "wire_mb": last_run_info.get("wire_mb"),
-        "wire_v3_saved_mb": last_run_info.get("wire_v3_saved_mb"),
-        **last_run_info.get("stages", {}),
+        "encoding": info.get("encoding"),
+        "prefilter_rows_dropped": info.get("prefilter_rows_dropped"),
+        "wire_quant_bits": info.get("wire_quant_bits"),
+        "chunk_bits": info.get("chunk_bits"),
+        "wire_mb": info.get("wire_mb"),
+        "wire_v3_saved_mb": info.get("wire_v3_saved_mb"),
+        **info.get("stages", {}),
     }
+    if args.sig_store:
+        report["sig_store"] = args.sig_store
+        report.update({k: v for k, v in info.items()
+                       if k.startswith("cache_")})
+    k = min(args.ari_sample, args.n)
+    if k > 0:
+        host_k = host_cluster(items[:k], n_hashes=params.n_hashes,
+                              n_bands=params.n_bands, seed=params.seed,
+                              scheme=params.scheme)
+        # The sample runs without the store: its state for a k-row prefix
+        # would replace the full run's.
+        dev_k = (labels if k == args.n else cluster_sessions(
+            items[:k], dataclasses.replace(params, sig_store=None),
+            device=dev))
+        report["ari_vs_host_sample"] = round(
+            float(adjusted_rand_index(dev_k, host_k)), 5)
+        report["ari_sample_n"] = k
     print(json.dumps(report))
     return 0
 
@@ -132,6 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
     now (the INI, then the environment)."""
     ap = argparse.ArgumentParser(prog="python -m tse1m_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    env = load_config()
     p = sub.add_parser("cluster", help="MinHash+LSH session dedup on the GPU")
     p.add_argument("--n", type=int, default=100_000)
     p.add_argument("--seed", type=int, default=0)
@@ -154,9 +181,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "densification; 'weighted' = weighted minwise over "
                         "synthesized per-edge hit counts (replica "
                         "expansion on the host)")
+    p.add_argument("--sig-store", default=env.sig_store,
+                   help="persistent signature store directory "
+                        "(cluster/store.py): a re-run probes it and hashes "
+                        "only the rows it misses (default: the config's "
+                        "sig_store, %(default)s)")
+    p.add_argument("--ari-sample", type=int, default=10_000,
+                   help="rows of the ARI check against the host oracle "
+                        "(default %(default)s; 0 = off)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
-    env = load_config()
     y = sub.add_parser("synth", help="write a synthetic study (sqlite) and "
                        "its corpus-analysis CSV; host only")
     y.add_argument("--db", default=env.sqlite_path,

@@ -1,4 +1,4 @@
-"""Exact signature-agreement top-k scoring: wrapper, plain version, entry.
+"""Exact signature-agreement top-k scoring: wrapper, plain version, entries.
 
 Ports the TPU kernel of ``tse1m_tpu/cluster/kernels/score.py``:
 
@@ -10,10 +10,24 @@ Ports the TPU kernel of ``tse1m_tpu/cluster/kernels/score.py``:
   pass).
 - ``topk_chunk_plain`` <- ``_topk_chunk_jnp`` and ``_merge_topk``: the same
   tile by tile, ``k`` selection steps a tile, in torch ops.
+- ``score_topk_host``: the numpy oracle, a copy of the JAX package's.
 - ``topk_agreement``: the single-shot entry over an in-memory [N, H]
   signature block (rows 0..N-1), numpy in and out, the JAX package's
-  contract.  The store-streamed form (``bulk_topk_store``) waits for the
-  signature store.
+  contract: one chunk of N rows padded to a multiple of ``block_n``.
+- ``bulk_topk_store``: every row of a signature store
+  (``cluster/store.py``), shard by shard in sorted id order, as fixed
+  ``chunk_rows``-column chunks (the tail padded with ``ROW_INF`` columns)
+  through one launch a chunk, the [Qp, K_PAD] state carried from launch
+  to launch; ``store_scan_locator`` maps its scan-global rows back to
+  (shard, row).
+
+Staging (``_staged``): a producer thread copies each block of rows into
+one of two pinned host buffers and from there, on a side stream, into one
+of two preallocated device buffers; before it reuses a buffer it waits for
+that buffer's previous copy (host side) and for the main stream's last read
+of it (device side).  The main stream waits for the copy, transposes the
+rows into the chunk's [H, Np] layout and launches.  ``topk_agreement``
+fills its one chunk through the same staging, 16,384 rows at a time.
 
 Determinism contract, as in the JAX package: rank by (-agreement count,
 ascending row); slots past the valid rows hold ``(-1, -1)`` once finalized.
@@ -34,6 +48,8 @@ counts its kernel launches (one a call: both passes) and nothing else.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 
@@ -46,6 +62,10 @@ K_PAD = 128
 # Sentinel row of empty and padding slots: loses every (count desc, row
 # asc) tie to a real row, and survives int32 round-trips.
 ROW_INF = 2**31 - 1
+# Rows of one staging buffer: the scan's default chunk, and the pieces
+# topk_agreement's one chunk is filled in.
+STAGE_ROWS = 16384
+
 
 def _require_k(k: int) -> int:
     k = int(k)
@@ -53,6 +73,35 @@ def _require_k(k: int) -> int:
         raise ValueError(f"topk k={k} outside [0, {K_PAD}] (one state tile "
                          "per query)")
     return k
+
+
+def score_topk_host(query_sigs: np.ndarray, store_sigs: np.ndarray,
+                    k: int, block_rows: int = 4096
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """[Q, H] x [N, H] uint32 -> (counts [Q, k] int32, rows [Q, k]
+    int32), ranked by (-agreement, ascending row); ``-1`` pads both past
+    ``min(k, N)``.  The numpy oracle: the [Q, N] count matrix filled
+    ``block_rows`` store rows at a time, then a stable argsort."""
+    k = _require_k(k)
+    q = np.ascontiguousarray(query_sigs, np.uint32)
+    s = np.ascontiguousarray(store_sigs, np.uint32)
+    nq, n = int(q.shape[0]), int(s.shape[0])
+    counts_out = np.full((nq, k), -1, np.int32)
+    rows_out = np.full((nq, k), -1, np.int32)
+    if nq == 0 or n == 0 or k == 0:
+        return counts_out, rows_out
+    counts = np.empty((nq, n), np.int32)
+    for lo in range(0, n, block_rows):
+        blk = s[lo:lo + block_rows]
+        counts[:, lo:lo + blk.shape[0]] = (
+            q[:, None, :] == blk[None, :, :]).sum(axis=2, dtype=np.int32)
+    # Stable argsort on negated counts: ties resolve to the ascending
+    # row, the kernel's selection order.
+    order = np.argsort(-counts, axis=1, kind="stable")[:, :k]
+    m = min(k, n)
+    rows_out[:, :m] = order[:, :m].astype(np.int32)
+    counts_out[:, :m] = np.take_along_axis(counts, order, axis=1)[:, :m]
+    return counts_out, rows_out
 
 
 def _normalize(topc: torch.Tensor, topr: torch.Tensor):
@@ -168,20 +217,97 @@ def _init_state(qp: int, device: torch.device):
                        device=device))
 
 
-def _stage_chunk(sig_rows: np.ndarray, base_row: int, chunk_rows: int,
+def _staged(blocks, rows: int, h: int, device: torch.device,
+            overlap: bool):
+    """Stage ``(block, base)`` pairs of [c <= rows, H] uint32 rows on
+    ``device``; yields ``(rows_d, base)``, rows_d a [c, H] int32 view of a
+    device buffer that the current stream may read once it has been
+    yielded, and that is reused after the caller asks for the next block
+    (so the caller enqueues its reads of it before then).
+
+    Two pinned host buffers and two device buffers, used in turn.  With
+    ``overlap`` block k+1 is staged on a producer thread while the caller
+    works on block k.  On the CPU the host buffers serve as the device
+    buffers and no stream is involved."""
+    cuda = device.type == "cuda"
+    host = [torch.empty((rows, h), dtype=torch.int32, pin_memory=cuda)
+            for _ in range(2)]
+    if cuda:
+        dbuf = [torch.empty((rows, h), dtype=torch.int32, device=device)
+                for _ in range(2)]
+        side = torch.cuda.Stream(device)
+        copied = [torch.cuda.Event() for _ in range(2)]
+        read = [torch.cuda.Event() for _ in range(2)]
+        main = torch.cuda.current_stream(device)
+    else:
+        dbuf = host
+
+    def produce(i: int, blk: np.ndarray, base: int):
+        c = int(blk.shape[0])
+        if cuda:
+            copied[i].synchronize()     # the pinned buffer's last copy
+        host[i].numpy()[:c] = np.ascontiguousarray(blk, np.uint32).view(
+            np.int32)
+        if cuda:
+            with torch.cuda.stream(side):
+                side.wait_event(read[i])    # the main stream's last read
+                dbuf[i][:c].copy_(host[i][:c], non_blocking=True)
+                copied[i].record(side)
+        return i, c, base
+
+    def take(i: int, c: int, base: int):
+        if cuda:
+            main.wait_event(copied[i])
+        return dbuf[i][:c], base
+
+    def release(i: int) -> None:
+        if cuda:
+            read[i].record(main)
+
+    blocks = iter(blocks)
+    if not overlap:
+        for k, (blk, base) in enumerate(blocks):
+            yield take(*produce(k % 2, blk, base))
+            release(k % 2)
+        return
+    ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="tse1m-scan")
+    try:
+        nxt = next(blocks, None)
+        fut = None if nxt is None else ex.submit(produce, 0, *nxt)
+        k = 0
+        while fut is not None:
+            i, c, base = fut.result()
+            nxt = next(blocks, None)
+            fut = (None if nxt is None
+                   else ex.submit(produce, (k + 1) % 2, *nxt))
+            yield take(i, c, base)
+            release(i)
+            k += 1
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
+
+
+def _row_ids(n_cols: int, n: int, base: int, device: torch.device):
+    """[1, n_cols] int32: ``base + i`` for the first n columns, ROW_INF on
+    padding (whose columns score -1 and lose every selection)."""
+    cols = torch.arange(n_cols, dtype=torch.int32, device=device)
+    return torch.where(cols < n, cols + base, ROW_INF).reshape(1, n_cols)
+
+
+def _stage_block(sigs: np.ndarray, base_row: int, n_cols: int,
                  device: torch.device):
-    """One chunk in the kernel's layout on ``device``: the [c, H] rows
-    padded with zeros to ``chunk_rows`` and transposed to [H, chunk_rows]
-    (on the device), row ids ``base_row + i``, ``ROW_INF`` on padding (so
-    padding columns score -1 and lose every selection)."""
-    c, h = sig_rows.shape
-    s = torch.zeros((chunk_rows, h), dtype=torch.int32, device=device)
-    s[:c] = u32_tensor(sig_rows, device)
-    rid = torch.full((1, chunk_rows), ROW_INF, dtype=torch.int32,
-                     device=device)
-    rid[0, :c] = torch.arange(base_row, base_row + c, dtype=torch.int32,
-                              device=device)
-    return s.t().contiguous(), rid
+    """One chunk of [n, H] rows in the kernel's layout on ``device``: the
+    rows staged STAGE_ROWS at a time and transposed into [H, n_cols]
+    (zeros past n), row ids ``base_row + i`` (ROW_INF past n)."""
+    n, h = sigs.shape
+    s_t = torch.empty((h, n_cols), dtype=torch.int32, device=device)
+    s_t[:, n:].zero_()
+    pieces = ((sigs[lo:lo + STAGE_ROWS], lo) for lo in range(0, n,
+                                                            STAGE_ROWS))
+    for rows_d, lo in _staged(pieces, max(1, min(STAGE_ROWS, n)), h, device,
+                              overlap=True):
+        s_t[:, lo:lo + rows_d.shape[0]].copy_(rows_d.t())
+    return s_t, _row_ids(n_cols, n, base_row, device)
 
 
 def _finalize(topc: torch.Tensor, topr: torch.Tensor, nq: int, k: int):
@@ -212,12 +338,84 @@ def topk_agreement(query_sigs: np.ndarray, store_sigs: np.ndarray, k: int,
     if nq == 0 or k == 0 or n == 0:
         return np.full((nq, k), -1, np.int32), np.full((nq, k), -1, np.int32)
     qp = _pad_queries(q)
-    chunk_rows = -(-n // block_n) * block_n
-    s_t, rid = _stage_chunk(s, 0, chunk_rows, dev)
+    s_t, rid = _stage_block(s, 0, -(-n // block_n) * block_n, dev)
     topc, topr = _init_state(qp.shape[0], dev)
     topc, topr = topk_chunk(u32_tensor(qp, dev), s_t, rid, topc, topr, k)
     return _finalize(topc, topr, nq, k)
 
 
-__all__ = ["K_PAD", "ROW_INF", "topk_agreement", "topk_chunk",
+def _scan_chunks(store, chunk_rows: int):
+    """Yield (signature rows [c, H], scan-global base row) over the
+    store's shards in sorted-id order: the scan's row space (see
+    ``store_scan_locator``).  The rows are views of the shard's mmap; the
+    staging thread reads them from disk."""
+    base = 0
+    for entry in sorted(store.shards, key=lambda e: int(e["id"])):
+        sid, rows = int(entry["id"]), int(entry["rows"])
+        mm = store._sig_mmap(sid)
+        for lo in range(0, rows, chunk_rows):
+            yield np.asarray(mm[lo:min(lo + chunk_rows, rows)]), base + lo
+        base += rows
+
+
+def store_scan_locator(store, rows: np.ndarray) -> np.ndarray:
+    """Scan-global row ids -> [K, 2] int32 (shard, row) locators under
+    the sorted-shard-id scan order; ``-1`` rows map to ``(-1, -1)``."""
+    rows = np.asarray(rows, np.int64)
+    loc = np.full((rows.shape[0], 2), -1, np.int32)
+    base = 0
+    for entry in sorted(store.shards, key=lambda e: int(e["id"])):
+        sid, n = int(entry["id"]), int(entry["rows"])
+        sel = (rows >= base) & (rows < base + n)
+        loc[sel, 0] = sid
+        loc[sel, 1] = (rows[sel] - base).astype(np.int32)
+        base += n
+    return loc
+
+
+def bulk_topk_store(store, query_sigs: np.ndarray, k: int, *,
+                    device: str | torch.device = "cuda", block_n: int = 512,
+                    chunk_rows: int = STAGE_ROWS, overlap: bool = True
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Score [Q, H] query signatures against every committed row of
+    ``store``; returns (counts [Q, k], rows [Q, k]) int32 over the
+    scan-global row space (``store_scan_locator`` maps back to (shard,
+    row)), equal to ``score_topk_host`` over the shards concatenated in
+    scan order.  Runs on ``device``, the card unless the caller asks for
+    the CPU.
+
+    Every chunk is ``chunk_rows`` columns (rounded up to ``block_n``; the
+    tail of a shard padded), one ``topk_chunk`` launch each; with
+    ``overlap`` chunk k+1 is staged while chunk k is scored.  Row ids are
+    int32, as in the JAX package: a store of 2^31 rows or more raises."""
+    k = _require_k(k)
+    dev = resolve_device(device)
+    q = np.ascontiguousarray(query_sigs, np.uint32)
+    nq, n_rows = int(q.shape[0]), int(store.n_rows)
+    if n_rows >= 2**31:
+        raise ValueError(f"store of {n_rows} rows: scan row ids are int32, "
+                         f"so a scan covers fewer than 2^31 rows")
+    h = int(store.policy["n_hashes"])
+    if q.ndim != 2 or (nq and q.shape[1] != h):
+        raise ValueError(f"need [Q, {h}] queries for this store; got "
+                         f"{q.shape}")
+    if nq == 0 or k == 0 or n_rows == 0:
+        return np.full((nq, k), -1, np.int32), np.full((nq, k), -1, np.int32)
+    chunk_rows = max(block_n, -(-int(chunk_rows) // block_n) * block_n)
+    qp = _pad_queries(q)
+    q_d = u32_tensor(qp, dev)
+    topc, topr = _init_state(qp.shape[0], dev)
+    s_t = torch.empty((h, chunk_rows), dtype=torch.int32, device=dev)
+    for rows_d, base in _staged(_scan_chunks(store, chunk_rows), chunk_rows,
+                                h, dev, overlap):
+        c = rows_d.shape[0]
+        s_t[:, :c].copy_(rows_d.t())
+        s_t[:, c:].zero_()
+        topc, topr = topk_chunk(q_d, s_t, _row_ids(chunk_rows, c, base, dev),
+                                topc, topr, k)
+    return _finalize(topc, topr, nq, k)
+
+
+__all__ = ["K_PAD", "ROW_INF", "bulk_topk_store", "score_topk_host",
+           "store_scan_locator", "topk_agreement", "topk_chunk",
            "topk_chunk_plain"]

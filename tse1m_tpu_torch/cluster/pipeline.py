@@ -1,4 +1,5 @@
-"""End-to-end session clustering on one GPU: the cold, storeless path.
+"""End-to-end session clustering on one GPU: the cold path and the warm
+path through a persistent signature store.
 
 Items [N, S] -> host prefilter (drops rows that can collide with nothing)
 -> wire plan (quantization, the base-delta lane) -> adaptive-width or
@@ -26,11 +27,22 @@ positions, values) follows in one staged copy, is decoded on the card
 (``_decode_delta_meta``) and hashed, and the labels come back in original
 row order (``_cluster_encoded_labels``).
 
+With ``ClusterParams.sig_store`` a run probes the store
+(``cluster/store.py``) for every row by content digest and MinHashes only
+the rows it misses.  When the input is the last stored run plus a tail of
+at most ``merge_max_novel`` of it, labels merge through the stored band
+tables on the host ("merge", ``cluster/incremental.py``); otherwise the
+cached signatures go up in one copy, the missed rows stream through the
+plain lane, and the banded LSH runs on the card over both in [hit...,
+miss...] lane order ("union").  Both give the labels of a cold run, element
+for element, and commit what the next run needs.
+
 Levers of ``ClusterParams`` this port does not carry yet raise
 ``NotImplementedError`` naming their ROADMAP.md item by its title; the
 watchdog, the OOM ladder and the CPU failover of the JAX pipeline are not
 ported (ROADMAP.md Queue 1, "Device-side resilience").  Storeless runs
-clamp to the calibrated quantization floor as the JAX pipeline does.
+clamp to the calibrated quantization floor as the JAX pipeline does; store
+runs never do, since the store's policy key carries the width.
 """
 
 from __future__ import annotations
@@ -42,20 +54,24 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from ..device import U32_MASK, narrow, resolve_device, widen
+from ..device import U32_MASK, as_u32_numpy, narrow, resolve_device, widen
 from ..utils.calibration import degraded_quant_floor
+from . import incremental as inc
 from .encode import (_AUTO_MIN_BYTES, _AUTO_MIN_DELTA_FRACTION,
                      _AUTO_QUANT_BITS, ChunkWire, chunk_wire_bits,
                      encode_delta, pack_chunk, pack_delta_meta, quantize_ids,
                      width_bits)
 from .entropy import verify_frame
+from .host import host_band_keys
 from .kernels.rans import decode_lane_device, decode_lanes_device
 from .lsh import bucket_representatives, estimated_jaccard, propagate_labels
+from .minhash import band_keys
 from .observability import StageRecorder
 from .prefilter import N_BANDS as PREFILTER_BANDS
 from .prefilter import collide_mask
 from .schemes import (get_scheme, make_params, scheme_sig_and_keys,
                       scheme_sig_and_keys_packed)
+from .store import SignatureStore, is_sharded_root, row_digests
 
 
 @dataclass(frozen=True)
@@ -104,8 +120,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 def _validate_encoding(params: ClusterParams) -> None:
     """Reject unknown lever values and invalid combinations (ValueError, as
-    the JAX package), then the levers this port does not carry
-    (NotImplementedError)."""
+    the JAX package)."""
     get_scheme(params.scheme)
     if params.encoding not in ("auto", "delta", "pack24"):
         raise ValueError(f"unknown encoding {params.encoding!r}; "
@@ -127,9 +142,6 @@ def _validate_encoding(params: ClusterParams) -> None:
             "ClusterParams.prefilter='on' needs threshold > 0: with no "
             "signature verification every proposed edge is accepted, so "
             "bucket isolation proves nothing about labels.")
-    if params.sig_store:
-        raise _not_ported("sig_store (the warm path)",
-                          "Warm path and the serve signer")
 
 
 def _quant_bits(items: np.ndarray, params: ClusterParams) -> int:
@@ -138,7 +150,8 @@ def _quant_bits(items: np.ndarray, params: ClusterParams) -> int:
     Storeless runs with ``wire_quant_bits >= 0`` also clamp to the degraded
     floor that an earlier run of the JAX package persisted to the machine
     calibration (``utils/calibration.py``), so both packages ship the same
-    wire on that machine."""
+    wire on that machine.  Store runs never clamp: the width is part of the
+    store's policy key, and a drifting width would refuse the store."""
     b = params.wire_quant_bits
     if b < 0 or items.size == 0:
         return 0
@@ -147,6 +160,8 @@ def _quant_bits(items: np.ndarray, params: ClusterParams) -> int:
     width = width_bits(int(items.max()))
     if b and width <= b:
         b = 0  # already at or below the target universe
+    if params.sig_store:
+        return b
     floor = degraded_quant_floor()
     if floor and (b == 0 or floor < b) and width > floor:
         return floor
@@ -553,6 +568,13 @@ def _cluster_single_host(items: np.ndarray, hp, params: ClusterParams,
     return out, sig, keys
 
 
+def cluster_sessions_resumable(items, params: ClusterParams | None = None,
+                               checkpoint_dir: str | None = None):
+    """The JAX package's chunk-checkpointed entry point; refused."""
+    raise _not_ported("cluster_sessions_resumable (chunk checkpoints)",
+                      "Device-side resilience")
+
+
 def _prefilter_mask(items: np.ndarray,
                     params: ClusterParams) -> np.ndarray | None:
     """The prefilter's engagement decision and mask: None = filter off
@@ -597,6 +619,12 @@ def _scatter_prefiltered(full_n: int, keep: np.ndarray,
     return full
 
 
+def _record_wire(rec: StageRecorder) -> None:
+    """The run's H2D bytes, exact and in MiB."""
+    last_run_info["wire_mb"] = round(rec.nbytes.get("h2d", 0) / 2**20, 2)
+    last_run_info["wire_bytes"] = int(rec.nbytes.get("h2d", 0))
+
+
 def _record_wire_v3(items: np.ndarray, qbits: int, keep: np.ndarray | None,
                     rec: StageRecorder) -> None:
     """Wire v3 savings: the entropy column is measured (codec bytes against
@@ -623,17 +651,24 @@ def cluster_sessions(items, params: ClusterParams | None = None,
 
     Runs on ``device``, the card unless the caller asks for ``"cpu"`` (the
     plain PyTorch versions of the kernels); raises without a card.  With
-    ``return_signatures`` it returns ``(labels, sig, keys)``: the [M, H]
-    signatures and [M, B] band keys, int32 tensors of uint32 bits on the
-    device, of the M rows the prefilter kept (all rows when it dropped
-    none), in their row order.  ``mesh`` is accepted for the JAX signature
-    and refused."""
+    ``params.sig_store`` the run goes through the signature store (the
+    warm path, see the module docstring).  With ``return_signatures`` a
+    storeless run returns ``(labels, sig, keys)``: the [M, H] signatures
+    and [M, B] band keys, int32 tensors of uint32 bits on the device, of
+    the M rows the prefilter kept (all rows when it dropped none), in their
+    row order.  ``mesh`` is accepted for the JAX signature and refused."""
     params = params or ClusterParams()
     dev = resolve_device(device)
     _validate_encoding(params)
     if mesh is not None:
         raise _not_ported("a mesh (multi-GPU clustering)", "Multi-GPU")
     items = np.ascontiguousarray(items, dtype=np.uint32)
+    if params.sig_store:
+        if return_signatures:
+            raise ValueError("return_signatures is storeless-only: a merge "
+                             "run computes no signature for its cached "
+                             "rows on the device")
+        return _cluster_with_store(items, params, dev)
     hp = make_params(params.scheme, params.n_hashes, params.seed).to(dev)
     rec = StageRecorder()
     t_all = time.perf_counter()
@@ -648,9 +683,219 @@ def cluster_sessions(items, params: ClusterParams | None = None,
                                           qbits_full)
     if keep is not None:
         out = _scatter_prefiltered(items.shape[0], keep, out)
-    last_run_info["wire_mb"] = round(rec.nbytes.get("h2d", 0) / 2**20, 2)
-    last_run_info["wire_bytes"] = int(rec.nbytes.get("h2d", 0))
+    _record_wire(rec)
     _record_wire_v3(items, qbits_full, keep, rec)
     rec.set_total(time.perf_counter() - t_all)
     last_run_info["stages"] = rec.as_dict()
     return (out, sig, keys) if return_signatures else out
+
+
+# -- the warm path: persistent signature store ------------------------------
+#
+# store.py and incremental.py are host numpy; every device transfer of a
+# store run is here.
+
+
+def _store_policy(params: ClusterParams, qbits: int) -> dict:
+    return {"n_hashes": params.n_hashes, "seed": params.seed,
+            "quant_bits": qbits, "scheme": params.scheme}
+
+
+def _streamed_sig(rows: np.ndarray, params: ClusterParams,
+                  rec: StageRecorder, device: torch.device):
+    """rows (already in the policy's universe) -> (per-chunk (sig, keys),
+    per-chunk wire bits) through the plain lane's stream."""
+    hp = make_params(params.scheme, params.n_hashes, params.seed).to(device)
+    parts, _, wire_bits = _minhash_streamed(rows, hp, params, rec, device,
+                                            want_decoded=False)
+    return parts, wire_bits
+
+
+def minhash_novel_rows(rows: np.ndarray, params: ClusterParams, qbits: int,
+                       rec: StageRecorder | None = None, *,
+                       device: str | torch.device = "cuda",
+                       pad_pow2: bool = True) -> np.ndarray:
+    """Host [K, S] raw rows -> host [K, H] uint32 signatures: the rows
+    quantized to the store policy's universe, streamed through the plain
+    lane to the scheme's kernel on ``device``, fetched back.  ``pad_pow2``
+    pads K to the next power of two with copies of row 0 (MinHash is
+    row-independent; the pad is sliced off), so a long-lived caller
+    launches O(log K) row counts, as the JAX package's compiles O(log K)
+    shapes."""
+    rec = rec or StageRecorder()
+    dev = resolve_device(device)
+    k = int(rows.shape[0])
+    if k == 0:
+        return np.empty((0, params.n_hashes), np.uint32)
+    sub = quantize_ids(rows, qbits) if qbits else rows
+    if pad_pow2:
+        padded = 1 << (k - 1).bit_length()
+        if padded > k:
+            sub = np.concatenate(
+                [sub, np.broadcast_to(sub[:1], (padded - k, sub.shape[1]))])
+    parts, _ = _streamed_sig(sub, params, rec, dev)
+    sig_d = _cat([p[0] for p in parts])
+    with rec.stage("d2h", nbytes=sig_d.numel() * 4):
+        sig = as_u32_numpy(sig_d)
+    return np.ascontiguousarray(sig[:k], np.uint32)
+
+
+def _cluster_with_store(items: np.ndarray, params: ClusterParams,
+                        device: torch.device) -> np.ndarray:
+    """Store-enabled clustering; returns [N] int32 labels."""
+    if is_sharded_root(params.sig_store):
+        raise _not_ported("a pod-sharded signature store", "Multi-GPU")
+    rec = StageRecorder()
+    t_all = time.perf_counter()
+    last_run_info.clear()
+    n = items.shape[0]
+    if n == 0:
+        return np.empty(0, np.int32)
+    qbits = _quant_bits(items, params)
+    store = SignatureStore(params.sig_store, _store_policy(params, qbits))
+    if store.quarantined_at_open:
+        last_run_info["store_quarantined"] = list(store.quarantined_at_open)
+    with rec.stage("probe"):
+        digests = row_digests(items)
+        hit, shard, row = store.bulk_probe(digests)
+    state = store.load_state(params.n_bands, params.threshold)
+    last_run_info.update(encoding="store", wire_quant_bits=qbits,
+                         cache_hit_rate=round(float(hit.mean()), 4),
+                         cache_store_rows=store.n_rows)
+    merge_ok = (state is not None and state.n_rows <= n
+                and (n - state.n_rows) <= params.merge_max_novel * n
+                and state.matches_prefix(digests))
+    if merge_ok:
+        labels = _store_warm_merge(items, digests, hit, shard, row, state,
+                                   store, params, qbits, rec, device)
+        last_run_info["cache_mode"] = "merge"
+    else:
+        labels = _store_union(items, digests, hit, shard, row, store,
+                              params, qbits, rec, device)
+        last_run_info["cache_mode"] = "union"
+    _record_wire(rec)
+    rec.set_total(time.perf_counter() - t_all)
+    last_run_info["stages"] = rec.as_dict()
+    return labels
+
+
+def _store_warm_merge(items, digests, hit, shard, row, state, store,
+                      params: ClusterParams, qbits: int, rec: StageRecorder,
+                      device: torch.device) -> np.ndarray:
+    """The accreted-tail run: the card MinHashes only the tail's missed
+    rows; stored signatures serve the rest; band keys are folded and
+    labels merged on the host (``LiveClusterIndex.absorb``)."""
+    n = items.shape[0]
+    n_old = state.n_rows
+    k_new = n - n_old
+    if k_new == 0:
+        last_run_info["cache_novel_rows"] = 0
+        return state.labels.astype(np.int32, copy=True)
+    h = params.n_hashes
+    tail_hit = hit[n_old:]
+    miss = ~tail_hit
+    new_sig = np.empty((k_new, h), np.uint32)
+    if tail_hit.any():
+        with rec.stage("load", nbytes=int(tail_hit.sum()) * h * 4):
+            new_sig[tail_hit] = store.load_signatures(
+                shard[n_old:][tail_hit], row[n_old:][tail_hit])
+    if miss.any():
+        sub = items[n_old:][miss]
+        if qbits:
+            sub = quantize_ids(sub, qbits)
+        parts, wire_bits = _streamed_sig(sub, params, rec, device)
+        last_run_info["chunk_bits"] = wire_bits
+        sig_d = _cat([p[0] for p in parts])
+        with rec.stage("d2h", nbytes=sig_d.numel() * 4):
+            new_sig[miss] = as_u32_numpy(sig_d)
+    with rec.stage("compute"):
+        # The short tail's band keys on the host: bit-identical to the
+        # card's fold (tests/test_torch_host.py).
+        new_keys = host_band_keys(new_sig, params.n_bands)
+
+        def gather_old(uniq: np.ndarray) -> np.ndarray:
+            loc = state.locator[uniq]
+            out = store.load_signatures(loc[:, 0], loc[:, 1])
+            rec.add("load", 0.0, out.nbytes)
+            return out
+
+        index = inc.LiveClusterIndex.from_state(state).absorb(
+            new_keys, new_sig, gather_old, h, params.threshold)
+        labels = index.labels
+    # Commit: append the novel signatures, extend (never rebuild) the band
+    # tables, advance the state to cover all n rows.
+    if miss.any():
+        store.append(digests[n_old:][miss], new_sig[miss])
+    _, sh2, rw2 = store.bulk_probe(digests[n_old:])
+    locator = np.concatenate([state.locator, np.stack([sh2, rw2], axis=1)])
+    store.save_state(labels, locator, index.band_tables(), digests,
+                     params.n_bands, params.threshold)
+    last_run_info["cache_novel_rows"] = int(miss.sum())
+    return labels
+
+
+def _store_union(items, digests, hit, shard, row, store,
+                 params: ClusterParams, qbits: int, rec: StageRecorder,
+                 device: torch.device) -> np.ndarray:
+    """The full store run: cached signatures go up in one copy (their band
+    keys folded on the card), missed rows stream through the plain lane,
+    and the LSH tail runs over both in [hit..., miss...] lane order; the
+    labels come back in row order, those of a storeless run."""
+    n = items.shape[0]
+    miss = ~hit
+    hit_idx = np.flatnonzero(hit)
+    miss_idx = np.flatnonzero(miss)
+    sig_parts, key_parts = [], []
+    if hit_idx.size:
+        with rec.stage("load", nbytes=int(hit_idx.size) * params.n_hashes
+                       * 4):
+            sig_hit = store.load_signatures(shard[hit], row[hit])
+        with rec.stage("h2d", nbytes=sig_hit.nbytes):
+            sig_hit_d = torch.from_numpy(sig_hit.view(np.int32)).to(device)
+            _sync(device)
+        with rec.stage("compute"):
+            sig_parts.append(sig_hit_d)
+            key_parts.append(band_keys(sig_hit_d, params.n_bands))
+            _sync(device)
+    if miss_idx.size:
+        sub = items[miss_idx]
+        if qbits:
+            sub = quantize_ids(sub, qbits)
+        parts, wire_bits = _streamed_sig(sub, params, rec, device)
+        last_run_info["chunk_bits"] = wire_bits
+        sig_parts += [p[0] for p in parts]
+        key_parts += [p[1] for p in parts]
+    mask_bits = np.packbits(miss, bitorder="little")
+    with rec.stage("h2d", nbytes=mask_bits.nbytes):
+        mask_d = torch.from_numpy(mask_bits).to(device)
+        _sync(device)
+    with rec.stage("compute"):
+        sig = _cat(sig_parts)
+        keys = _cat(key_parts)
+        del sig_parts, key_parts
+        labels_d, lane_of = _cluster_encoded_labels(
+            sig, keys, mask_d, n, params.threshold, params.n_iters)
+        _sync(device)
+    with rec.stage("d2h", nbytes=n * 4):
+        labels = labels_d.cpu().numpy()
+    with rec.stage("d2h", nbytes=(sig.numel() + keys.numel()) * 4):
+        sig_orig = as_u32_numpy(sig[lane_of])
+        keys_orig = as_u32_numpy(keys[lane_of])
+    del sig, keys
+    _store_commit(store, digests, miss, sig_orig, keys_orig, labels, params,
+                  rec)
+    last_run_info["cache_novel_rows"] = int(miss_idx.size)
+    return labels
+
+
+def _store_commit(store, digests, miss_mask, sig_orig, keys_orig, labels,
+                  params: ClusterParams, rec: StageRecorder) -> None:
+    """Append the novel signatures and commit the run's LSH state
+    (labels, band tables, locator) for the next accreted run's merge."""
+    store.append(digests[miss_mask], sig_orig[miss_mask])
+    _, sh2, rw2 = store.bulk_probe(digests)
+    locator = np.stack([sh2, rw2], axis=1)
+    with rec.stage("compute"):
+        tables = inc.build_band_tables(keys_orig)
+    store.save_state(labels, locator, tables, digests, params.n_bands,
+                     params.threshold)

@@ -23,7 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import u32_tensor
+from ..device import as_u32_numpy, u32_tensor
+from .host import host_cminhash_signatures, host_signatures
 from .kernels.cminhash import cminhash_and_keys
 from .kernels.minhash import (combine_bytes, minhash_and_keys,
                               minhash_and_keys_packed)
@@ -128,6 +129,17 @@ def scheme_sig_and_keys_packed(payload: torch.Tensor, shape: tuple, k: int,
                              *hp.arrays, n_bands)
 
 
+def scheme_host_signatures(items: np.ndarray, hp: HashParams) -> np.ndarray:
+    """Numpy [N, S] -> [N, H] uint32 on the host, bit-identical to the
+    kernels for the same scheme (the host oracle's signatures)."""
+    if hp.scheme == "kminhash":
+        return host_signatures(items, *(as_u32_numpy(t) for t in hp.arrays))
+    a0, b0, jmap, offs = hp.arrays
+    return host_cminhash_signatures(items, as_u32_numpy(a0),
+                                    as_u32_numpy(b0), jmap.cpu().numpy(),
+                                    as_u32_numpy(offs))
+
+
 def expand_weighted(items: np.ndarray, weights: np.ndarray,
                     max_weight: int = MAX_WEIGHT) -> np.ndarray:
     """[N, S] ids + [N, S] integer hit counts -> [N, S'] replica ids (host
@@ -161,4 +173,5 @@ def expand_weighted(items: np.ndarray, weights: np.ndarray,
 
 __all__ = ["HashParams", "MAX_WEIGHT", "SCHEMES", "expand_weighted",
            "get_scheme", "make_params", "params_from_numpy",
-           "scheme_sig_and_keys", "scheme_sig_and_keys_packed"]
+           "scheme_host_signatures", "scheme_sig_and_keys",
+           "scheme_sig_and_keys_packed"]

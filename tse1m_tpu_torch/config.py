@@ -1,9 +1,8 @@
-"""Study configuration of the RQ path: a trimmed copy of
-``tse1m_tpu/config.py``.
+"""Configuration: a trimmed copy of ``tse1m_tpu/config.py``.
 
 The study-wide constants (the result and status vocabularies, the study
-cutoff) and the fields the RQ drivers read, with the JAX package's
-defaults.  ``load_config`` reads them as the JAX package does: the
+cutoff), the fields the RQ drivers read and the cluster command's
+signature store, with the JAX package's defaults.  ``load_config`` reads them as the JAX package does: the
 ``[FRAMEWORK]`` section of the INI at ``TSE1M_ENVFILE`` (else
 ``program/envFile.ini``), then the environment.  This package reads
 sqlite only and has no backend switch: the RQ path runs on
@@ -46,6 +45,9 @@ class Config:
     # The reference's TEST_MODE: the first 10 eligible projects, and a
     # per-iteration floor of 1 project (rq1_detection_rate.py:20,155-158).
     test_mode: bool = False
+    # Persistent signature store of the cluster warm path
+    # (cluster/store.py); None = cold runs.  CLI `cluster --sig-store`.
+    sig_store: str | None = None
 
 
 def ini_path(path: str | None = None) -> str | None:
@@ -57,9 +59,9 @@ def ini_path(path: str | None = None) -> str | None:
 
 def load_config(ini: str | None = None) -> Config:
     """Defaults, then the INI's ``[FRAMEWORK]`` keys sqlite_path,
-    limit_date, result_dir, corpus_csv and test_mode, then the
+    limit_date, result_dir, corpus_csv, test_mode and sig_store, then the
     environment: TSE1M_SQLITE_PATH, TSE1M_CORPUS_CSV, TSE1M_RESULT_DIR,
-    TSE1M_TEST_MODE (1/true/yes)."""
+    TSE1M_TEST_MODE (1/true/yes), TSE1M_SIG_STORE."""
     cfg = Config()
     path = ini_path(ini)
     if path:
@@ -72,12 +74,14 @@ def load_config(ini: str | None = None) -> Config:
             cfg.result_dir = fw.get("result_dir", cfg.result_dir)
             cfg.corpus_csv = fw.get("corpus_csv", cfg.corpus_csv)
             cfg.test_mode = fw.getboolean("test_mode", cfg.test_mode)
+            cfg.sig_store = fw.get("sig_store", cfg.sig_store)
     cfg.sqlite_path = os.environ.get("TSE1M_SQLITE_PATH", cfg.sqlite_path)
     cfg.corpus_csv = os.environ.get("TSE1M_CORPUS_CSV", cfg.corpus_csv)
     cfg.result_dir = os.environ.get("TSE1M_RESULT_DIR", cfg.result_dir)
     if "TSE1M_TEST_MODE" in os.environ:
         cfg.test_mode = os.environ["TSE1M_TEST_MODE"].lower() in (
             "1", "true", "yes")
+    cfg.sig_store = os.environ.get("TSE1M_SIG_STORE", cfg.sig_store)
     return cfg
 
 
