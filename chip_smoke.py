@@ -84,6 +84,35 @@ Phases, in order; any failure ends the run with a non-zero exit code:
        first hit at 128 agreements; the same without overlap;
    one ``warm_path`` JSON line with each run's wall, stages and cache
    keys, the store's bytes on disk, peak device memory and the card;
+3c. serving: a copy of the store as run (1) left it (build/serve_smoke/,
+   gitignored) opened by ``ServeDaemon(device=cuda)`` behind a
+   ``ServeServer`` on 127.0.0.1, driven by a ``ServeClient`` over TCP,
+   each kind of request with the launch counts set to 0 just before and
+   read just after: the 50,000-row tail ingested in 4,096-row batches
+   with request ids, every ack ok, the first 6 alone (the MinHash kernel
+   at least once a batch with novel rows, no other kernel), the other 7
+   while two more clients on their own threads send scan-mode ``topk``
+   requests of 8 stored vectors back to back and ``query`` requests of 64
+   10 ms apart (each scan equal to ``score_topk_host`` over the first m
+   shards, m between the reader's shard counts when it went out and when
+   it came back; each query label a hub of the row's final cluster; the
+   MinHash kernel at least once a batch with novel rows, the top-k kernel
+   once a chunk of every scan, at least one scan overlapping the ingest);
+   batch 0's request id again, replayed with no new row and no launch;
+   1,024 query vectors (512 stored, 512 held out) in 16 requests, the
+   stored ones known with the storeless oracle's labels, no launch;
+   ``topk`` k=10 of 64 stored
+   vectors in candidates mode (no launch) and scan mode (the top-k kernel
+   once a 16,384-column chunk; scores and digest ids equal
+   ``score_topk_host``'s over the store's signatures); quiesce, status.
+   Then in process: all 1,050,000 rows known with the labels of the
+   storeless run of (2) (its oracle), element for element, and the
+   tail's stored signatures equal ``scheme_host_signatures`` of the
+   quantized tail bit for bit; one ``serve`` JSON line with the open
+   wall, ingest rows/s and seconds a batch (alone and under load, with
+   the concurrent requests' p50/p99), p50/p99 a verb, the scan's
+   wall and chunks, the launches, peak device memory, the store's bytes
+   and the card;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
@@ -115,7 +144,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    MinHash kernels at the 65,536-row pow2 novel batch and the top-k kernel
    at the scan's first 16,384-column chunk, each beside its bound (in the
    ``kernels`` line under ``warm_shapes``, with the warm path's launches
-   under ``warm_launches``);
+   under ``warm_launches`` and phase 3c's ingest and scan launches under
+   ``serve_launches``);
 6. the card's name and power limit from nvidia-smi.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
@@ -134,15 +164,18 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from tse1m_tpu_torch import (SignatureStore, adjusted_rand_index,
-                             bulk_topk_store, expand_weighted,
-                             store_scan_locator, synth_session_hitcounts,
-                             synth_session_sets, topk_agreement)
+                             bulk_topk_store, expand_weighted, row_digests,
+                             score_topk_host, store_scan_locator,
+                             synth_session_hitcounts, synth_session_sets,
+                             topk_agreement)
 from tse1m_tpu_torch.analysis import RQ_DRIVERS, run_rqs
 from tse1m_tpu_torch.analysis.corpus import g4_prepost, load_corpus_groups
 from tse1m_tpu_torch.backend import TorchBackend
@@ -155,12 +188,14 @@ from tse1m_tpu_torch.cluster.kernels import minhash as kmod
 from tse1m_tpu_torch.cluster.kernels import rans as krans
 from tse1m_tpu_torch.cluster.kernels import score as ksc
 from tse1m_tpu_torch.cluster.minhash import mul_u32
-from tse1m_tpu_torch.cluster.schemes import make_params
+from tse1m_tpu_torch.cluster.schemes import (make_params,
+                                             scheme_host_signatures)
 from tse1m_tpu_torch.config import Config as StudyConfig
 from tse1m_tpu_torch.data.columnar import StudyArrays
 from tse1m_tpu_torch.data.synth import SynthSpec, generate_study
 from tse1m_tpu_torch.db import connect
 from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
+from tse1m_tpu_torch.serve import ServeClient, ServeDaemon, ServeServer
 
 N_SESSIONS = 1_000_000
 N_FORCED = 100_000
@@ -762,10 +797,15 @@ def check_ari(labels, truth) -> float:
 
 def expect_launches(counts: dict, want: dict) -> None:
     """Each kernel in ``want`` launched as often as given there (an int:
-    exactly; a (least, None) pair: at least); the rest never."""
+    exactly; a (least, most) pair: within, most None for no bound); the
+    rest never."""
     for name, n in counts.items():
         w = want.get(name, 0)
-        if not (n >= w[0] if isinstance(w, tuple) else n == w):
+        if isinstance(w, tuple):
+            ok = n >= w[0] and (w[1] is None or n <= w[1])
+        else:
+            ok = n == w
+        if not ok:
             raise AssertionError(f"launches {counts}, expected {want}")
 
 
@@ -996,9 +1036,9 @@ def warm_run(items, params, dev, label: str) -> dict:
     return {"labels": labels, "run": run}
 
 
-def expect_equal_to_storeless(labels, items, dev, label: str) -> float:
+def expect_equal_to_storeless(labels, items, dev, label: str) -> tuple:
     """Labels equal a storeless run of the same rows at (a)'s plain 10-bit
-    wire, element for element; returns that run's wall."""
+    wire, element for element; returns that run's wall and labels."""
     t0 = time.perf_counter()
     want = pipeline.cluster_sessions(items, params_for(0), device=dev)
     wall = time.perf_counter() - t0
@@ -1007,7 +1047,7 @@ def expect_equal_to_storeless(labels, items, dev, label: str) -> float:
                              f"({int((labels != want).sum())} rows)")
     log(f"  {label}: labels == a storeless plain-wire run's, element for "
         f"element (that run {wall:.3f} s)")
-    return wall
+    return wall, want
 
 
 def scan_run(store, queries, dev, overlap: bool) -> tuple:
@@ -1080,7 +1120,10 @@ def warm_phase(dev) -> dict:
     expect_launches(r["run"]["launches"], {"minhash_and_keys": (1, None),
                                            "rans_decode": (0, None)})
     oracle_s.append(expect_equal_to_storeless(
-        r["labels"], items[:WARM_BASE], dev, "run 1"))
+        r["labels"], items[:WARM_BASE], dev, "run 1")[0])
+    # Phase 3c serves a copy of the store as run 1 left it.
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    shutil.copytree(store, SERVE_STORE)
     r2 = warm_run(items, params, dev, f"run 2, accreted to {WARM_ROWS} rows")
     runs["accreted"] = run2 = r2["run"]
     tail = WARM_ROWS - WARM_BASE
@@ -1092,8 +1135,9 @@ def warm_phase(dev) -> dict:
     expect_launches(run2["launches"], {
         "minhash_and_keys": len(run2["chunk_bits"]),
         "rans_decode": (0, None)})
-    oracle_s.append(expect_equal_to_storeless(r2["labels"], items, dev,
-                                              "run 2"))
+    wall, oracle = expect_equal_to_storeless(r2["labels"], items, dev,
+                                             "run 2")
+    oracle_s.append(wall)
     r3 = warm_run(items, params, dev, "run 3, all hits")
     runs["all_hit"] = r3["run"]
     if not (r3["run"]["cache_mode"] == "merge"
@@ -1110,7 +1154,7 @@ def warm_phase(dev) -> dict:
             and r4["run"]["cache_hit_rate"] >= 0.95):
         raise AssertionError(f"union run: {r4['run']}")
     oracle_s.append(expect_equal_to_storeless(r4["labels"], items[perm], dev,
-                                              "run 4"))
+                                              "run 4")[0])
     scan = warm_scan(store, dev)
     runs["scan"] = scan["run"]
     line = {"runs": runs, "storeless_oracle_s": oracle_s,
@@ -1123,7 +1167,431 @@ def warm_phase(dev) -> dict:
     return {"launches": {
         "minhash_and_keys": runs["populate"]["launches"]["minhash_and_keys"]
         + run2["launches"]["minhash_and_keys"],
-        "topk_chunk": scan["run"]["launches"]}, "scan_args": scan["args"]}
+        "topk_chunk": scan["run"]["launches"]}, "scan_args": scan["args"],
+        "items": items, "oracle": oracle}
+
+
+SERVE_DIR = os.path.join(ROOT, "build", "serve_smoke")  # gitignored
+SERVE_STORE = os.path.join(SERVE_DIR, "store")
+SERVE_BATCH = 4_096           # phase 3c: rows an ingest request
+SERVE_QUERY_REQUESTS = 16     # phase 3c: 1,024 query vectors in requests of 64
+SERVE_SOLO_BATCHES = 6        # phase 3c: tail batches ingested alone; the
+                              # rest under concurrent scans and queries
+SERVE_SCAN_QUERIES = 8        # phase 3c: vectors a concurrent scan request
+LONG_REQUEST_S = 300.0        # client socket timeout of phase 3c's requests
+
+
+def counted(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; returns (result, counts, wall)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts(), time.perf_counter() - t0
+
+
+def scan_oracle(daemon, queries: np.ndarray) -> tuple:
+    """score_topk_host over every committed store row in scan order, as
+    the topk verb answers: digest ids, hits sorted by (-count, digest
+    hex), ("", -1) padding.  The queries are signed on the host and split
+    over threads (numpy releases the GIL), 8 to a call."""
+    store = daemon.reader
+    loc = store_scan_locator(store, np.arange(store.n_rows))
+    sigs = store.load_signatures(loc[:, 0], loc[:, 1])
+    hp = make_params("kminhash", N_HASHES, 0)
+    qs = scheme_host_signatures(quantize_ids(queries, daemon.qbits), hp)
+    with ThreadPoolExecutor(8) as ex:
+        parts = list(ex.map(lambda lo: score_topk_host(
+            qs[lo:lo + 8], sigs, TOPK_K), range(0, qs.shape[0], 8)))
+    scores, ids = [], []
+    for counts, rows in zip(np.concatenate([p[0] for p in parts]),
+                            np.concatenate([p[1] for p in parts])):
+        ok = rows >= 0
+        dg = store.load_digests(loc[rows[ok], 0], loc[rows[ok], 1])
+        hits = sorted(zip(counts[ok].tolist(),
+                          ["%016x%016x" % (int(a), int(b)) for a, b in dg]),
+                      key=lambda h: (-h[0], h[1]))
+        pad = TOPK_K - len(hits)
+        scores.append([c for c, _ in hits] + [-1] * pad)
+        ids.append([h for _, h in hits] + [""] * pad)
+    return scores, ids
+
+
+def serve_requests(client, daemon, items, oracle) -> dict:
+    """Phase 3c's requests over TCP, each kind driven with the launch
+    counts set to 0 just before and read just after: the tail's ingest in
+    4,096-row batches, one batch's replay, 1,024 queries, topk in both
+    modes, quiesce and status."""
+    tail = items[WARM_BASE:]
+    launches, batch_s, acks = {}, [], []
+    batches = list(enumerate(range(0, tail.shape[0], SERVE_BATCH)))
+
+    def ingest(part):
+        for i, lo in part:
+            t0 = time.perf_counter()
+            ack = client.ingest(tail[lo:lo + SERVE_BATCH],
+                                request_id=f"tail-{i:04d}",
+                                timeout_s=LONG_REQUEST_S)
+            batch_s.append(time.perf_counter() - t0)
+            n = min(SERVE_BATCH, tail.shape[0] - lo)
+            if not (ack["ok"] and ack["acked"] == n
+                    and not ack.get("replayed")):
+                raise AssertionError(f"ingest batch {i}: {ack}")
+            acks.append(ack)
+
+    solo = batches[:SERVE_SOLO_BATCHES]
+    _, launches["ingest"], ingest_s = counted(lambda: ingest(solo))
+    # The MinHash kernel once a batch with novel rows (one chunk each);
+    # nothing else: a 10-bit policy, no coded chunk, no scan.
+    expect_launches(launches["ingest"], {"minhash_and_keys": (
+        sum(a["novel"] > 0 for a in acks), None)})
+    solo_rows = sum(a["acked"] for a in acks)
+    log(f"  ingest of {solo_rows} rows in {len(acks)} batches alone: "
+        f"{ingest_s:.3f} s, {sum(a['novel'] for a in acks)} novel rows, "
+        f"launches {launches['ingest']}")
+    under = ingest_under_load(client.port, daemon, items, oracle,
+                              lambda: ingest(batches[SERVE_SOLO_BATCHES:]),
+                              acks)
+    launches["ingest_scan"] = under.pop("launches")
+    novel_batches = sum(a["novel"] > 0 for a in acks)
+    novel_rows = sum(a["novel"] for a in acks)
+    rows_before = (daemon.store.n_rows, daemon.status()["rows"])
+    replay, launches["replay"], _ = counted(lambda: client.ingest(
+        tail[:SERVE_BATCH], request_id="tail-0000",
+        timeout_s=LONG_REQUEST_S))
+    expect_launches(launches["replay"], {})
+    if not (replay.get("replayed") and replay["acked"] == SERVE_BATCH
+            and (daemon.store.n_rows, daemon.status()["rows"])
+            == rows_before):
+        raise AssertionError(f"replay of batch 0: {replay}")
+    log("  replay of batch 0's request_id: replayed, no new row, no launch")
+
+    rng = np.random.default_rng(4)
+    idx = rng.choice(WARM_ROWS, SERVE_QUERY_REQUESTS * 32, replace=False)
+    held = synth_session_sets(SERVE_QUERY_REQUESTS * 32, SET_SIZE,
+                              seed=1)[0]
+    vectors = np.stack([items[idx], held], axis=1).reshape(-1, SET_SIZE)
+
+    def query():
+        out = [client.query(v, timeout_s=LONG_REQUEST_S) for v in
+               np.split(vectors, SERVE_QUERY_REQUESTS)]
+        return (np.concatenate([r["labels"] for r in out]),
+                np.concatenate([r["known"] for r in out]))
+
+    (labels, known), launches["query"], query_s = counted(query)
+    expect_launches(launches["query"], {})
+    stored = np.arange(vectors.shape[0]) % 2 == 0
+    if not (known[stored].all()
+            and np.array_equal(labels[stored], oracle[idx])):
+        raise AssertionError("query answers differ from the oracle's")
+    log(f"  {vectors.shape[0]} query vectors in {SERVE_QUERY_REQUESTS} "
+        f"requests: {query_s:.3f} s; stored ones known with the storeless "
+        f"oracle's labels, {int(known[~stored].sum())} of the held-out "
+        "known; no launch")
+
+    queries = items[np.random.default_rng(1).choice(
+        WARM_ROWS, N_QUERIES, replace=False)]
+    cand, launches["candidates"], cand_s = counted(lambda: client.topk(
+        queries, k=TOPK_K, mode="candidates", timeout_s=LONG_REQUEST_S))
+    expect_launches(launches["candidates"], {})
+    scan, launches["scan"], scan_s = counted(lambda: client.topk(
+        queries, k=TOPK_K, mode="scan", timeout_s=LONG_REQUEST_S))
+    chunks = sum(-(-int(e["rows"]) // SCAN_CHUNK)
+                 for e in daemon.reader.shards)
+    expect_launches(launches["scan"], {"topk_chunk": chunks})
+    want = scan_oracle(daemon, queries)
+    if not (scan["scores"].tolist() == want[0] and scan["ids"] == want[1]
+            and (scan["scores"][:, 0] == N_HASHES).all()
+            and (scan["labels"][scan["scores"] >= 0] >= 0).all()):
+        raise AssertionError("the scan differs from score_topk_host over "
+                             "the store's signatures")
+    if not (cand["scores"][:, 0] == N_HASHES).all() or \
+            [r[0] for r in cand["ids"]] != [r[0] for r in scan["ids"]]:
+        raise AssertionError("a candidate answer misses its self-hit")
+    log(f"  topk k={TOPK_K} of {N_QUERIES} vectors: candidates "
+        f"{cand_s:.3f} s, no launch; scan {scan_s:.3f} s over "
+        f"{daemon.reader.n_rows} rows, {chunks} chunks, launches "
+        f"{launches['scan']}; scores and digest ids == score_topk_host's")
+    if not client.quiesce(timeout_s=LONG_REQUEST_S)["ok"]:
+        raise AssertionError("quiesce failed")
+    status = client.status()
+    # In process, after the status, so the verbs' histograms hold the TCP
+    # requests only: the same snapshot answers the same.
+    local = daemon.query(vectors)
+    if not (np.array_equal(labels, local["labels"])
+            and np.array_equal(known, local["known"])
+            and replay["labels"] == daemon.query(
+                tail[:SERVE_BATCH])["labels"].tolist()):
+        raise AssertionError("TCP answers differ from the daemon's in "
+                             "process")
+    log("  the queries' and the replay's labels over TCP == the daemon's "
+        "in process")
+    return {"launches": launches, "batch_s": batch_s, "ingest_s": ingest_s,
+            "solo_rows": solo_rows, "under_load": under,
+            "novel_rows": novel_rows, "novel_batches": novel_batches,
+            "query_s": query_s, "candidates_s": cand_s, "scan_s": scan_s,
+            "chunks": chunks, "status": status}
+
+
+def shard_chunks(store, n_shards: int) -> int:
+    """Scan chunks over the first ``n_shards`` shards in scan order."""
+    return sum(-(-int(e["rows"]) // SCAN_CHUNK) for e in sorted(
+        store.shards, key=lambda e: int(e["id"]))[:n_shards])
+
+
+def prefix_scan_oracles(daemon, queries: np.ndarray, n_lo: int,
+                        n_hi: int) -> dict:
+    """For each m in [n_lo, n_hi], the topk verb's scan answer over the
+    store's first m shards in scan order, from ``score_topk_host`` a shard
+    (the queries split over threads), merged by (-count, scan row) as the
+    kernel ranks: {m: (scores, ids)}."""
+    store = daemon.reader
+    store.refresh()
+    shards = sorted(store.shards, key=lambda e: int(e["id"]))[:n_hi]
+    hp = make_params("kminhash", N_HASHES, 0)
+    qs = scheme_host_signatures(quantize_ids(queries, daemon.qbits), hp)
+    parts, base = [], 0
+    with ThreadPoolExecutor(8) as ex:
+        for e in shards:
+            sigs = np.asarray(store._sig_mmap(int(e["id"])))
+            got = list(ex.map(lambda qi: score_topk_host(
+                qs[qi:qi + 1], sigs, TOPK_K), range(qs.shape[0])))
+            c = np.concatenate([g[0] for g in got])
+            r = np.concatenate([g[1] for g in got]).astype(np.int64)
+            parts.append((c, np.where(r >= 0, r + base, -1)))
+            base += int(e["rows"])
+    out = {}
+    for m in range(n_lo, n_hi + 1):
+        scores, ids = [], []
+        for qi in range(qs.shape[0]):
+            hits = sorted((int(c[qi, j]), int(r[qi, j]))
+                          for c, r in parts[:m] for j in range(TOPK_K)
+                          if r[qi, j] >= 0)
+            hits.sort(key=lambda h: (-h[0], h[1]))
+            hits = hits[:TOPK_K]
+            rows = np.array([r for _, r in hits], np.int64)
+            loc = store_scan_locator(store, rows)
+            dg = store.load_digests(loc[:, 0], loc[:, 1])
+            named = sorted(zip([c for c, _ in hits],
+                               ["%016x%016x" % (int(a), int(b))
+                                for a, b in dg]),
+                           key=lambda h: (-h[0], h[1]))
+            pad = TOPK_K - len(named)
+            scores.append([c for c, _ in named] + [-1] * pad)
+            ids.append([h for _, h in named] + [""] * pad)
+        out[m] = (scores, ids)
+    return out
+
+
+def ingest_under_load(port: int, daemon, items, oracle, ingest,
+                      acks: list) -> dict:
+    """The tail's remaining batches while two more clients, each on its
+    own thread and connection, send scan-mode ``topk`` requests (kernel 5
+    from a request thread while kernel 1 runs on the ingest thread) and
+    ``query`` requests 10 ms apart.  Each scan must equal
+    ``score_topk_host`` over the first m shards for an m between the shard
+    counts the reader held when its request went out and when its answer
+    came back; each query label is a hub of the row's final cluster (the
+    oracle's label is at most it, and the two rows share a cluster), as
+    the JAX package's concurrency test holds.  The launch counts cover
+    the whole run: kernel 1 at least once a batch with novel rows, kernel
+    5 once a chunk of every scan, within the bounds its shard counts
+    give.  ``ingest`` appends each batch's ack to ``acks``."""
+    first = len(acks)
+    rng = np.random.default_rng(7)
+    scan_q = items[rng.choice(WARM_BASE, SERVE_SCAN_QUERIES, replace=False)]
+    stop, errors = threading.Event(), []
+    scans, queries = [], []
+    window = {}
+
+    def scanner():
+        with ServeClient(port=port) as c:
+            while not stop.is_set():
+                n0 = len(daemon.reader.shards)
+                t0 = time.perf_counter()
+                ans = c.topk(scan_q, k=TOPK_K, mode="scan",
+                             timeout_s=LONG_REQUEST_S)
+                t1 = time.perf_counter()
+                scans.append((n0, len(daemon.reader.shards), t0, t1, ans))
+
+    def querier():
+        qrng = np.random.default_rng(8)
+        with ServeClient(port=port) as c:
+            while not stop.is_set():
+                idx = qrng.choice(WARM_BASE, 64, replace=False)
+                t0 = time.perf_counter()
+                res = c.query(items[idx], timeout_s=LONG_REQUEST_S)
+                queries.append((idx, time.perf_counter() - t0, res))
+                time.sleep(0.01)
+
+    def guarded(fn):
+        def run():
+            try:
+                fn()
+            except Exception as e:  # noqa: BLE001 - relayed below
+                errors.append(e)
+                stop.set()
+        return run
+
+    def drive():
+        threads = [threading.Thread(target=guarded(f), daemon=True)
+                   for f in (scanner, querier)]
+        for th in threads:
+            th.start()
+        try:
+            window["t0"] = time.perf_counter()
+            ingest()
+            window["t1"] = time.perf_counter()
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=LONG_REQUEST_S)
+        if errors:
+            raise errors[0]
+
+    _, counts, wall = counted(drive)
+    inside = [s for s in scans
+              if s[2] < window["t1"] and s[3] > window["t0"]]
+    if not inside or not queries:
+        raise AssertionError(f"{len(inside)} scans overlapped the ingest, "
+                             f"{len(queries)} queries ran")
+    oracles = prefix_scan_oracles(daemon, scan_q, min(s[0] for s in scans),
+                                  max(s[1] for s in scans))
+    lo = hi = 0
+    for n0, n1, _, _, ans in scans:
+        got = (ans["scores"].tolist(), ans["ids"])
+        match = [m for m in range(n0, n1 + 1) if oracles[m] == got]
+        if not match:
+            raise AssertionError(f"a scan under ingest (shards {n0}-{n1}) "
+                                 "differs from score_topk_host over every "
+                                 "prefix it could have read")
+        lo += shard_chunks(daemon.reader, min(match))
+        hi += shard_chunks(daemon.reader, max(match))
+    for idx, _, res in queries:
+        lab = np.asarray(res["labels"], np.int64)
+        if not (np.asarray(res["known"]).all()
+                and (oracle[idx] <= lab).all()
+                and np.array_equal(oracle[lab], oracle[idx])):
+            raise AssertionError("a query under ingest answered a label "
+                                 "outside the row's final cluster")
+    novel = sum(a["novel"] > 0 for a in acks[first:])
+    expect_launches(counts, {"minhash_and_keys": (novel, None),
+                             "topk_chunk": (lo, hi)})
+    rows = sum(a["acked"] for a in acks[first:])
+    scan_ms = [1e3 * (s[3] - s[2]) for s in scans]
+    query_ms = [1e3 * q[1] for q in queries]
+    log(f"  ingest of {rows} rows in {len(acks) - first} batches "
+        f"under load: {window['t1'] - window['t0']:.3f} s; {len(scans)} "
+        f"scans ({len(inside)} overlapping the ingest), each == score_topk_host "
+        f"over a prefix of shards it could read; {len(queries)} query "
+        f"requests, every label a hub of the row's final cluster; "
+        f"launches {counts}")
+    return {"launches": counts, "rows": rows,
+            "wall_s": window["t1"] - window["t0"], "scans": len(scans),
+            "scans_overlapping": len(inside),
+            "scan_p50_ms": percentile(scan_ms, 50),
+            "scan_p99_ms": percentile(scan_ms, 99),
+            "query_requests": len(queries),
+            "query_p50_ms": percentile(query_ms, 50),
+            "query_p99_ms": percentile(query_ms, 99)}
+
+
+def percentile(values: list, q: float) -> float:
+    """The q-th percentile of ``values`` (linear between order
+    statistics, numpy's default)."""
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def serve_phase(warm: dict, dev) -> dict:
+    """Phase 3c: the serving daemon over a copy of phase 3b's populated
+    store (1,000,000 rows), behind a ServeServer on 127.0.0.1, driven by
+    a ServeClient; then, in process, every label against the storeless
+    oracle of all 1,050,000 rows and the tail's stored signatures against
+    the host's."""
+    t_phase = time.perf_counter()
+    items, oracle = warm["items"], warm["oracle"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    daemon = ServeDaemon(SERVE_STORE, params=pipeline.ClusterParams(
+        n_hashes=N_HASHES, n_bands=N_BANDS), device=dev).start()
+    open_s = time.perf_counter() - t0
+    if daemon.status()["rows"] != WARM_BASE or daemon.qbits != 10:
+        raise AssertionError(f"daemon opened {daemon.status()['rows']} "
+                             f"rows at {daemon.qbits} bits")
+    log(f"  daemon open and recover: {open_s:.3f} s, {WARM_BASE} rows")
+    server = ServeServer(daemon, host="127.0.0.1", port=0)
+    listener = threading.Thread(target=server.serve_forever,
+                                kwargs={"poll_interval": 0.05},
+                                daemon=True)
+    listener.start()
+    try:
+        with ServeClient(port=server.port) as client:
+            got = serve_requests(client, daemon, items, oracle)
+            client.shutdown()
+        st = got["status"]
+        if not (st["ok"] and st["rows"] == WARM_ROWS
+                and st["uncommitted_generations"] == 0):
+            raise AssertionError(f"status after quiesce: {st}")
+        res = daemon.query(items)
+        if not (res["known"].all() and np.array_equal(res["labels"],
+                                                      oracle)):
+            raise AssertionError("post-quiesce labels differ from the "
+                                 "storeless oracle's")
+        log(f"  after quiesce: all {WARM_ROWS} rows known, labels == the "
+            "storeless oracle's, element for element")
+        tail = items[WARM_BASE:]
+        hit, sh, rw = daemon.store.bulk_probe(row_digests(tail))
+        want = scheme_host_signatures(quantize_ids(tail, daemon.qbits),
+                                      make_params("kminhash", N_HASHES, 0))
+        if not (hit.all() and np.array_equal(
+                daemon.store.load_signatures(sh, rw), want)):
+            raise AssertionError("the tail's stored signatures differ from "
+                                 "scheme_host_signatures'")
+        log(f"  the tail's {tail.shape[0]} stored signatures == "
+            "scheme_host_signatures of the quantized tail, bit for bit")
+    finally:
+        server.server_close()
+        daemon.stop()
+        listener.join(timeout=30)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bs = got["batch_s"][:SERVE_SOLO_BATCHES]
+    under = got["under_load"]
+    under_bs = got["batch_s"][SERVE_SOLO_BATCHES:]
+    lat = {verb: {k: snap[k] for k in ("count", "p50_ms", "p99_ms",
+                                       "max_ms")}
+           for verb, snap in st["latency_by_verb"].items()}
+    line = {"open_s": open_s, "rows_at_open": WARM_BASE,
+            "ingest": {"rows": got["solo_rows"],
+                       "batches": len(bs), "batch_rows": SERVE_BATCH,
+                       "wall_s": got["ingest_s"],
+                       "rows_per_s": got["solo_rows"] / got["ingest_s"],
+                       "s_per_batch": statistics.mean(bs),
+                       "s_per_batch_max": max(bs)},
+            "tail": {"rows": int(items.shape[0] - WARM_BASE),
+                     "novel_rows": got["novel_rows"],
+                     "novel_batches": got["novel_batches"]},
+            "ingest_under_load": {
+                **under, "batches": len(under_bs),
+                "rows_per_s": under["rows"] / under["wall_s"],
+                "s_per_batch": statistics.mean(under_bs),
+                "s_per_batch_max": max(under_bs)},
+            "query": {"vectors": SERVE_QUERY_REQUESTS * 64,
+                      "requests": SERVE_QUERY_REQUESTS,
+                      "wall_s": got["query_s"]},
+            "topk": {"k": TOPK_K, "queries": N_QUERIES,
+                     "candidates_wall_s": got["candidates_s"],
+                     "scan_wall_s": got["scan_s"],
+                     "scan_chunks": got["chunks"]},
+            "latency_by_verb": lat, "launches": got["launches"],
+            "peak_device_gib": peak, "store_rows": st["store_rows"],
+            "store_bytes": dir_bytes(SERVE_STORE),
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_name_and_limit()}
+    print(json.dumps({"serve": line}), flush=True)
+    return line
 
 
 def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 1) -> float:
@@ -1752,6 +2220,14 @@ def main() -> int:
         f"{SET_SIZE} ids through a signature store")
     warm = warm_phase(dev)
 
+    log(f"phase 3c: serving, a daemon over phase 3b's {WARM_BASE}-row "
+        f"store, the {WARM_ROWS - WARM_BASE}-row tail ingested over TCP")
+    serve = serve_phase(warm, dev)
+    serve_launches = {}
+    for counts in serve["launches"].values():
+        for name, n in counts.items():
+            serve_launches[name] = serve_launches.get(name, 0) + n
+
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
         f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
         f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
@@ -1768,6 +2244,7 @@ def main() -> int:
         "replaces": k["replaces"], "launches": launches[name],
         "max_abs_err": errs[name], **times[name],
         "warm_launches": warm["launches"].get(name, 0),
+        "serve_launches": serve_launches[name],
         "warm_shapes": {case.split(":")[1]: t for case, t in times.items()
                         if case.split(":")[0] == name
                         and case.endswith((":novel", ":scan"))},

@@ -17,6 +17,11 @@ It also runs the paper's RQ analysis: a sqlite study (``db/``, written by
 torch ops in ``ops/segment.py``), all six research questions in one pass
 on the card with ``rq_suite``; the six drivers under ``analysis/`` write
 every RQ's artifacts, as the JAX package's drivers do.
+It serves, too: ``serve.ServeDaemon`` keeps one signature store live,
+ingesting batches (novel rows MinHashed on the card) and answering
+cluster-membership and top-k queries over a JSON-over-TCP transport
+(``serve.ServeServer``, ``serve.ServeClient``), with admission control,
+watchdog budgets and the telemetry of ``observability``.
 It imports ``torch`` and ``numpy`` and the standard library, and nothing of
 the JAX package, pandas or matplotlib.
 
@@ -28,6 +33,7 @@ uint32 bits (``tse1m_tpu_torch.device``).
     python -m tse1m_tpu_torch cluster --n 1000000 [--sig-store DIR]
     python -m tse1m_tpu_torch synth --db study.sqlite
     python -m tse1m_tpu_torch all --db study.sqlite --result-dir out
+    python -m tse1m_tpu_torch serve --sig-store DIR --port-file F
 """
 
 from .backend import TorchBackend

@@ -11,6 +11,14 @@
         --result-dir DIR [--limit-date 2025-01-08] \
         [--min-coverage-days 365] [--test-mode] [--corpus-csv PATH] \
         [--device cuda]
+    python -m tse1m_tpu_torch serve --sig-store DIR [--host 127.0.0.1] \
+        [--port 0] [--port-file F] [--seed 0] [--state-every 8] \
+        [--device cuda]
+    python -m tse1m_tpu_torch serve --status {--port P | --port-file F}
+    python -m tse1m_tpu_torch serve-client {ping,status,query,topk,ingest,\
+        metrics,trace,slowlog,profile,quiesce,shutdown} \
+        {--port P | --port-file F} [--npy V.npy] [--k 10] \
+        [--mode {candidates,scan}] [--limit N] [--dump]
 
 ``cluster`` synthesizes planted near-duplicate sessions, clusters them
 with default ``ClusterParams`` (wire v3: at >= 64 MiB of ids the host
@@ -42,8 +50,21 @@ failed.  The defaults of ``--db``, ``--result-dir``, ``--limit-date``,
 then TSE1M_SQLITE_PATH, TSE1M_CORPUS_CSV, TSE1M_RESULT_DIR and
 TSE1M_TEST_MODE.
 
-``cluster`` and the RQ commands run on the card unless ``--device cpu``
-is given, and fail without one.
+``serve`` runs the serving daemon (``serve.ServeDaemon`` behind a
+``ServeServer``) over a signature store (``--sig-store``, default the
+config's ``sig_store``) until a ``shutdown`` request, SIGTERM or SIGINT;
+``--port-file`` receives the bound port.  Clients stream coverage
+vectors in (``serve-client ingest --npy``, durably acknowledged) and ask
+which cluster a vector is in (``query``) or which k stored sessions are
+nearest (``topk``, ``--mode scan`` scores every stored row on the card).
+``serve --status`` is a client: it prints a running daemon's status and
+records it as the ``serve_status`` step in
+``<result_dir>/run_manifest.json``.  ``serve-client`` sends one request
+and prints the JSON answer; it exits 1 on an error answer.  Shard mode
+(``--root``/``--range``) is not ported.
+
+``cluster``, ``serve`` and the RQ commands run on the card unless
+``--device cpu`` is given, and fail without one.
 """
 
 from __future__ import annotations
@@ -52,6 +73,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
 import time
 
@@ -60,7 +82,7 @@ import torch
 
 from .cluster import (ClusterParams, adjusted_rand_index, cluster_sessions,
                       host_cluster)
-from .cluster.pipeline import last_run_info
+from .cluster.pipeline import _not_ported, last_run_info
 from .cluster.schemes import expand_weighted
 from .config import load_config
 from .data import synth_session_hitcounts, synth_session_sets
@@ -153,6 +175,115 @@ def _cmd_rq(args) -> int:
     return runner.exit_code()
 
 
+def _serve_client(args):
+    """The target daemon (``--port``, else the port file) -> ServeClient."""
+    from .serve import ServeClient
+
+    port = args.port
+    if not port and args.port_file and os.path.exists(args.port_file):
+        with open(args.port_file, encoding="utf-8") as f:
+            port = int(f.read().strip())
+    if not port:
+        raise SystemExit("no daemon address: pass --port or --port-file")
+    return ServeClient(host=args.host, port=port)
+
+
+def _serve_status(args) -> int:
+    """``serve --status``: one status request, printed and recorded as
+    the ``serve_status`` step of the result directory's manifest."""
+    from .utils.runner import StepRunner
+
+    cfg = load_config()
+    runner = StepRunner(os.path.join(cfg.result_dir, "run_manifest.json"))
+    got: dict = {}
+
+    def status_step() -> None:
+        with _serve_client(args) as client:
+            got.update(client.status())
+
+    rec = runner.run("serve_status", status_step)
+    if rec.status != "ok":
+        print(f"serve --status failed: {rec.error}", file=sys.stderr)
+        return 1
+    runner.record_result(rec, got)
+    print(json.dumps(got))
+    for verb, snap in sorted((got.get("latency_by_verb") or {}).items()):
+        logging.getLogger("tse1m_tpu_torch.serve").info(
+            "serve %s: n=%d p50=%.2fms p99=%.2fms", verb,
+            int(snap.get("count", 0)), float(snap.get("p50_ms", 0.0)),
+            float(snap.get("p99_ms", 0.0)))
+    return 0
+
+
+def _cmd_serve(args) -> int:
+    """The serving daemon over one signature store, until a ``shutdown``
+    request or a signal; ``--status`` pings a running daemon instead."""
+    import signal
+    import threading
+
+    if args.status:
+        return _serve_status(args)
+    if args.root is not None or args.range is not None:
+        raise _not_ported("serve's shard mode (--root/--range)",
+                          "Multi-GPU")
+    from .observability.flight import dump_flight
+    from .serve import ServeDaemon, ServeServer, SloPolicy
+
+    store = args.sig_store or load_config().sig_store
+    if not store:
+        print("no signature store: pass --sig-store, or set "
+              "TSE1M_SIG_STORE / the INI's sig_store", file=sys.stderr)
+        return 2
+    daemon = ServeDaemon(store, params=ClusterParams(seed=args.seed),
+                         slo=SloPolicy.from_env(),
+                         state_commit_every=args.state_every,
+                         device=args.device).start()
+    server = ServeServer(daemon, host=args.host, port=args.port)
+
+    def _graceful(signum, frame):  # noqa: ARG001
+        logging.getLogger("tse1m_tpu_torch.serve").warning(
+            "serve: signal %d; shutting down", signum)
+        dump_flight("sigterm", site="serve.shutdown",
+                    extra={"signal": int(signum)})
+        # shutdown() waits for serve_forever, which runs in this thread.
+        threading.Thread(target=server.shutdown, daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    try:
+        server.serve_until_shutdown(port_file=args.port_file)
+    finally:
+        server.server_close()
+        daemon.stop()
+    return 0 if daemon._ingest_error is None else 1
+
+
+def _cmd_serve_client(args) -> int:
+    """One request to a running daemon; prints its JSON answer.
+    ``query``/``topk``/``ingest`` read a [K, S] uint32 .npy (``--npy``)."""
+    with _serve_client(args) as client:
+        if args.op in ("query", "topk", "ingest"):
+            if not args.npy:
+                raise SystemExit(f"{args.op} needs --npy <vectors.npy>")
+            vectors = np.load(args.npy)
+            if args.op == "query":
+                resp = client.query(vectors)
+            elif args.op == "topk":
+                resp = client.topk(vectors, k=args.k, mode=args.mode)
+            else:
+                resp = client.ingest(vectors)
+            resp = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                    for k, v in resp.items()}
+        elif args.op == "slowlog":
+            resp = client.slowlog(args.limit)
+        elif args.op == "profile":
+            resp = client.profile(dump=args.dump)
+        else:
+            resp = getattr(client, args.op)()
+    print(json.dumps(resp))
+    return 0 if resp.get("ok", False) else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     """The command line, its defaults from ``load_config()`` as it stands
     now (the INI, then the environment)."""
@@ -235,6 +366,55 @@ def build_parser() -> argparse.ArgumentParser:
             r.set_defaults(corpus_csv=env.corpus_csv)
         r.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
+    v = sub.add_parser("serve", help="the near-duplicate serving daemon "
+                       "over a signature store; --status pings a running "
+                       "daemon instead")
+    v.add_argument("--sig-store", default=None,
+                   help="signature store directory the daemon serves "
+                        "(default: the config's sig_store, %s)"
+                        % env.sig_store)
+    v.add_argument("--host", default="127.0.0.1")
+    v.add_argument("--port", type=int, default=0,
+                   help="TCP port (0 = pick a free one; see --port-file)")
+    v.add_argument("--port-file", default=None,
+                   help="write the bound port here (atomic), for clients "
+                        "and --status")
+    v.add_argument("--seed", type=int, default=0)
+    v.add_argument("--state-every", type=int, default=8,
+                   help="commit the LSH state every N ingest generations "
+                        "(acks are durable regardless; this bounds the "
+                        "recovery work after a crash)")
+    v.add_argument("--root", default=None,
+                   help="sharded serve root (shard mode; not ported)")
+    v.add_argument("--range", type=int, default=None,
+                   help="digest range of shard mode (not ported)")
+    v.add_argument("--status", action="store_true",
+                   help="client mode: print a running daemon's status "
+                        "and record it as the serve_status step of "
+                        "run_manifest.json")
+    v.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu for the plain versions")
+    c = sub.add_parser("serve-client", help="one request to a running "
+                       "serve daemon")
+    c.add_argument("op", choices=("ping", "status", "query", "topk",
+                                  "ingest", "metrics", "trace", "slowlog",
+                                  "profile", "quiesce", "shutdown"))
+    c.add_argument("--host", default="127.0.0.1")
+    c.add_argument("--port", type=int, default=0)
+    c.add_argument("--port-file", default=None)
+    c.add_argument("--npy", default=None,
+                   help="[K, S] uint32 .npy of coverage vectors "
+                        "(query/topk/ingest)")
+    c.add_argument("--k", type=int, default=10,
+                   help="topk: neighbours per query vector")
+    c.add_argument("--mode", default="candidates",
+                   choices=("candidates", "scan"),
+                   help="topk: band-candidate probe on the host, or the "
+                        "exact scan of every stored row on the card")
+    c.add_argument("--limit", type=int, default=None,
+                   help="slowlog: at most N most recent captures")
+    c.add_argument("--dump", action="store_true",
+                   help="profile: also write profile_NNN.json daemon-side")
     return ap
 
 
@@ -244,9 +424,13 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_cluster(args)
     if args.cmd == "synth":
         return _cmd_synth(args)
+    if args.cmd == "serve-client":
+        return _cmd_serve_client(args)
     logging.basicConfig(level=logging.INFO, datefmt="%H:%M:%S",
                         format="%(asctime)s %(levelname)-7s %(name)s: "
                                "%(message)s")
+    if args.cmd == "serve":
+        return _cmd_serve(args)
     return _cmd_rq(args)
 
 

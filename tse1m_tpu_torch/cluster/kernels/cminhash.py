@@ -29,6 +29,7 @@ import torch
 from ..minhash import (band_keys, cminhash_binmin_plain, cminhash_densify,
                        cminhash_signatures)
 from ._build import MAX_SMEM, load_extension
+from ._count import count_launch
 
 # csrc/cminhash.cu: one warp a row, kRowsPerBlock rows' bins in shared
 # memory.
@@ -74,7 +75,7 @@ def cminhash_binmin(items: torch.Tensor, a0: torch.Tensor, b0: torch.Tensor,
     rowmin = torch.empty(n, dtype=torch.int32, device=items.device)
     if n:
         load_extension().cminhash_binmin(items, a0, b0, binmin, rowmin)
-        cminhash_binmin.launches += 1
+        count_launch(cminhash_binmin)
     return binmin, rowmin
 
 

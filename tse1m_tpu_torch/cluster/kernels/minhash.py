@@ -25,6 +25,7 @@ import torch
 from ...device import U32_MASK, narrow
 from ..minhash import band_keys, minhash_signatures
 from ._build import MAX_SMEM, load_extension
+from ._count import count_launch
 
 # Carve-up of a block's shared memory (csrc/minhash.cu minhash_smem).
 _UNIT_ROWS = 8
@@ -140,7 +141,7 @@ def minhash_and_keys(items: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if n:
         load_extension().minhash_u32(items, a, b, sig, keys,
                                      _unit_counter(items.device))
-        minhash_and_keys.launches += 1
+        count_launch(minhash_and_keys)
     return sig, keys
 
 
@@ -177,7 +178,7 @@ def minhash_and_keys_packed(payload: torch.Tensor, shape: tuple, k: int,
         load_extension().minhash_packed(payload, rows, s, k, int(offset), a, b,
                                         sig, keys,
                                         _unit_counter(payload.device))
-        minhash_and_keys_packed.launches += 1
+        count_launch(minhash_and_keys_packed)
     return sig, keys
 
 

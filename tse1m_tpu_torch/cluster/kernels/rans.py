@@ -40,6 +40,7 @@ from ...device import U32_MASK, narrow, widen
 from ..entropy import _DIRECT_BITS_MAX, _M, N_STREAMS, PROB_BITS, RANS_L, \
     EntropyLane
 from ._build import load_extension
+from ._count import count_launch
 
 _MAX_PLANES = 4
 _MAX_LANES = 8  # lanes a launch (csrc/rans.cu kMaxLanes)
@@ -200,7 +201,7 @@ def rans_decode_lanes(lanes) -> list:
             [[p[2] for p in planes] for (planes, _, _), _ in group],
             [n for (_, n, _), _ in group],
             [out for _, out in group])
-        rans_decode.launches += 1
+        count_launch(rans_decode)
     return outs
 
 

@@ -55,6 +55,7 @@ import torch
 
 from ...device import resolve_device, u32_tensor
 from ._build import load_extension
+from ._count import count_launch
 
 # Top-k state width: one state tile a query.  ``k`` beyond it raises.
 K_PAD = 128
@@ -193,7 +194,7 @@ def topk_chunk(q: torch.Tensor, s_t: torch.Tensor, rowids: torch.Tensor,
     hist = torch.zeros((qp, h + 1), dtype=torch.int32, device=q.device)
     load_extension().topk_chunk(q, s_t, rowids, topc, topr, k, counts, hist,
                                 outc, outr, 3)
-    topk_chunk.launches += 1
+    count_launch(topk_chunk)
     return outc, outr
 
 

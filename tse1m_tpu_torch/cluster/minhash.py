@@ -34,6 +34,8 @@ UMAX = np.uint32(0xFFFFFFFF)
 # FNV-1a-style mixing constants for band keys.
 _FNV_PRIME = np.uint32(16777619)
 _FNV_OFFSET = np.uint32(2166136261)
+# Elements of int64 a block of ``minhash_signatures`` holds at once.
+_BLOCK_ELEMS = 1 << 22
 
 
 def make_hash_params(n_hashes: int, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
@@ -56,17 +58,21 @@ def minhash_signatures(items: torch.Tensor, a: torch.Tensor,
                        b: torch.Tensor) -> torch.Tensor:
     """[N, S] int32 ids -> [N, H] int32 signatures (uint32 bits).
 
-    sig[n, h] = min_s (a[h] * items[n, s] + b[h]) mod 2^32.  A loop over the
-    set dimension keeps the peak at O(N*H) instead of O(N*S*H)."""
+    sig[n, h] = min_s (a[h] * items[n, s] + b[h]) mod 2^32.  The set
+    dimension goes in blocks of about ``_BLOCK_ELEMS / (N*H)`` columns:
+    the peak stays O(N*H) at large N, and a small batch is a handful of
+    ops (each op drops and retakes the GIL, which a busy thread beside it
+    makes slow)."""
     x = widen(items)
-    a64 = widen(a)[None, :]
-    b64 = widen(b)[None, :]
+    a64 = widen(a)
+    b64 = widen(b)
     n, s = x.shape
-    acc = torch.full((n, a64.shape[1]), int(UMAX), dtype=torch.int64,
+    acc = torch.full((n, a64.shape[0]), int(UMAX), dtype=torch.int64,
                      device=x.device)
-    for i in range(s):
-        h = (mul_u32(x[:, i:i + 1], a64) + b64) & U32_MASK
-        acc = torch.minimum(acc, h)
+    step = max(1, _BLOCK_ELEMS // max(1, n * a64.shape[0]))
+    for lo in range(0, s, step):
+        h = (mul_u32(x[:, lo:lo + step, None], a64) + b64) & U32_MASK
+        acc = torch.minimum(acc, h.amin(1) if step > 1 else h[:, 0])
     return narrow(acc)
 
 

@@ -27,6 +27,7 @@ class StepRecord:
     wall_s: float = 0.0
     error: str | None = None      # one-line summary
     traceback: str | None = None  # full text, failures only
+    result: dict | None = None    # structured output (record_result)
 
 
 class StepRunner:
@@ -62,6 +63,13 @@ class StepRunner:
         rec.wall_s = round(time.time() - t0, 3)
         self._write()
         return rec
+
+    def record_result(self, rec: StepRecord, result: dict) -> None:
+        """Attach a step's structured output to its record (``serve
+        --status`` records the daemon's status) and rewrite the
+        manifest."""
+        rec.result = dict(result)
+        self._write()
 
     @property
     def failed(self) -> list[StepRecord]:
