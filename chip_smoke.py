@@ -113,6 +113,38 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the concurrent requests' p50/p99), p50/p99 a verb, the scan's
    wall and chunks, the launches, peak device memory, the store's bytes
    and the card;
+3d. resilience at 1M x 64 sessions, under the gitignored build/resil_smoke/
+   with TSE1M_ROUTER_CAL pointing at build/resil_smoke/cal.json for this
+   phase only (the file is removed after (r3)), each run's launch counts
+   and degradation events set to 0 just before it and read just after:
+   (r1) ``python -m tse1m_tpu_torch cluster --n 1000000 --checkpoint-dir``
+       in a child process under a fault plan that SIGKILLs its second
+       shard save (cell (c)'s plan: the full lane's shard, then the delta
+       lane's): it must die by -9 with shard 0 done and the delta shard's
+       temp file left; then ``cluster_sessions_resumable`` at the defaults
+       in this process resumes it: (c)'s labels, the MinHash kernel only
+       for the delta rows and the rANS kernel as often as in (c) (the full
+       lane re-shipped and decoded, not hashed), the directory empty
+       after;
+   (r2) ``cluster_sessions_resumable`` at (a)'s params with
+       ``pipeline._chunk_minhash`` wrapped so that, from the first whole
+       chunk until the next one, each call runs with the allocator capped
+       (``set_per_process_memory_fraction``) at what is reserved plus a
+       budget between what half a chunk's compute and a whole one's take
+       (both measured first): torch's own out-of-memory must halve the
+       chunk, the manifest keep its step and 4 chunks, the labels equal
+       (a)'s and cal.json hold the surviving step x 256 B;
+   (r3) a storeless run at (a)'s params under that cal.json: more than 4
+       launches of the MinHash kernel, one a calibrated chunk; (a)'s
+       labels;
+   (r4) (b)'s params under a plan that stalls one staged copy (3 s past a
+       1 s budget) and two compute waits (4 s past a 2 s budget): one
+       ``stall_retry`` and two ``device_retry`` events, no failover, (b)'s
+       labels, the packed kernel 4 times plus once a rerun chunk;
+   one ``resilience`` JSON line with each run's wall, launches, events and
+   stages, the child's wall and return code, the shard bytes on disk, the
+   calibrated step, peak device memory and the card; the ``kernels`` line
+   adds each kernel's launches there under ``resilience_launches``;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
@@ -180,6 +212,7 @@ from tse1m_tpu_torch.analysis import RQ_DRIVERS, run_rqs
 from tse1m_tpu_torch.analysis.corpus import g4_prepost, load_corpus_groups
 from tse1m_tpu_torch.backend import TorchBackend
 from tse1m_tpu_torch.cluster import entropy, kernels, pipeline
+from tse1m_tpu_torch.cluster.checkpoint import ClusterCheckpoint
 from tse1m_tpu_torch.cluster.encode import (pack_chunk, pack_delta_meta,
                                             quantize_ids)
 from tse1m_tpu_torch.cluster.kernels import _build
@@ -188,6 +221,7 @@ from tse1m_tpu_torch.cluster.kernels import minhash as kmod
 from tse1m_tpu_torch.cluster.kernels import rans as krans
 from tse1m_tpu_torch.cluster.kernels import score as ksc
 from tse1m_tpu_torch.cluster.minhash import mul_u32
+from tse1m_tpu_torch.cluster.observability import StageRecorder
 from tse1m_tpu_torch.cluster.schemes import (make_params,
                                              scheme_host_signatures)
 from tse1m_tpu_torch.config import Config as StudyConfig
@@ -195,6 +229,9 @@ from tse1m_tpu_torch.data.columnar import StudyArrays
 from tse1m_tpu_torch.data.synth import SynthSpec, generate_study
 from tse1m_tpu_torch.db import connect
 from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
+from tse1m_tpu_torch.observability import (degradation_counts,
+                                           pop_degradation_events)
+from tse1m_tpu_torch.resilience import FaultPlan
 from tse1m_tpu_torch.serve import ServeClient, ServeDaemon, ServeServer
 
 N_SESSIONS = 1_000_000
@@ -1594,6 +1631,276 @@ def serve_phase(warm: dict, dev) -> dict:
     return line
 
 
+RESIL_DIR = os.path.join(ROOT, "build", "resil_smoke")  # gitignored
+RESIL_CAL = os.path.join(RESIL_DIR, "cal.json")
+CHILD_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def environment(**values):
+    """os.environ with ``values`` set (None: removed), restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def resil_run(label: str, fn, dev) -> dict:
+    """One phase 3d run: the launch counts and the degradation events set
+    to 0 just before ``fn()`` and read just after, its wall, stages and
+    peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pop_degradation_events()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    labels = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    events = pop_degradation_events()
+    info = dict(pipeline.last_run_info)
+    run = {"wall_s": wall, "launches": counts,
+           "events": [(e["kind"], e["site"], e["detail"]) for e in events],
+           "event_counts": degradation_counts(events),
+           "chunk_halvings": info.get("chunk_halvings"),
+           "chunk_bits": info.get("chunk_bits"),
+           "stages": info.get("stages"),
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  {label}: wall {wall:.3f} s, launches {counts}, events "
+        f"{run['event_counts']}, peak device memory "
+        f"{run['peak_device_gib']:.2f} GiB")
+    return {"labels": labels, "run": run}
+
+
+def expect_labels(got, want, label: str) -> None:
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: labels differ")
+    log(f"  {label}: labels == the undisturbed run's, element for element")
+
+
+def killed_child(ck: str) -> dict:
+    """(r1), first half: ``cluster --checkpoint-dir`` at 1M in a child
+    process, SIGKILLed by the fault plane at its second shard save (cell
+    (c)'s plan: the full lane, then the delta lane)."""
+    plan = os.path.join(RESIL_DIR, "kill_plan.json")
+    FaultPlan.from_dict({"rules": [{
+        "site": "checkpoint.cluster.save", "kind": "kill",
+        "after_calls": 1, "times": 1}]}).save(plan)
+    env = dict(os.environ, TSE1M_FAULT_PLAN=plan,
+               TSE1M_RESULT_DIR=os.path.join(RESIL_DIR, "results"))
+    cmd = [sys.executable, "-m", "tse1m_tpu_torch", "cluster", "--n",
+           str(N_SESSIONS), "--seed", "0", "--checkpoint-dir", ck,
+           "--ari-sample", "0"]
+    t0 = time.perf_counter()
+    child = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(RESIL_DIR, "child.log"), "w") as f:
+        f.write(child.stdout + child.stderr)
+    meta = ClusterCheckpoint.peek_meta(ck) or {}
+    orphan = os.path.join(ck, "shard_00001.npz.tmp.npz")
+    log(f"  (r1) child: return code {child.returncode} after {wall:.3f} s; "
+        f"manifest chunks_done {meta.get('chunks_done')} of "
+        f"{meta.get('n_chunks')}, orphan {os.path.exists(orphan)}")
+    if not (child.returncode == -9 and meta.get("chunks_done") == [0]
+            and meta.get("n_chunks") == 2 and meta.get("encoding") == "delta"
+            and os.path.exists(orphan)):
+        raise AssertionError(f"the child was not killed at its delta shard "
+                             f"save: rc {child.returncode}, {meta}; "
+                             f"{child.stderr[-2000:]}")
+    return {"wall_s": wall, "returncode": child.returncode,
+            "shard_bytes": dir_bytes(ck)}
+
+
+def chunk_need_bytes(rows: np.ndarray, params, hp, dev) -> int:
+    """Device memory (reserved by the allocator) one chunk's compute takes
+    above what is reserved before it: a plain-wire chunk of ``rows``
+    (already quantized), staged and hashed as the stream does."""
+    wire = pack_chunk(rows)
+    arrays_d = pipeline._put(wire.wire_arrays(), dev,
+                             torch.cuda.current_stream(dev))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = pipeline._chunk_minhash(arrays_d, wire, hp, params,
+                                  StageRecorder(), dev, False)
+    torch.cuda.synchronize()
+    need = torch.cuda.max_memory_reserved(dev) - base
+    del out, arrays_d
+    torch.cuda.empty_cache()
+    return need
+
+
+class MemoryCap:
+    """Wraps ``pipeline._chunk_minhash``: from the first whole chunk's call
+    until the next whole chunk's, each call runs with the allocator capped
+    at the memory reserved when it starts plus ``budget`` bytes
+    (``torch.cuda.set_per_process_memory_fraction``, after
+    ``empty_cache``), so the whole chunk meets torch's own out-of-memory
+    and the halved sub-chunks the ladder sends run under the same cap."""
+
+    def __init__(self, real, budget: int, whole_rows: int, dev):
+        self.real, self.budget, self.whole = real, budget, whole_rows
+        self.dev = dev
+        self.total = torch.cuda.get_device_properties(dev).total_memory
+        self.state = "armed"
+        self.capped_calls, self.ooms = [], 0
+
+    def __call__(self, arrays_d, wire, *args, **kwargs):
+        rows = int(wire.shape[0])
+        if self.state == "armed" and rows == self.whole:
+            self.state = "capped"
+        elif self.state == "capped" and rows >= self.whole \
+                and self.capped_calls:
+            self.state = "done"
+        if self.state != "capped":
+            return self.real(arrays_d, wire, *args, **kwargs)
+        self.capped_calls.append(rows)
+        torch.cuda.empty_cache()
+        frac = min(1.0, (torch.cuda.memory_reserved(self.dev) + self.budget)
+                   / self.total)
+        torch.cuda.set_per_process_memory_fraction(frac, self.dev)
+        try:
+            return self.real(arrays_d, wire, *args, **kwargs)
+        except torch.cuda.OutOfMemoryError:
+            self.ooms += 1
+            raise
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, self.dev)
+
+
+def resilience_phase(items, labels: dict, default_run: dict, dev) -> dict:
+    """Phase 3d: the long run's supervision at 1M x 64 sessions, under the
+    gitignored build/resil_smoke/ and its own machine calibration
+    (TSE1M_ROUTER_CAL points at build/resil_smoke/cal.json for this phase
+    only, and the file is removed after it)."""
+    t_phase = time.perf_counter()
+    fresh_dir(RESIL_DIR)
+    os.makedirs(RESIL_DIR)
+    runs: dict = {}
+    line: dict = {}
+    with environment(TSE1M_ROUTER_CAL=RESIL_CAL, TSE1M_FAULT_PLAN=None):
+        # (r1) a real kill of a child, then the resume in this process.
+        ck = os.path.join(RESIL_DIR, "ck")
+        line["child"] = killed_child(ck)
+        c_counts = default_run["counts"]
+        want = {"minhash_and_keys": c_counts["minhash_and_keys"]
+                - len(default_run["info"]["chunk_bits"]),
+                "rans_decode": c_counts["rans_decode"]}
+        r = resil_run("(r1) resume",
+                      lambda: pipeline.cluster_sessions_resumable(
+                          items, pipeline.ClusterParams(n_hashes=N_HASHES,
+                                                        n_bands=N_BANDS),
+                          checkpoint_dir=ck, device=dev), dev)
+        runs["r1_resume"] = r["run"]
+        expect_labels(r["labels"], labels["c"], "(r1) resume vs (c)")
+        expect_launches(r["run"]["launches"], want)
+        if os.listdir(ck):
+            raise AssertionError(f"(r1): left {os.listdir(ck)} behind")
+        log(f"  (r1): launches {want} as predicted from (c)'s; the "
+            "checkpoint directory is empty")
+
+        # (r2) a real torch out-of-memory on the resumable plain wire.
+        params = params_for(0)
+        hp = make_params("kminhash", N_HASHES, 0).to(dev)
+        q = quantize_ids(items[:CHUNK_ROWS], 10)
+        half = pipeline._halved_step(CHUNK_ROWS, params)
+        whole_need = chunk_need_bytes(q, params, hp, dev)
+        half_need = chunk_need_bytes(q[:half], params, hp, dev)
+        if not half_need < whole_need:
+            raise AssertionError(f"(r2): a half chunk needs {half_need} B, "
+                                 f"a whole one {whole_need} B")
+        budget = (half_need + whole_need) // 2
+        log(f"  (r2): a whole chunk's compute reserves {whole_need} B, a "
+            f"half ({half} rows) {half_need} B; cap budget {budget} B")
+        ck2 = os.path.join(RESIL_DIR, "ck_oom")
+        cap = MemoryCap(pipeline._chunk_minhash, budget, CHUNK_ROWS, dev)
+        pipeline._chunk_minhash = cap
+        try:
+            r = resil_run("(r2) resumable under the cap",
+                          lambda: pipeline.cluster_sessions_resumable(
+                              items, params, checkpoint_dir=ck2,
+                              cleanup=False, device=dev), dev)
+        finally:
+            pipeline._chunk_minhash = cap.real
+        run2 = runs["r2_oom"] = r["run"]
+        run2.update(capped_calls=cap.capped_calls, ooms_in_compute=cap.ooms,
+                    whole_need_bytes=whole_need, half_need_bytes=half_need,
+                    budget_bytes=budget)
+        meta = ClusterCheckpoint.peek_meta(ck2) or {}
+        halvings = [e for e in run2["events"] if e[0] == "chunk_halving"]
+        with open(RESIL_CAL) as f:
+            cal_bytes = json.load(f)["wire"]["chunk_bytes"]["value"]
+        surviving = halvings[-1][2]["to_rows"] if halvings else None
+        log(f"  (r2): capped calls {cap.capped_calls}, out-of-memory in "
+            f"compute {cap.ooms}, halvings {run2['chunk_halvings']}, "
+            f"manifest step {meta.get('step')} chunks "
+            f"{meta.get('chunks_done')}, calibrated chunk {cal_bytes} B")
+        if not (run2["chunk_halvings"] >= 1 and halvings
+                and meta.get("step") == CHUNK_ROWS
+                and meta.get("chunks_done") == [0, 1, 2, 3]
+                and cal_bytes == surviving * SET_SIZE * 4):
+            raise AssertionError(f"(r2): {run2}, {meta}, {cal_bytes}")
+        expect_labels(r["labels"], labels["a"], "(r2) vs (a)")
+        expect_launches(run2["launches"], {"minhash_and_keys": (4, None)})
+        line["shard_bytes_r2"] = dir_bytes(ck2)
+        fresh_dir(ck2)
+
+        # (r3) the next run starts below the ceiling.
+        cal_step = pipeline._stream_plan(quantize_ids(items, 10), params)
+        r = resil_run(f"(r3) storeless at the calibrated step {cal_step}",
+                      lambda: pipeline.cluster_sessions(items, params,
+                                                        device=dev), dev)
+        runs["r3_calibrated"] = r["run"]
+        expect_labels(r["labels"], labels["a"], "(r3) vs (a)")
+        n_chunks = -(-N_SESSIONS // cal_step)
+        if not n_chunks > 4:
+            raise AssertionError(f"(r3): {n_chunks} chunks at {cal_step}")
+        expect_launches(r["run"]["launches"], {"minhash_and_keys": n_chunks})
+        line["calibrated_step"] = cal_step
+        os.remove(RESIL_CAL)
+
+        # (r4) stalls and device retries on the 24-bit wire.
+        stall_plan = FaultPlan.from_dict({"rules": [
+            {"site": "pipeline.h2d", "kind": "stall", "stall_s": 3.0,
+             "times": 1},
+            {"site": "pipeline.compute", "kind": "stall", "stall_s": 4.0,
+             "times": 2}]})
+        with environment(TSE1M_WATCHDOG_MIN_BUDGET_S="1",
+                         TSE1M_WATCHDOG_COMPUTE_BUDGET_S="2"), \
+                stall_plan.active():
+            r = resil_run("(r4) stalls on the 24-bit wire",
+                          lambda: pipeline.cluster_sessions(
+                              items, params_for(-1), device=dev), dev)
+        run4 = runs["r4_stalls"] = r["run"]
+        counts4 = run4["event_counts"]
+        if counts4 != {"stall_retry": 1, "device_retry": 2}:
+            raise AssertionError(f"(r4): events {counts4}")
+        expect_labels(r["labels"], labels["b"], "(r4) vs (b)")
+        expect_launches(run4["launches"], {"minhash_and_keys_packed": 4 + 2})
+    line.update(runs=runs, peak_device_gib=max(
+        run["peak_device_gib"] for run in runs.values()),
+        phase_s=time.perf_counter() - t_phase, card=card_name_and_limit())
+    print(json.dumps({"resilience": line}, default=str), flush=True)
+    total: dict = {}
+    for run in runs.values():
+        for name, n in run["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return {"line": line, "launches": total}
+
+
 def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 1) -> float:
     """Median over ``reps`` windows of the card's time a call, CUDA events
     around ``inner`` back-to-back calls a window.  Kernels are timed with
@@ -2228,6 +2535,13 @@ def main() -> int:
         for name, n in counts.items():
             serve_launches[name] = serve_launches.get(name, 0) + n
 
+    log(f"phase 3d: resilience at {N_SESSIONS} sessions x {SET_SIZE} ids: a "
+        "killed run resumed, a real out-of-memory, the calibrated step, "
+        "stalls and device retries")
+    resil = resilience_phase(items, {"a": plain10["labels"],
+                                     "b": plain24["labels"],
+                                     "c": default["labels"]}, default, dev)
+
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
         f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
         f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
@@ -2245,6 +2559,7 @@ def main() -> int:
         "max_abs_err": errs[name], **times[name],
         "warm_launches": warm["launches"].get(name, 0),
         "serve_launches": serve_launches[name],
+        "resilience_launches": resil["launches"].get(name, 0),
         "warm_shapes": {case.split(":")[1]: t for case, t in times.items()
                         if case.split(":")[0] == name
                         and case.endswith((":novel", ":scan"))},

@@ -249,8 +249,9 @@ def test_calibration_path_from_the_ini_as_jax(tmp_path, monkeypatch):
 
 def test_labels_with_calibrated_floor_match_jax(sets, tmp_path, monkeypatch):
     """With the floor present both packages quantize a small storeless run
-    to 8 bits and give equal labels.  The port runs first: it never writes
-    the file, while the JAX run clears the floor after a clean run."""
+    to 8 bits and give equal labels.  Each clears the floor after its clean
+    clamped run (the device healed), so the floor is written again before
+    the JAX run."""
     path = tmp_path / "cal.json"
     _write_calibration(path, "floor", monkeypatch)
     monkeypatch.setenv("TSE1M_ROUTER_CAL", str(path))
@@ -259,6 +260,8 @@ def test_labels_with_calibrated_floor_match_jax(sets, tmp_path, monkeypatch):
     got = tpipe.cluster_sessions(items, tpipe.ClusterParams(
         block_n=128, **PLAIN_WIRE), device="cpu")
     assert tpipe.last_run_info["wire_quant_bits"] == 8
+    assert "quant_bits" not in jcal.load_calibration(str(path))["wire"]
+    _write_calibration(path, "floor", monkeypatch)
     want = jpipe.cluster_sessions(items, jpipe.ClusterParams(
         use_pallas="interpret", block_n=128, **PLAIN_WIRE))
     assert jpipe.last_run_info["wire_quant_bits"] == 8

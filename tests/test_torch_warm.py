@@ -301,9 +301,10 @@ def test_refusals(tmp_path):
                                return_signatures=True)
     with pytest.raises(ValueError, match="storeless-only"):
         _port(items, _tparams(tmp_path / "s", prefilter="on"))
-    with pytest.raises(NotImplementedError, match='"Device-side resilience"'):
-        tpipe.cluster_sessions_resumable(items, _tparams(tmp_path / "s"),
-                                         checkpoint_dir=str(tmp_path / "c"))
+    with pytest.raises(NotImplementedError, match='"Multi-GPU"'):
+        tpipe.cluster_sessions_resumable(items, _tparams(root),
+                                         checkpoint_dir=str(tmp_path / "c"),
+                                         device="cpu")
     assert not os.path.exists(tmp_path / "s")
     np.testing.assert_array_equal(
         _port(items[:0], _tparams(tmp_path / "e")), np.empty(0, np.int32))

@@ -5,7 +5,10 @@ This package runs the single-GPU session clustering of
 (kminhash, cminhash, weighted), cold with the wire v3 levers (host
 prefilter, base-delta lane, rANS lanes) or warm through the persistent
 signature store (``SignatureStore``: accreted-tail merges and union
-runs, ``minhash_novel_rows``), and exact top-k agreement scoring, single
+runs, ``minhash_novel_rows``), or from chunk checkpoints that survive a
+kill (``cluster_sessions_resumable``), every stream under a degradation
+ladder that survives out-of-memory, stalls and device errors on the card
+(``cluster/ladder.py``), and exact top-k agreement scoring, single
 shot (``topk_agreement``) or streamed over a store (``bulk_topk_store``).
 Every TPU kernel of those paths (the two MinHash kernels, the
 one-permutation bin-min, the rANS decode and the top-k scorer) is written
@@ -30,7 +33,9 @@ which runs the kernels' plain PyTorch versions; without a card they raise.
 Ids, hash constants, signatures and band keys are int32 tensors carrying
 uint32 bits (``tse1m_tpu_torch.device``).
 
-    python -m tse1m_tpu_torch cluster --n 1000000 [--sig-store DIR]
+    python -m tse1m_tpu_torch cluster --n 1000000 [--sig-store DIR] \
+        [--checkpoint-dir DIR]
+    python -m tse1m_tpu_torch scrub DIR [--repair] [--verify-sigs]
     python -m tse1m_tpu_torch synth --db study.sqlite
     python -m tse1m_tpu_torch all --db study.sqlite --result-dir out
     python -m tse1m_tpu_torch serve --sig-store DIR --port-file F
@@ -38,7 +43,8 @@ uint32 bits (``tse1m_tpu_torch.device``).
 
 from .backend import TorchBackend
 from .cluster import (ClusterParams, SignatureStore, adjusted_rand_index,
-                      bulk_topk_store, cluster_sessions, host_cluster,
+                      bulk_topk_store, cluster_sessions,
+                      cluster_sessions_resumable, host_cluster,
                       minhash_novel_rows, row_digests, score_topk_host,
                       store_scan_locator)
 from .cluster.kernels.score import topk_agreement
@@ -48,7 +54,8 @@ from .device import as_u32_numpy, narrow, resolve_device, u32_tensor, widen
 
 __all__ = ["ClusterParams", "SignatureStore", "TorchBackend",
            "adjusted_rand_index", "as_u32_numpy", "bulk_topk_store",
-           "cluster_sessions", "expand_weighted", "host_cluster",
+           "cluster_sessions", "cluster_sessions_resumable",
+           "expand_weighted", "host_cluster",
            "minhash_novel_rows", "narrow", "resolve_device", "row_digests",
            "score_topk_host", "store_scan_locator", "synth_session_hitcounts",
            "synth_session_sets", "topk_agreement", "u32_tensor", "widen"]

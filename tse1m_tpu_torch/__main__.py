@@ -4,7 +4,10 @@
         [--wire-quant-bits N] [--prefilter {off,auto,on}] \
         [--entropy {off,auto,force}] \
         [--scheme {kminhash,cminhash,weighted}] [--sig-store DIR] \
-        [--ari-sample 10000] [--device cuda]
+        [--checkpoint-dir DIR] [--ari-sample 10000] [--device cuda]
+    python -m tse1m_tpu_torch scrub [DIR] [--repair] [--compact] \
+        [--strict] [--verify-sigs [--verify-n 2000] [--verify-seed 0] \
+        [--verify-set-size 64] [--verify-sample 256]]
     python -m tse1m_tpu_torch synth --db PATH [--projects 24] [--days 450] \
         [--seed 0]
     python -m tse1m_tpu_torch {rq1,rq2a,rq2b,rq3,rq4a,rq4b,all} --db PATH \
@@ -33,7 +36,24 @@ before clustering, as the JAX package's command line does.  With
 ``--sig-store DIR`` (default: the config's ``sig_store``, from
 TSE1M_SIG_STORE or the INI) the run goes through the persistent signature
 store, and the report adds ``sig_store`` and the ``cache_*`` keys: a
-second run over the same sessions merges (``cache_mode: "merge"``).
+second run over the same sessions merges (``cache_mode: "merge"``).  With
+``--checkpoint-dir DIR`` each chunk's signatures persist there as it
+finishes (``cluster_sessions_resumable``): the same command after a kill
+resumes at the first unfinished chunk, and a finished run empties the
+directory.  The run is the ``cluster`` step of
+``<result_dir>/run_manifest.json``, with the degradation events it
+survived; the report adds ``chunk_halvings`` and ``degradation_events``.
+The environment steers the long run's supervision: ``TSE1M_FAULT_PLAN``
+(a fault plan's JSON), ``TSE1M_ROUTER_CAL`` (the machine calibration the
+ladder writes), ``TSE1M_WATCHDOG*`` (the stage watchdog's budgets).
+
+``scrub`` walks a signature store (default: the config's ``sig_store``):
+opening it quarantines every shard that fails its CRC frame; the report
+(the ``store_scrub_*`` keys, the ``scrub`` step of ``run_manifest.json``)
+counts them.  ``--repair`` frames legacy shards, ``--compact`` folds the
+shards into one, ``--verify-sigs`` recomputes a sample of stored
+signatures on the host from the synthetic corpus, and ``--strict`` exits
+1 when anything was corrupt.  A pod-sharded root is not ported.
 
 ``synth`` writes a synthetic study into the sqlite file and its
 corpus-analysis CSV (which RQ4a and RQ4b read) at the config's
@@ -64,7 +84,8 @@ and prints the JSON answer; it exits 1 on an error answer.  Shard mode
 (``--root``/``--range``) is not ported.
 
 ``cluster``, ``serve`` and the RQ commands run on the card unless
-``--device cpu`` is given, and fail without one.
+``--device cpu`` is given, and fail without one; ``synth`` and ``scrub``
+are host work.
 """
 
 from __future__ import annotations
@@ -82,15 +103,37 @@ import torch
 
 from .cluster import (ClusterParams, adjusted_rand_index, cluster_sessions,
                       host_cluster)
-from .cluster.pipeline import _not_ported, last_run_info
+from .cluster.pipeline import (_not_ported, cluster_sessions_resumable,
+                               last_run_info)
 from .cluster.schemes import expand_weighted
 from .config import load_config
 from .data import synth_session_hitcounts, synth_session_sets
 from .device import resolve_device
+from .observability import peek_degradation_events
 
 
 def _cmd_cluster(args) -> int:
+    """``cluster``: one ``cluster`` step into the result directory's
+    ``run_manifest.json`` (its degradation events attached), the report
+    printed as one JSON line.  The device is resolved first: without a
+    card it raises before any manifest is written."""
+    from .utils.runner import StepRunner
+
     dev = resolve_device(args.device)
+    runner = StepRunner(os.path.join(load_config().result_dir,
+                                     "run_manifest.json"))
+    report: dict = {}
+    rec = runner.run("cluster", _run_cluster_step, args, dev, report)
+    if rec.status != "ok":
+        print(f"cluster failed: {rec.error}\n{rec.traceback}",
+              file=sys.stderr)
+        return 1
+    runner.record_result(rec, report)
+    print(json.dumps(report))
+    return 0
+
+
+def _run_cluster_step(args, dev, report: dict) -> None:
     items, truth = synth_session_sets(args.n, seed=args.seed)
     if args.scheme == "weighted":
         items = expand_weighted(
@@ -100,10 +143,11 @@ def _cmd_cluster(args) -> int:
                            wire_quant_bits=args.wire_quant_bits,
                            scheme=args.scheme, sig_store=args.sig_store)
     t0 = time.perf_counter()
-    labels = cluster_sessions(items, params, device=dev)
+    labels = cluster_sessions_resumable(
+        items, params, checkpoint_dir=args.checkpoint_dir, device=dev)
     wall = time.perf_counter() - t0
     info = dict(last_run_info)
-    report = {
+    report.update({
         "n_sessions": args.n,
         "scheme": args.scheme,
         "set_width": int(items.shape[1]),
@@ -118,8 +162,14 @@ def _cmd_cluster(args) -> int:
         "chunk_bits": info.get("chunk_bits"),
         "wire_mb": info.get("wire_mb"),
         "wire_v3_saved_mb": info.get("wire_v3_saved_mb"),
+        # How often the run survived by degrading; the events themselves
+        # go to the step's record in run_manifest.json.
+        "chunk_halvings": int(info.get("chunk_halvings", 0)),
+        "degradation_events": len(peek_degradation_events()),
         **info.get("stages", {}),
-    }
+    })
+    if args.checkpoint_dir:
+        report["checkpoint_dir"] = args.checkpoint_dir
     if args.sig_store:
         report["sig_store"] = args.sig_store
         report.update({k: v for k, v in info.items()
@@ -137,7 +187,59 @@ def _cmd_cluster(args) -> int:
         report["ari_vs_host_sample"] = round(
             float(adjusted_rand_index(dev_k, host_k)), 5)
         report["ari_sample_n"] = k
+
+
+def _cmd_scrub(args) -> int:
+    """``scrub``: walk a signature store's frames (opening it quarantines
+    what fails them) and report the ``store_scrub_*`` keys as the
+    ``scrub`` step of ``run_manifest.json``; ``--verify-sigs`` recomputes
+    a sample of stored signatures from the synthetic corpus on the host.
+    Exit 1 when the step failed, or under ``--strict`` when corruption was
+    found; 2 without a store directory."""
+    from .cluster.store import SignatureStore, is_sharded_root
+    from .utils.runner import StepRunner
+
+    cfg = load_config()
+    directory = args.store or cfg.sig_store
+    if not directory:
+        print("no store directory: pass one, or set TSE1M_SIG_STORE / the "
+              "INI's sig_store", file=sys.stderr)
+        return 2
+    if is_sharded_root(directory):
+        raise _not_ported("scrub of a pod-sharded signature store",
+                          "Multi-GPU")
+    runner = StepRunner(os.path.join(cfg.result_dir, "run_manifest.json"))
+    report: dict = {}
+
+    def scrub_step() -> None:
+        store = SignatureStore.open_existing(directory)
+        report.update(store.scrub(repair=args.repair, compact=args.compact))
+        if args.verify_sigs:
+            items, truth = synth_session_sets(
+                args.verify_n, set_size=args.verify_set_size,
+                seed=args.verify_seed)
+            if store.policy.get("scheme") == "weighted":
+                # A weighted store holds signatures of replica-expanded
+                # rows: verify against the same expansion.
+                items = expand_weighted(items, synth_session_hitcounts(
+                    items, truth, seed=args.verify_seed))
+            report.update(store.verify_signatures(
+                items, sample=args.verify_sample, seed=args.verify_seed))
+        report["store_scrub_dir"] = directory
+
+    rec = runner.run("scrub", scrub_step)
+    if rec.status != "ok":
+        print(f"scrub failed: {rec.error}", file=sys.stderr)
+        return 1
+    runner.record_result(rec, report)
     print(json.dumps(report))
+    corrupt = (report.get("store_scrub_corrupt", 0)
+               + report.get("store_scrub_verify_mismatch", 0))
+    if args.strict and corrupt:
+        print(f"scrub found {corrupt} corrupt or mismatching shard(s) or "
+              "row(s) (quarantined; their rows recompute on the next run)",
+              file=sys.stderr)
+        return 1
     return 0
 
 
@@ -320,8 +422,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ari-sample", type=int, default=10_000,
                    help="rows of the ARI check against the host oracle "
                         "(default %(default)s; 0 = off)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="persist each chunk's signature shard here; a "
+                        "killed run re-invoked with the same directory "
+                        "resumes at its first unfinished chunk")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
+    q = sub.add_parser("scrub", help="walk a signature store: verify its "
+                       "CRC frames, quarantine corruption, report the "
+                       "store_scrub_* keys; host only")
+    q.add_argument("store", nargs="?", default=None,
+                   help="store directory (default: the config's "
+                        "sig_store, %s)" % env.sig_store)
+    q.add_argument("--repair", action="store_true",
+                   help="frame legacy (pre-CRC) shards and sweep orphans")
+    q.add_argument("--compact", action="store_true",
+                   help="fold the append shards into one")
+    q.add_argument("--strict", action="store_true",
+                   help="exit 1 when any corruption was found")
+    q.add_argument("--verify-sigs", action="store_true",
+                   help="recompute a sample of stored signatures from raw "
+                        "rows on the host (store_scrub_verify_* keys)")
+    q.add_argument("--verify-n", type=int, default=2000,
+                   help="rows of the synthetic corpus to verify against")
+    q.add_argument("--verify-seed", type=int, default=0)
+    q.add_argument("--verify-set-size", type=int, default=64)
+    q.add_argument("--verify-sample", type=int, default=256,
+                   help="most sampled rows recomputed on the host")
     y = sub.add_parser("synth", help="write a synthetic study (sqlite) and "
                        "its corpus-analysis CSV; host only")
     y.add_argument("--db", default=env.sqlite_path,
@@ -426,6 +553,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_synth(args)
     if args.cmd == "serve-client":
         return _cmd_serve_client(args)
+    if args.cmd == "scrub":
+        return _cmd_scrub(args)
     logging.basicConfig(level=logging.INFO, datefmt="%H:%M:%S",
                         format="%(asctime)s %(levelname)-7s %(name)s: "
                                "%(message)s")

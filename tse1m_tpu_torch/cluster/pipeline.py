@@ -37,16 +37,31 @@ plain lane, and the banded LSH runs on the card over both in [hit...,
 miss...] lane order ("union").  Both give the labels of a cold run, element
 for element, and commit what the next run needs.
 
+Every streaming path (the plain lane, the encoded run's full lane, a
+store run's missed rows, ``minhash_novel_rows``) goes through the
+degradation ladder of ``cluster/ladder.py``, as the JAX package's goes
+through ``_stream_minhash_degraded``: an out-of-memory first drops the
+storeless wire one step down the b-bit ladder (10, then 8 bits), then
+halves the chunk, and the surviving width and chunk size go to the machine
+calibration (``utils/calibration.py``), where the next run starts; a stall
+of the staged copy (``pipeline.h2d``) or of the compute wait
+(``pipeline.compute``) is cancelled by the stage watchdog and retried.
+Nothing moves to the CPU: a card that keeps failing is retried a bounded
+number of times, then the error is raised, and a sticky CUDA error is
+raised at once.  ``cluster_sessions_resumable`` adds chunk checkpoints
+(``cluster/checkpoint.py``): a killed run resumes at its first unfinished
+chunk.  Storeless runs clamp to the calibrated quantization floor and
+chunk size as the JAX pipeline does; store runs never drop or clamp the
+width, since the store's policy key carries it.
+
 Levers of ``ClusterParams`` this port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP.md item by its title; the
-watchdog, the OOM ladder and the CPU failover of the JAX pipeline are not
-ported (ROADMAP.md Queue 1, "Device-side resilience").  Storeless runs
-clamp to the calibrated quantization floor as the JAX pipeline does; store
-runs never do, since the store's policy key carries the width.
+``NotImplementedError`` naming their ROADMAP.md item by its title.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
@@ -55,8 +70,15 @@ import numpy as np
 import torch
 
 from ..device import U32_MASK, as_u32_numpy, narrow, resolve_device, widen
-from ..utils.calibration import degraded_quant_floor
+from ..observability import record_degradation
+from ..resilience.faults import fault_point
+from ..resilience.watchdog import (StageWatchdog, run_with_deadline,
+                                   watchdog_enabled)
+from ..utils.calibration import (calibration_path, load_calibration,
+                                 update_calibration)
 from . import incremental as inc
+from . import ladder
+from .checkpoint import ClusterCheckpoint
 from .encode import (_AUTO_MIN_BYTES, _AUTO_MIN_DELTA_FRACTION,
                      _AUTO_QUANT_BITS, ChunkWire, chunk_wire_bits,
                      encode_delta, pack_chunk, pack_delta_meta, quantize_ids,
@@ -148,9 +170,9 @@ def _quant_bits(items: np.ndarray, params: ClusterParams) -> int:
     """Effective wire_quant_bits under the policy; 0 = off or no gain.
 
     Storeless runs with ``wire_quant_bits >= 0`` also clamp to the degraded
-    floor that an earlier run of the JAX package persisted to the machine
-    calibration (``utils/calibration.py``), so both packages ship the same
-    wire on that machine.  Store runs never clamp: the width is part of the
+    floor that an earlier run's quant drop (of either package) persisted to
+    the machine calibration (``utils/calibration.py``), so both packages
+    ship the same wire on that machine.  Store runs never clamp: the width is part of the
     store's policy key, and a drifting width would refuse the store."""
     b = params.wire_quant_bits
     if b < 0 or items.size == 0:
@@ -162,7 +184,7 @@ def _quant_bits(items: np.ndarray, params: ClusterParams) -> int:
         b = 0  # already at or below the target universe
     if params.sig_store:
         return b
-    floor = degraded_quant_floor()
+    floor = _degraded_quant_floor()
     if floor and (b == 0 or floor < b) and width > floor:
         return floor
     return b
@@ -202,16 +224,107 @@ def _plan_wire(items: np.ndarray, params: ClusterParams,
 
 
 def _stream_plan(items: np.ndarray, params: ClusterParams) -> int:
-    """Chunk step in rows.  step >= n means one shot; chunks land on
-    block_n boundaries."""
+    """Chunk step in rows, shared by the streamed and resumable paths so
+    their chunks align.  step >= n means one shot; chunks land on block_n
+    boundaries; a chunk size that survived an earlier run's out-of-memory
+    halving (the machine calibration) clamps the step."""
     n = items.shape[0]
     n_chunks = params.h2d_chunks
     if n_chunks == 0:
         n_chunks = int(min(_MAX_CHUNKS, max(1, items.nbytes // _CHUNK_BYTES)))
     if n_chunks <= 1 or n < 2 * params.block_n:
-        return max(n, 1)
-    step = -(-n // n_chunks)
-    return -(-step // params.block_n) * params.block_n
+        step = max(n, 1)
+    else:
+        step = -(-n // n_chunks)
+        step = -(-step // params.block_n) * params.block_n
+    return _apply_calibrated_step(step, items, params)
+
+
+def _apply_calibrated_step(step: int, items: np.ndarray,
+                           params: ClusterParams) -> int:
+    """Clamp the planned step to the calibrated surviving chunk size."""
+    if items.size == 0:
+        return step
+    cal_bytes = load_calibration(calibration_path())["wire"].get(
+        "chunk_bytes")
+    if not cal_bytes:
+        return step
+    row_bytes = int(items.shape[1]) * items.itemsize
+    cal_step = max(1, int(cal_bytes) // max(row_bytes, 1))
+    if cal_step >= step:
+        return step
+    if cal_step >= 2 * params.block_n:
+        cal_step = (cal_step // params.block_n) * params.block_n
+    return max(cal_step, 1)
+
+
+# -- the degradation ladder's rungs (the ladder itself: ladder.py) ----------
+
+def _halved_step(step: int, params: ClusterParams) -> int | None:
+    """The next rung down the chunk-size ladder; None when out of rungs."""
+    if step <= 16:
+        return None
+    new = -(-step // 2)
+    if new >= 2 * params.block_n:
+        new = (new // params.block_n) * params.block_n
+    return new if new < step else None
+
+
+def _persist_chunk_bytes(step: int, items: np.ndarray) -> None:
+    """Record the surviving chunk size, so the next run's _stream_plan
+    starts below the observed memory ceiling."""
+    if items.size == 0:
+        return
+    row_bytes = int(items.shape[1]) * items.itemsize
+    update_calibration(calibration_path(),
+                       wire={"chunk_bytes": int(step) * row_bytes})
+
+
+# The quant rung, tried before halving on storeless streams: one step down
+# the b-bit-minwise ladder (8-10 bits keep the clustering's accuracy).
+_QUANT_RUNGS = (10, 8)
+
+
+def _next_quant_rung(bits: int) -> int | None:
+    """One step down the quantization ladder; None when out of rungs.
+    ``bits <= 0`` (quantization off) engages the first rung."""
+    for rung in _QUANT_RUNGS:
+        if bits <= 0 or rung < bits:
+            return rung
+    return None
+
+
+def _degraded_quant_floor() -> int:
+    """The persisted degraded wire width (0 = none)."""
+    v = load_calibration(calibration_path())["wire"].get("quant_bits")
+    return int(v) if v else 0
+
+
+def _persist_quant_bits(bits: int) -> None:
+    update_calibration(calibration_path(), wire={"quant_bits": int(bits)})
+
+
+def _restore_quant_bits() -> None:
+    """The device healed: clear the degraded floor, so the next run ships
+    full-fidelity ids again."""
+    update_calibration(calibration_path(), wire={"quant_bits": None})
+
+
+def _make_watchdog() -> StageWatchdog:
+    """A run's stage watchdog, its H2D budget seeded from the calibrated
+    link rate (``wire.h2d_MBps``) when there is one."""
+    seed = {}
+    mbps = load_calibration(calibration_path())["wire"].get("h2d_MBps")
+    if mbps:
+        seed["h2d"] = float(mbps) * 1e6
+    return StageWatchdog(seed_rates=seed)
+
+
+def _compute_budget_s() -> float:
+    """Deadline of one chunk's compute wait (a hung kernel); 0 disables."""
+    if not watchdog_enabled():
+        return 0.0
+    return float(os.environ.get("TSE1M_WATCHDOG_COMPUTE_BUDGET_S", 600.0))
 
 
 def _row_chunks(rows: np.ndarray, step: int) -> list:
@@ -297,10 +410,16 @@ def _put(arrays: list, device: torch.device,
 
 def _produce_chunk(chunk: np.ndarray, rec: StageRecorder,
                    device: torch.device,
-                   copy_stream: torch.cuda.Stream | None, entropy: str):
+                   copy_stream: torch.cuda.Stream | None, entropy: str,
+                   wd: StageWatchdog | None = None):
     """Host half of one chunk: adaptive pack or rANS code (encode stage;
     the codec's seconds also under entropy) and the copy to the device
-    (h2d stage).  A coded frame's CRC is checked right before the copy."""
+    (h2d stage).  A coded frame's CRC is checked right before the copy.
+    With a watchdog the copy runs under the adaptive H2D deadline (the
+    ``pipeline.h2d`` seat): a stalled attempt is abandoned and retried.
+    Each attempt stages into a buffer of its own, so an abandoned copy
+    never shares one with its retry; the h2d wall and bytes record once a
+    chunk."""
     t0 = time.perf_counter()
     stats: dict = {}
     wire = pack_chunk(chunk, entropy=entropy, stats=stats)
@@ -312,31 +431,40 @@ def _produce_chunk(chunk: np.ndarray, rec: StageRecorder,
         # bit-packed alternative.
         rec.add("entropy", stats["entropy_s"],
                 stats.get("entropy_saved_bytes", 0))
+
+    def put():
+        fault_point("pipeline.h2d")
+        return _put(wire.wire_arrays(), device, copy_stream)
+
     t0 = time.perf_counter()
-    arrays_d = _put(wire.wire_arrays(), device, copy_stream)
+    arrays_d = (wd.guarded_call("h2d", put, nbytes=wire.nbytes,
+                                site="pipeline.h2d")
+                if wd is not None else put())
     rec.add("h2d", time.perf_counter() - t0, wire.nbytes)
     return arrays_d, wire
 
 
 def _iter_streamed(chunks: list, rec: StageRecorder, overlap: bool,
                    device: torch.device,
-                   copy_stream: torch.cuda.Stream | None, entropy: str):
+                   copy_stream: torch.cuda.Stream | None, entropy: str,
+                   wd: StageWatchdog | None = None):
     """Yield (device arrays, ChunkWire) per chunk.  With overlap on and
     more than one chunk, chunk k+1 is packed and copied on a single producer
-    thread while the caller computes on chunk k."""
+    thread while the caller computes on chunk k.  Closing the generator
+    waits for the producer, so a chunk it staged is dropped with it."""
     if not overlap or len(chunks) <= 1:
         for c in chunks:
-            yield _produce_chunk(c, rec, device, copy_stream, entropy)
+            yield _produce_chunk(c, rec, device, copy_stream, entropy, wd)
         return
     ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="tse1m-h2d")
     try:
         fut = ex.submit(_produce_chunk, chunks[0], rec, device, copy_stream,
-                        entropy)
+                        entropy, wd)
         for k in range(len(chunks)):
             cur = fut.result()
             if k + 1 < len(chunks):
                 fut = ex.submit(_produce_chunk, chunks[k + 1], rec, device,
-                                copy_stream, entropy)
+                                copy_stream, entropy, wd)
             yield cur
     finally:
         ex.shutdown(wait=True, cancel_futures=True)
@@ -360,7 +488,11 @@ def _chunk_minhash(arrays_d: tuple, wire: ChunkWire, hp,
     """One chunk's device half (compute stage): byte-width bit-packed
     chunks go to the packed kernel unless ``want_decoded`` (the encoded
     path keeps the decoded full-lane rows on the card for the delta
-    decode); the rest are decoded and go to the uint32 kernel.  Returns
+    decode); the rest are decoded and go to the uint32 kernel.  The
+    completion wait runs under the compute deadline (the
+    ``pipeline.compute`` seat): a hung kernel surfaces as a StallError the
+    ladder retries.  The wait is on an event recorded on this thread's
+    stream, so the worker thread waits for this stream's work.  Returns
     (sig, keys, decoded ids or None)."""
     with rec.stage("compute"):
         _mark_used(arrays_d, device)
@@ -372,29 +504,33 @@ def _chunk_minhash(arrays_d: tuple, wire: ChunkWire, hp,
             sig, keys = scheme_sig_and_keys_packed(
                 arrays_d[0], wire.shape, wire.bits // 8, wire.offset, hp,
                 params.n_bands)
-        _sync(device)
+        done = None
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+
+        def wait():
+            fault_point("pipeline.compute")
+            if done is not None:
+                done.synchronize()
+
+        run_with_deadline(wait, _compute_budget_s(), "pipeline.compute")
     return sig, keys, decoded
 
 
 def _minhash_streamed(rows: np.ndarray, hp, params: ClusterParams,
                       rec: StageRecorder, device: torch.device,
-                      want_decoded: bool):
+                      want_decoded: bool, lad: dict,
+                      wd: StageWatchdog | None = None,
+                      quant_ctx: dict | None = None):
     """rows -> (per-chunk (sig, keys), decoded chunks or None, per-chunk
-    wire bits), encode and H2D of the next chunk overlapping compute on
-    this one.  MinHash is row-independent, so the chunking never changes
-    the result."""
-    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    parts, decoded, wire_bits = [], [], []
-    for arrays_d, wire in _iter_streamed(
-            _row_chunks(rows, _stream_plan(rows, params)), rec,
-            params.overlap, device, copy_stream, params.entropy):
-        sig, keys, dec = _chunk_minhash(arrays_d, wire, hp, params, rec,
-                                        device, want_decoded)
-        parts.append((sig, keys))
-        if want_decoded:
-            decoded.append(dec)
-        wire_bits.append(wire.bits)
-    return parts, (decoded if want_decoded else None), wire_bits
+    wire bits) through the degradation ladder, encode and H2D of the next
+    chunk overlapping compute on this one.  MinHash is row-independent, so
+    neither the chunking nor a halving or a retry changes the result; the
+    ladder's counters go to ``lad``."""
+    return ladder._stream_minhash_degraded(
+        rows, hp, params, rec, device, want_decoded, lad, wd=wd,
+        quant_ctx=quant_ctx)
 
 
 def _cat(parts: list) -> torch.Tensor:
@@ -510,13 +646,13 @@ def _decode_delta_meta(meta, full_d: torch.Tensor, rep_d: tuple,
 
 
 def _cluster_encoded(enc, hp, params: ClusterParams, rec: StageRecorder,
-                     device: torch.device):
+                     device: torch.device, lad: dict):
     """Single-host encoded path: stream the full lane chunked and double-
     buffered (keeping the decoded rows on the card), decode the delta lane
     against it, MinHash both, cluster with original-order labels.  Returns
     (labels as numpy int32, sig, keys), sig and keys in row order."""
     parts, chunks_d, wire_bits = _minhash_streamed(
-        enc.full_rows, hp, params, rec, device, want_decoded=True)
+        enc.full_rows, hp, params, rec, device, True, lad)
     full_d = _cat(chunks_d)
     meta, mask_d, rep_d, counts_d, pos_d, val_d = _put_delta_meta(
         enc, rec, params.entropy, device)
@@ -538,23 +674,30 @@ def _cluster_encoded(enc, hp, params: ClusterParams, rec: StageRecorder,
 
 
 def _cluster_single_host(items: np.ndarray, hp, params: ClusterParams,
-                         rec: StageRecorder, device: torch.device,
+                         rec: StageRecorder, device: torch.device, lad: dict,
                          qbits_override: int | None = None):
     """The storeless single-host pipeline over (possibly prefiltered) rows:
     plan the wire, stream + MinHash + cluster; returns (labels in row order
-    as numpy int32, signatures, band keys)."""
+    as numpy int32, signatures, band keys).  The plain lane arms the quant
+    rung (storeless, and not under ``wire_quant_bits=-1``); a clean run at
+    the calibrated floor clears the floor (the device healed)."""
+    raw_items = items  # the quant rung re-quantizes from here
     t0 = time.perf_counter()
     items, enc, qbits = _plan_wire(items, params, qbits_override)
     rec.add("encode", time.perf_counter() - t0)
     last_run_info.update(wire_quant_bits=qbits)
+    clamped = (params.wire_quant_bits == 0 and qbits
+               and qbits == _degraded_quant_floor())
     if enc is not None:
         last_run_info.update(
             encoding="delta", encode_s=round(time.perf_counter() - t0, 4),
             n_full=enc.n_full, n_delta=enc.n_delta)
-        return _cluster_encoded(enc, hp, params, rec, device)
+        return _cluster_encoded(enc, hp, params, rec, device, lad)
     last_run_info.update(encoding="plain")
+    quant_ctx = ({"raw": raw_items, "bits": qbits}
+                 if params.wire_quant_bits >= 0 else None)
     parts, _, wire_bits = _minhash_streamed(items, hp, params, rec, device,
-                                            want_decoded=False)
+                                            False, lad, quant_ctx=quant_ctx)
     last_run_info["chunk_bits"] = wire_bits
     sig = _cat([p[0] for p in parts])
     keys = _cat([p[1] for p in parts])
@@ -565,14 +708,207 @@ def _cluster_single_host(items: np.ndarray, hp, params: ClusterParams,
         _sync(device)
     with rec.stage("d2h", nbytes=labels.numel() * 4):
         out = labels.cpu().numpy()
+    if clamped and not lad.get("quant_drops") \
+            and not lad.get("chunk_halvings"):
+        record_degradation("quant_restore", site="pipeline.stream",
+                           detail={"from_bits": int(qbits)})
+        _restore_quant_bits()
     return out, sig, keys
 
 
+def _to_device_u32(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host uint32 (a loaded shard) -> an int32 tensor of its bits."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
+
+
+def _load_done_shards(ckpt: ClusterCheckpoint, rows: np.ndarray, step: int,
+                      rec: StageRecorder, device: torch.device, parts: dict):
+    """Shards already on disk go up into ``parts``; returns the pending
+    (index, rows) chunks.  A torn shard reads as not done and recomputes."""
+    pending = []
+    for idx, i in enumerate(range(0, rows.shape[0], step)):
+        shard = (ckpt.load_chunk_or_none(idx)
+                 if ckpt.chunk_done(idx) else None)
+        if shard is not None:
+            with rec.stage("h2d", nbytes=shard[0].nbytes + shard[1].nbytes):
+                parts[idx] = (_to_device_u32(shard[0], device),
+                              _to_device_u32(shard[1], device))
+            continue
+        pending.append((idx, rows[i:i + step]))
+    return pending
+
+
 def cluster_sessions_resumable(items, params: ClusterParams | None = None,
-                               checkpoint_dir: str | None = None):
-    """The JAX package's chunk-checkpointed entry point; refused."""
-    raise _not_ported("cluster_sessions_resumable (chunk checkpoints)",
-                      "Device-side resilience")
+                               checkpoint_dir: str | None = None,
+                               cleanup: bool = True, *,
+                               device: str | torch.device = "cuda"):
+    """``cluster_sessions`` with per-chunk checkpoints and resume.
+
+    Each streamed chunk's (signatures, band keys) shard persists under
+    ``checkpoint_dir`` as it completes (``cluster/checkpoint.py``); a
+    killed run re-invoked with the same directory recomputes only the
+    unfinished chunks, then runs the LSH tail.  Pending chunks stream
+    through the ladder; an out-of-memory halves only inside a chunk, whose
+    sub-chunks concatenate into the same shard, so the manifest's step and
+    chunk count never change mid-run.  The encoded layout holds a shard a
+    full-lane chunk and one for the delta lane; a resume that finds the
+    full lane done re-ships and decodes it, without hashing, for the delta
+    decode.  Under the auto width a resume adopts the width the shards
+    hold.  With a store, a run the store can merge goes through it; any
+    other runs checkpointed, then populates the store.  ``cleanup``
+    removes the shards after a successful run.  With no directory this is
+    ``cluster_sessions``.  Runs on ``device``, the card unless the caller
+    asks for ``"cpu"``; raises without a card."""
+    params = params or ClusterParams()
+    dev = resolve_device(device)
+    _validate_encoding(params)
+    if checkpoint_dir is None:
+        return cluster_sessions(items, params, device=dev)
+    items = np.ascontiguousarray(items, dtype=np.uint32)
+    n = items.shape[0]
+    if n == 0:
+        return np.empty(0, np.int32)
+    if params.wire_quant_bits == 0 and params.sig_store is None:
+        # The shards hold signatures of the width the previous attempt
+        # used; an auto re-plan that resolved otherwise would refuse.
+        prior_meta = ClusterCheckpoint.peek_meta(checkpoint_dir)
+        if prior_meta is not None:
+            prior_bits = int(prior_meta.get("wire_quant_bits", 0) or 0)
+            params = replace(params,
+                             wire_quant_bits=prior_bits if prior_bits
+                             else -1)
+    digests = None
+    if params.sig_store:
+        out = _cluster_with_store(items, params, dev, merge_only=True)
+        if out is not None:
+            return out
+        digests = row_digests(items)  # of the raw ids
+    hp = make_params(params.scheme, params.n_hashes, params.seed).to(dev)
+    rec = StageRecorder()
+    t_all = time.perf_counter()
+    last_run_info.clear()
+    lad: dict = {}
+    full_items = items
+    qbits_full = _quant_bits(items, params)
+    keep = None
+    if digests is None:
+        keep = _prefilter_keep(items, params, rec)
+    if keep is not None:
+        items = items[keep]
+        n = items.shape[0]
+    t0 = time.perf_counter()
+    items, enc, qbits = _plan_wire(items, params, qbits_full)
+    rec.add("encode", time.perf_counter() - t0)
+    last_run_info.update(wire_quant_bits=qbits)
+    extra: dict = {}
+    if enc is None:
+        last_run_info.update(encoding="plain")
+        step = _stream_plan(items, params)
+        if qbits:
+            extra["wire_quant_bits"] = qbits
+        if keep is not None:
+            extra["prefilter_kept"] = int(n)
+        ckpt = ClusterCheckpoint(checkpoint_dir, items, params, step,
+                                 extra=extra or None)
+        parts: dict = {}
+        pending = _load_done_shards(ckpt, items, step, rec, dev, parts)
+        ladder._checkpointed_chunks(pending, hp, params, rec, dev, ckpt,
+                                    parts, lad)
+        with rec.stage("compute"):
+            sig = _cat([parts[i][0] for i in sorted(parts)])
+            keys = _cat([parts[i][1] for i in sorted(parts)])
+            del parts
+            labels = _cluster_from_sig(sig, keys, params.threshold,
+                                       params.n_iters)
+            _sync(dev)
+        with rec.stage("d2h", nbytes=labels.numel() * 4):
+            out = labels.cpu().numpy()
+    else:
+        # The lane split decides what each shard holds, so it is part of
+        # the manifest: a resume whose encoder drew other lanes refuses.
+        last_run_info.update(encoding="delta", n_full=enc.n_full,
+                             n_delta=enc.n_delta)
+        full = enc.full_rows
+        step = _stream_plan(full, params)
+        n_full_chunks = max(1, -(-full.shape[0] // step))
+        extra = {"encoding": "delta", "lane_fingerprint": hashlib.blake2b(
+            enc.mask_bits.tobytes() + enc.counts.tobytes(),
+            digest_size=16).hexdigest()}
+        if qbits:
+            extra["wire_quant_bits"] = qbits
+        if keep is not None:
+            extra["prefilter_kept"] = int(n)
+        ckpt = ClusterCheckpoint(checkpoint_dir, items, params, step,
+                                 extra=extra, n_chunks=n_full_chunks + 1)
+        parts = {}
+        chunks_d: list = [None] * n_full_chunks
+        pending = _load_done_shards(ckpt, full, step, rec, dev, parts)
+        ladder._checkpointed_chunks(pending, hp, params, rec, dev, ckpt,
+                                    parts, lad, want_decoded=True,
+                                    chunks_d=chunks_d)
+        dpart = _resume_delta_shard(ckpt, n_full_chunks, enc, full, step,
+                                    chunks_d, hp, params, rec, dev)
+        del chunks_d
+        with rec.stage("compute"):
+            sig = torch.cat([parts[i][0] for i in sorted(parts)]
+                            + [dpart[0]])
+            keys = torch.cat([parts[i][1] for i in sorted(parts)]
+                             + [dpart[1]])
+            del parts, dpart
+            mask_d = torch.from_numpy(enc.mask_bits).to(dev)
+            labels, _ = _cluster_encoded_labels(
+                sig, keys, mask_d, n, params.threshold, params.n_iters)
+            _sync(dev)
+        with rec.stage("d2h", nbytes=labels.numel() * 4):
+            out = labels.cpu().numpy()
+    if digests is not None:
+        _store_populate_from_run(params, qbits, digests, sig, keys, out, enc,
+                                 rec)
+    if cleanup:
+        ckpt.cleanup()
+    if keep is not None:
+        out = _scatter_prefiltered(full_items.shape[0], keep, out)
+    _record_wire(rec)
+    _record_wire_v3(full_items, qbits_full, keep, rec)
+    _finish_run(rec, t_all, lad)
+    return out
+
+
+def _resume_delta_shard(ckpt: ClusterCheckpoint, didx: int, enc,
+                        full: np.ndarray, step: int, chunks_d: list, hp,
+                        params: ClusterParams, rec: StageRecorder,
+                        device: torch.device) -> tuple:
+    """The delta lane's (sig, keys): from its shard when it is done, else
+    decoded against the full lane and hashed, then saved.  Full-lane
+    chunks whose shards were loaded from disk never shipped their rows
+    this run: they are shipped and decoded now, not hashed."""
+    dshard = ckpt.load_chunk_or_none(didx) if ckpt.chunk_done(didx) else None
+    if dshard is not None:
+        with rec.stage("h2d", nbytes=dshard[0].nbytes + dshard[1].nbytes):
+            return (_to_device_u32(dshard[0], device),
+                    _to_device_u32(dshard[1], device))
+    copy_stream = (torch.cuda.current_stream(device)
+                   if device.type == "cuda" else None)
+    for idx, i in enumerate(range(0, full.shape[0], step)):
+        if chunks_d[idx] is None:
+            arrays_d, wire = _produce_chunk(full[i:i + step], rec, device,
+                                            copy_stream, params.entropy)
+            with rec.stage("compute"):
+                chunks_d[idx] = _decode_wire(arrays_d, wire)
+    full_d = _cat(chunks_d)
+    meta, _, rep_d, counts_d, pos_d, val_d = _put_delta_meta(
+        enc, rec, params.entropy, device)
+    with rec.stage("compute"):
+        delta_items = _decode_delta_meta(meta, full_d, rep_d, counts_d,
+                                         pos_d, val_d)
+        del full_d
+        dsig, dkeys = scheme_sig_and_keys(delta_items, hp, params.n_bands)
+        del delta_items
+    with rec.stage("d2h", nbytes=(dsig.numel() + dkeys.numel()) * 4):
+        dsig_h, dkeys_h = as_u32_numpy(dsig), as_u32_numpy(dkeys)
+    ckpt.save_chunk(didx, dsig_h, dkeys_h)
+    return dsig, dkeys
 
 
 def _prefilter_mask(items: np.ndarray,
@@ -644,6 +980,15 @@ def _record_wire_v3(items: np.ndarray, qbits: int, keep: np.ndarray | None,
         wire_v3_saved_mb=round((ent_saved + pf_saved) / 2**20, 3))
 
 
+def _finish_run(rec: StageRecorder, t0: float, lad: dict) -> None:
+    """The run's ladder counters (``chunk_halvings`` present, 0 on a run
+    that never degraded, as JAX's), total wall and stage walls."""
+    last_run_info.update(lad)
+    last_run_info.setdefault("chunk_halvings", 0)
+    rec.set_total(time.perf_counter() - t0)
+    last_run_info["stages"] = rec.as_dict()
+
+
 def cluster_sessions(items, params: ClusterParams | None = None,
                      mesh=None, *, device: str | torch.device = "cuda",
                      return_signatures: bool = False):
@@ -673,20 +1018,20 @@ def cluster_sessions(items, params: ClusterParams | None = None,
     rec = StageRecorder()
     t_all = time.perf_counter()
     last_run_info.clear()
+    lad: dict = {}
     # The prefilter reads the raw ids; the quantization is decided over
     # the full row set, so the kept rows ship in the universe the
     # unfiltered run would use.
     qbits_full = _quant_bits(items, params)
     keep = _prefilter_keep(items, params, rec)
     work = items if keep is None else items[keep]
-    out, sig, keys = _cluster_single_host(work, hp, params, rec, dev,
+    out, sig, keys = _cluster_single_host(work, hp, params, rec, dev, lad,
                                           qbits_full)
     if keep is not None:
         out = _scatter_prefiltered(items.shape[0], keep, out)
     _record_wire(rec)
     _record_wire_v3(items, qbits_full, keep, rec)
-    rec.set_total(time.perf_counter() - t_all)
-    last_run_info["stages"] = rec.as_dict()
+    _finish_run(rec, t_all, lad)
     return (out, sig, keys) if return_signatures else out
 
 
@@ -702,26 +1047,33 @@ def _store_policy(params: ClusterParams, qbits: int) -> dict:
 
 
 def _streamed_sig(rows: np.ndarray, params: ClusterParams,
-                  rec: StageRecorder, device: torch.device):
+                  rec: StageRecorder, device: torch.device, lad: dict,
+                  wd: StageWatchdog | None = None):
     """rows (already in the policy's universe) -> (per-chunk (sig, keys),
-    per-chunk wire bits) through the plain lane's stream."""
+    per-chunk wire bits) through the plain lane's stream, under the
+    ladder without its quant rung: a store's policy pins the width."""
     hp = make_params(params.scheme, params.n_hashes, params.seed).to(device)
     parts, _, wire_bits = _minhash_streamed(rows, hp, params, rec, device,
-                                            want_decoded=False)
+                                            False, lad, wd=wd)
     return parts, wire_bits
 
 
 def minhash_novel_rows(rows: np.ndarray, params: ClusterParams, qbits: int,
-                       rec: StageRecorder | None = None, *,
+                       rec: StageRecorder | None = None,
+                       wd: StageWatchdog | None = None, *,
                        device: str | torch.device = "cuda",
                        pad_pow2: bool = True) -> np.ndarray:
     """Host [K, S] raw rows -> host [K, H] uint32 signatures: the rows
     quantized to the store policy's universe, streamed through the plain
-    lane to the scheme's kernel on ``device``, fetched back.  ``pad_pow2``
-    pads K to the next power of two with copies of row 0 (MinHash is
-    row-independent; the pad is sliced off), so a long-lived caller
-    launches O(log K) row counts, as the JAX package's compiles O(log K)
-    shapes."""
+    lane under the degradation ladder (halving and retries; no quant rung,
+    the store pins the width) to the scheme's kernel on ``device``, fetched
+    back.  The ladder's events are recorded; ``last_run_info`` is not
+    touched, so a daemon's ingest thread can call this beside a batch run.
+    ``wd``: the caller's stage watchdog (a daemon keeps one, so its link
+    rate carries across batches).  ``pad_pow2`` pads K to the next power of
+    two with copies of row 0 (MinHash is row-independent; the pad is sliced
+    off), so a long-lived caller launches O(log K) row counts, as the JAX
+    package's compiles O(log K) shapes."""
     rec = rec or StageRecorder()
     dev = resolve_device(device)
     k = int(rows.shape[0])
@@ -733,7 +1085,7 @@ def minhash_novel_rows(rows: np.ndarray, params: ClusterParams, qbits: int,
         if padded > k:
             sub = np.concatenate(
                 [sub, np.broadcast_to(sub[:1], (padded - k, sub.shape[1]))])
-    parts, _ = _streamed_sig(sub, params, rec, dev)
+    parts, _ = _streamed_sig(sub, params, rec, dev, {}, wd=wd)
     sig_d = _cat([p[0] for p in parts])
     with rec.stage("d2h", nbytes=sig_d.numel() * 4):
         sig = as_u32_numpy(sig_d)
@@ -741,13 +1093,17 @@ def minhash_novel_rows(rows: np.ndarray, params: ClusterParams, qbits: int,
 
 
 def _cluster_with_store(items: np.ndarray, params: ClusterParams,
-                        device: torch.device) -> np.ndarray:
-    """Store-enabled clustering; returns [N] int32 labels."""
+                        device: torch.device, merge_only: bool = False):
+    """Store-enabled clustering; returns [N] int32 labels.  With
+    ``merge_only`` (the resumable caller) a run the store cannot merge
+    returns None instead of running the union, so the caller runs its
+    checkpointed cold pipeline and populates the store after it."""
     if is_sharded_root(params.sig_store):
         raise _not_ported("a pod-sharded signature store", "Multi-GPU")
     rec = StageRecorder()
     t_all = time.perf_counter()
     last_run_info.clear()
+    lad: dict = {}
     n = items.shape[0]
     if n == 0:
         return np.empty(0, np.int32)
@@ -767,21 +1123,22 @@ def _cluster_with_store(items: np.ndarray, params: ClusterParams,
                 and state.matches_prefix(digests))
     if merge_ok:
         labels = _store_warm_merge(items, digests, hit, shard, row, state,
-                                   store, params, qbits, rec, device)
+                                   store, params, qbits, rec, device, lad)
         last_run_info["cache_mode"] = "merge"
+    elif merge_only:
+        return None
     else:
         labels = _store_union(items, digests, hit, shard, row, store,
-                              params, qbits, rec, device)
+                              params, qbits, rec, device, lad)
         last_run_info["cache_mode"] = "union"
     _record_wire(rec)
-    rec.set_total(time.perf_counter() - t_all)
-    last_run_info["stages"] = rec.as_dict()
+    _finish_run(rec, t_all, lad)
     return labels
 
 
 def _store_warm_merge(items, digests, hit, shard, row, state, store,
                       params: ClusterParams, qbits: int, rec: StageRecorder,
-                      device: torch.device) -> np.ndarray:
+                      device: torch.device, lad: dict) -> np.ndarray:
     """The accreted-tail run: the card MinHashes only the tail's missed
     rows; stored signatures serve the rest; band keys are folded and
     labels merged on the host (``LiveClusterIndex.absorb``)."""
@@ -803,7 +1160,7 @@ def _store_warm_merge(items, digests, hit, shard, row, state, store,
         sub = items[n_old:][miss]
         if qbits:
             sub = quantize_ids(sub, qbits)
-        parts, wire_bits = _streamed_sig(sub, params, rec, device)
+        parts, wire_bits = _streamed_sig(sub, params, rec, device, lad)
         last_run_info["chunk_bits"] = wire_bits
         sig_d = _cat([p[0] for p in parts])
         with rec.stage("d2h", nbytes=sig_d.numel() * 4):
@@ -836,7 +1193,7 @@ def _store_warm_merge(items, digests, hit, shard, row, state, store,
 
 def _store_union(items, digests, hit, shard, row, store,
                  params: ClusterParams, qbits: int, rec: StageRecorder,
-                 device: torch.device) -> np.ndarray:
+                 device: torch.device, lad: dict) -> np.ndarray:
     """The full store run: cached signatures go up in one copy (their band
     keys folded on the card), missed rows stream through the plain lane,
     and the LSH tail runs over both in [hit..., miss...] lane order; the
@@ -861,7 +1218,7 @@ def _store_union(items, digests, hit, shard, row, store,
         sub = items[miss_idx]
         if qbits:
             sub = quantize_ids(sub, qbits)
-        parts, wire_bits = _streamed_sig(sub, params, rec, device)
+        parts, wire_bits = _streamed_sig(sub, params, rec, device, lad)
         last_run_info["chunk_bits"] = wire_bits
         sig_parts += [p[0] for p in parts]
         key_parts += [p[1] for p in parts]
@@ -899,3 +1256,34 @@ def _store_commit(store, digests, miss_mask, sig_orig, keys_orig, labels,
         tables = inc.build_band_tables(keys_orig)
     store.save_state(labels, locator, tables, digests, params.n_bands,
                      params.threshold)
+
+
+def _store_populate_from_run(params: ClusterParams, qbits: int, digests,
+                             sig_d: torch.Tensor, keys_d: torch.Tensor,
+                             labels: np.ndarray, enc,
+                             rec: StageRecorder) -> None:
+    """Populate the store from a completed resumable run: fetch the
+    signatures and keys, undo the encoder's lane order, append the misses
+    and commit the state."""
+    store = SignatureStore(params.sig_store, _store_policy(params, qbits))
+    with rec.stage("probe"):
+        hit, _, _ = store.bulk_probe(digests)
+    with rec.stage("d2h", nbytes=(sig_d.numel() + keys_d.numel()) * 4):
+        sig_lane = as_u32_numpy(sig_d)
+        keys_lane = as_u32_numpy(keys_d)
+    if enc is not None:
+        is_delta = np.unpackbits(
+            enc.mask_bits, bitorder="little")[:digests.shape[0]].astype(bool)
+        orig_of = np.concatenate(
+            [np.flatnonzero(~is_delta), np.flatnonzero(is_delta)])
+        sig_orig = np.empty_like(sig_lane)
+        sig_orig[orig_of] = sig_lane
+        keys_orig = np.empty_like(keys_lane)
+        keys_orig[orig_of] = keys_lane
+    else:
+        sig_orig, keys_orig = sig_lane, keys_lane
+    _store_commit(store, digests, ~hit, sig_orig, keys_orig, labels, params,
+                  rec)
+    last_run_info.update(cache_hit_rate=round(float(hit.mean()), 4),
+                         cache_mode="populate",
+                         cache_novel_rows=int((~hit).sum()))

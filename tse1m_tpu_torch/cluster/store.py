@@ -33,15 +33,20 @@ per-shard delta index until ``TSE1M_SIG_STORE_DELTA_SHARDS`` of them pile
 up.  Digests are uint64 arithmetic and stay in numpy: torch has no
 uint64 multiply.
 
-The JAX package's fault-injection, trace and span hooks (``fault_point``,
-``trace_point``, ``shared_access``, ``span``) belong to its chaos and
-trace planes, which are not ported, and are left out.  The shard and state
-writes keep their retries (``utils/retry.py``).  A quarantine is logged
-and kept in ``quarantined_at_open``, where the JAX package also fires a
-degradation event.  Left out: ``scrub`` and ``verify_signatures`` (a
-``scrub`` command), and the pod-sharded store (``ShardedSignatureStore``,
-ROADMAP.md Queue 1, "Multi-GPU"); ``is_sharded_root`` tells such a root
-apart.
+The shard, compaction and state writes retry transient ``OSError``
+(``utils/retry.py``) under the fault plane's ``store.sig.save``,
+``store.compact.save`` and ``store.state.save`` seats.  A quarantined
+shard or state and an evicted shard each record a degradation event
+(``shard_quarantine``, ``state_quarantine``, ``shard_evicted``), as in the
+JAX package; a shard quarantined while opening is also kept in
+``quarantined_at_open``.  ``scrub`` walks the frames and reports the
+``store_scrub_*`` keys; ``verify_signatures`` recomputes a seeded sample
+of stored signatures from raw rows on the host, which catches corruption
+that happened before a frame was written.  The JAX package's trace and
+span hooks (``trace_point``, ``shared_access``, ``span``) belong to its
+trace plane, which is not ported; nor is the pod-sharded store
+(``ShardedSignatureStore``, ROADMAP.md Queue 1, "Multi-GPU"):
+``is_sharded_root`` tells such a root apart.
 """
 
 from __future__ import annotations
@@ -54,6 +59,8 @@ import os
 
 import numpy as np
 
+from ..observability import record_degradation
+from ..resilience.faults import fault_point
 from ..utils.atomic import atomic_write
 from ..utils.retry import io_retry_policy, retry_call
 
@@ -466,11 +473,11 @@ class SignatureStore:
         self._quarantine_file(self._key_path(sid))
         self._mmaps.pop(sid, None)
         self._key_mmaps.pop(sid, None)
-        # The JAX package also fires a "shard_quarantine" degradation event
-        # with this detail; here the log line above and this list carry it.
-        self.quarantined_at_open.append(
-            {"shard": sid, "rows": int(entry["rows"]),
-             "reason": reason[:200]})
+        event = record_degradation(
+            "shard_quarantine", site="store",
+            detail={"shard": sid, "rows": int(entry["rows"]),
+                    "reason": reason[:200]})
+        self.quarantined_at_open.append(event["detail"])
 
     def _validate_shards(self) -> None:
         good = []
@@ -884,6 +891,7 @@ class SignatureStore:
             # the commit publishes, and a torn write re-frames.
             crcs["sig"] = file_crc(sig_tmp)
             crcs["key"] = file_crc(key_tmp)
+            fault_point("store.sig.save", path=sig_tmp)
             os.replace(sig_tmp, sig_path)
             os.replace(key_tmp, key_path)
 
@@ -926,6 +934,9 @@ class SignatureStore:
             log.info("store eviction (LRU): dropped shard %d (%d rows, "
                      "probe_gen %d)", victim["id"], victim["rows"],
                      victim.get("probe_gen", 0))
+            record_degradation("shard_evicted", site="store",
+                               detail={"shard": int(victim["id"]),
+                                       "rows": int(victim["rows"])})
             for p in (self._sig_path(int(victim["id"])),
                       self._key_path(int(victim["id"]))):
                 with _suppress_oserror():
@@ -965,6 +976,7 @@ class SignatureStore:
             np.save(key_tmp, keys)
             crcs["sig"] = file_crc(sig_tmp)
             crcs["key"] = file_crc(key_tmp)
+            fault_point("store.compact.save", path=sig_tmp)
             os.replace(sig_tmp, sig_path)
             os.replace(key_tmp, key_path)
 
@@ -1029,6 +1041,7 @@ class SignatureStore:
 
         def write_state() -> None:
             np.savez(tmp, **payload)
+            fault_point("store.state.save", path=tmp)
             os.replace(tmp, new_path)
 
         retry_call(write_state, policy=io_retry_policy(),
@@ -1040,6 +1053,116 @@ class SignatureStore:
         if old != new_path:
             with _suppress_oserror():
                 os.remove(old)
+
+    # -- scrub --------------------------------------------------------------
+
+    def scrub(self, repair: bool = False, compact: bool = False) -> dict:
+        """Walk the store and report frame health (the ``store_scrub_*``
+        keys).  ``repair`` frames legacy (pre-CRC) shards and sweeps
+        orphans; ``compact`` also folds the shards.  Corruption found here
+        or at open is quarantined; scrub makes it visible and countable."""
+        corrupt = list(self.quarantined_at_open)
+        missing_crc = 0
+        for entry in list(self.shards):
+            ok, reason = self._shard_ok(entry)
+            if not ok:
+                self._quarantine_shard(entry, reason)
+                self.shards.remove(entry)
+                corrupt.append({"shard": int(entry["id"]),
+                                "reason": reason})
+                self._write_manifest()
+                continue
+            if entry.get("sig_crc") is None or entry.get("key_crc") is None:
+                missing_crc += 1
+                if repair:
+                    sid = int(entry["id"])
+                    entry["sig_crc"] = file_crc(self._sig_path(sid))
+                    entry["key_crc"] = file_crc(self._key_path(sid))
+                    self._write_manifest()
+                    missing_crc -= 1
+        state_ok = self._state_frame_ok()
+        compacted = self.compact() if compact else 0
+        if repair or compacted:
+            self._sweep_orphans()
+            self._build_index()
+        qdir = os.path.join(self.directory, _QUARANTINE_DIR)
+        quarantined = (len(os.listdir(qdir)) if os.path.isdir(qdir) else 0)
+        return {
+            "store_scrub_shards": len(self.shards),
+            "store_scrub_rows": self.n_rows,
+            "store_scrub_mb": round(self.sig_bytes / 2**20, 3),
+            "store_scrub_corrupt": len(corrupt),
+            "store_scrub_quarantined": quarantined,
+            "store_scrub_missing_crc": missing_crc,
+            "store_scrub_state_ok": bool(state_ok),
+            "store_scrub_compacted": compacted,
+            "store_scrub_repaired": bool(repair),
+        }
+
+    def verify_signatures(self, items: np.ndarray, sample: int = 256,
+                          seed: int = 0) -> dict:
+        """Recompute a seeded sample of the stored signatures of ``items``
+        on the host (``scheme_host_signatures`` under the store's own
+        policy, the rows quantized to its width) and compare.  The CRC
+        frame only proves the bytes did not change since framing; this
+        catches what was wrong before.  A shard holding a mismatching row
+        is quarantined, so its rows recompute.  Returns the
+        ``store_scrub_verify_*`` keys."""
+        from .encode import quantize_ids
+        from .schemes import make_params, scheme_host_signatures
+
+        items = np.ascontiguousarray(items, dtype=np.uint32)
+        digests = row_digests(items)
+        hit, shard, row = self.bulk_probe(digests)
+        idx = np.flatnonzero(hit)
+        if idx.size > sample > 0:
+            rng = np.random.default_rng(seed)
+            idx = np.sort(rng.choice(idx, size=sample, replace=False))
+        report = {"store_scrub_verify_sampled": int(idx.size),
+                  "store_scrub_verify_mismatch": 0,
+                  "store_scrub_verify_quarantined": 0,
+                  "store_scrub_verify_ok": True}
+        if idx.size == 0:
+            return report
+        stored = self.load_signatures(shard[idx], row[idx])
+        rows = items[idx]
+        qb = self.policy["quant_bits"]
+        if qb:
+            rows = quantize_ids(rows, qb)
+        hp = make_params(self.policy["scheme"], self.policy["n_hashes"],
+                         self.policy["seed"])
+        want = scheme_host_signatures(rows, hp)
+        bad = ~np.all(stored == want, axis=1)
+        if not bad.any():
+            return report
+        bad_sids = {int(s) for s in np.unique(shard[idx][bad])}
+        for entry in list(self.shards):
+            if int(entry["id"]) in bad_sids:
+                self._quarantine_shard(
+                    entry, "sampled signature recompute mismatch "
+                           "(pre-framing corruption)")
+                self.shards.remove(entry)
+        self._write_manifest()
+        self._build_index()
+        report.update(store_scrub_verify_mismatch=int(bad.sum()),
+                      store_scrub_verify_quarantined=len(bad_sids),
+                      store_scrub_verify_ok=False)
+        return report
+
+    def _state_frame_ok(self) -> bool:
+        meta = self._load_json(self._state_path)
+        if meta is None:
+            return True  # no state is a valid (cold) store
+        path = os.path.join(self.directory, str(meta.get("file")))
+        if not os.path.exists(path):
+            return False
+        want = meta.get("crc")
+        if want is None:
+            return True  # legacy unframed state
+        try:
+            return int(file_crc(path)) == int(want)
+        except OSError:
+            return False
 
     # -- LSH run state ------------------------------------------------------
 
@@ -1071,6 +1194,7 @@ class SignatureStore:
 
         def write_state() -> None:
             np.savez(tmp, **payload)
+            fault_point("store.state.save", path=tmp)
             os.replace(tmp, path)
 
         retry_call(write_state, policy=io_retry_policy(),
@@ -1121,6 +1245,8 @@ class SignatureStore:
                 self._quarantine_file(path)
                 with _suppress_oserror():
                     os.remove(self._state_path)
+                record_degradation("state_quarantine", site="store",
+                                   detail={"file": os.path.basename(path)})
                 return None
         try:
             with np.load(path) as z:

@@ -8,10 +8,12 @@ recorder (``flight``) and the profiler and slow-request log
 regression modules are not ported.
 
 Degradation events: every time the system survives a failure by
-degrading (admission refusing a batch, an SLO violation, a replayed
-ingest, an evicted hub signature), one event lands here, and in the
-``degradations_total{kind=...}`` counter.  ``seq`` orders them within a
-process.
+degrading (a halved chunk, a quant drop, a stall or device retry, a
+quarantined store shard, admission refusing a batch, an SLO violation, a
+replayed ingest, an evicted hub signature), one event lands here, and in
+the ``degradations_total{kind=...}`` counter.  ``seq`` orders them within
+a process.  The step runner (``utils/runner.py``) pops each step's events
+into ``run_manifest.json``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,14 @@ def peek_degradation_events() -> list:
         return [dict(e) for e in _degradations]
 
 
+def pop_degradation_events() -> list:
+    """Take (and clear) the accumulated degradation events."""
+    with _degradation_lock:
+        out = list(_degradations)
+        _degradations.clear()
+    return out
+
+
 def degradation_counts(events: list) -> dict:
     """kind -> count summary."""
     by: dict[str, int] = {}
@@ -65,6 +75,7 @@ __all__ = ["LatencyRecorder", "MetricsRegistry", "adopt_trace",
            "degradation_counts", "dump_flight", "flat_metrics", "gauge",
            "get_flight_dir", "get_registry", "histogram",
            "metrics_snapshot", "peek_degradation_events", "pinned_trace",
+           "pop_degradation_events",
            "prometheus_text", "recent_spans", "record_degradation",
            "reset_metrics", "set_flight_dir", "set_tracing", "span",
            "spans_recorded"]

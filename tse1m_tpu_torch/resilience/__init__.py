@@ -1,10 +1,23 @@
-"""Watchdog deadlines and request budgets (``watchdog``): the part of
-``tse1m_tpu/resilience`` the serving daemon uses.  The retry engine is
-``utils/retry.py``; the fault plane, the coordinator and the device-side
-degradation ladder are not ported (ROADMAP.md Queue 1)."""
+"""The part of ``tse1m_tpu/resilience`` the port runs: watchdog deadlines,
+the stage watchdog, request budgets and the failure classifiers
+(``watchdog``), and the fault-injection plane (``faults``).  The retry
+engine and the step runner are ``utils/retry.py`` and ``utils/runner.py``;
+the degradation ladder is ``cluster/ladder.py``.  The pod coordinator is
+not ported (ROADMAP.md Queue 1, "Multi-GPU")."""
 
-from .watchdog import (StallError, deadline_clock, request_budget_s,
-                       run_with_deadline, watchdog_enabled)
+from .faults import (FaultPlan, FaultRule, InjectedConnectionDrop,
+                     InjectedFault, active_plan, clear_plan, fault_point,
+                     install_plan, reraise_if_fault)
+from .watchdog import (StageWatchdog, StallError, StickyDeviceError,
+                       deadline_clock, is_device_loss, is_resource_exhausted,
+                       is_sticky_cuda_error, request_budget_s,
+                       run_with_deadline, terminal_device_error,
+                       watchdog_enabled)
 
-__all__ = ["StallError", "deadline_clock", "request_budget_s",
-           "run_with_deadline", "watchdog_enabled"]
+__all__ = ["FaultPlan", "FaultRule", "InjectedConnectionDrop",
+           "InjectedFault", "StageWatchdog", "StallError",
+           "StickyDeviceError", "active_plan", "clear_plan",
+           "deadline_clock", "fault_point", "install_plan",
+           "is_device_loss", "is_resource_exhausted", "is_sticky_cuda_error",
+           "request_budget_s", "reraise_if_fault", "run_with_deadline",
+           "terminal_device_error", "watchdog_enabled"]

@@ -9,7 +9,10 @@ signature store:
 - **Ingest** (one writer thread): batches of coverage vectors are
   digested, probed against the store, and only the content-novel rows are
   MinHashed on the card (``cluster.pipeline.minhash_novel_rows``: the
-  scheme's kernel on row counts padded to a power of two).  Novel
+  scheme's kernel on row counts padded to a power of two, under the
+  degradation ladder: an out-of-memory halves the batch's chunk, a stall
+  is retried under the daemon's own stage watchdog, and the events land
+  in ``degradations_total``; the store's width is never dropped).  Novel
   signatures append to the store; a batch is acknowledged only after the
   store's manifest commit, so an acknowledged row survives a kill.
 - **Query** (any thread, no lock): each ingest generation publishes a new
@@ -32,10 +35,9 @@ Device work: the ingest thread launches MinHash kernels and request
 threads launch the top-k kernel, each on its own thread's current stream
 of ``device``, each call with its own buffers.  Only the ingest thread
 writes the store.  Left out against the JAX package: the pod plane's
-lease guard (ROADMAP.md Queue 1, "Serve plane"), the chaos plane's fault
-seats and the schedule explorer's trace points, and the device
-degradation ladder under ``minhash_novel_rows`` (Queue 1, "Device-side
-resilience").
+lease guard and the serve plane's own fault seats (``serve.ingest.commit``,
+the server's handlers) and the schedule explorer's trace points
+(ROADMAP.md Queue 1, "Serve plane").
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from ..observability import profiling, record_degradation
 from ..observability.flight import dump_flight, get_flight_dir, set_flight_dir
 from ..observability.latency import LatencyRecorder
 from ..observability.tracing import continue_trace, current_trace, span
-from ..resilience.watchdog import deadline_clock
+from ..resilience.watchdog import StageWatchdog, deadline_clock
 from .slo import AdmissionController, SloPolicy, SloTracker
 
 log = logging.getLogger("tse1m_tpu_torch.serve.daemon")
@@ -259,6 +261,7 @@ class ServeDaemon:
         self._hp = make_params(self.params.scheme, self.params.n_hashes,
                                self.params.seed)
         self.rec = StageRecorder()
+        self.watchdog = StageWatchdog()
         self.admission = AdmissionController(self.slo)
         self.tracker = SloTracker(self.slo)
         self.lat_query = LatencyRecorder("serve_query")
@@ -568,7 +571,8 @@ class ServeDaemon:
         """[K, S] raw rows -> [K, H] uint32 signatures under the store
         policy, on ``self.device``."""
         return minhash_novel_rows(rows, self.params, self.qbits,
-                                  rec=self.rec, device=self.device)
+                                  rec=self.rec, wd=self.watchdog,
+                                  device=self.device)
 
     # -- queries (any thread) ------------------------------------------------
 

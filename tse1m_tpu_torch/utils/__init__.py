@@ -1,2 +1,2 @@
-"""Host utilities: the read-only calibration view, atomic artifact writes,
+"""Host utilities: the machine calibration file, atomic artifact writes,
 run manifests and phase timers."""

@@ -1,11 +1,24 @@
-"""Read-only view of the machine calibration file.
+"""The machine calibration file: a copy of ``tse1m_tpu/utils/calibration.py``.
 
-A trimmed copy of ``tse1m_tpu/utils/calibration.py``: the file's location,
-its schema check and its TTL, as the JAX package reads them.  The cluster
-pipeline reads one entry, ``wire.quant_bits``: the degraded wire width an
-earlier run's out-of-memory quant-drop persisted, which storeless runs
-clamp to (``cluster/pipeline.py:_quant_bits``).  This package never writes
-the file; the JAX package's degradation rungs do.
+One JSON file of measurements this machine made, which the next process
+starts from.  The cluster pipeline's degradation ladder
+(``cluster/ladder.py``) writes and reads its ``wire`` section:
+
+- ``chunk_bytes``: the chunk size that survived out-of-memory halving, so
+  the next run's stream plan starts below the ceiling
+  (``pipeline._apply_calibrated_step``);
+- ``quant_bits``: the wire width an out-of-memory quant drop left, which
+  storeless runs clamp to until a clean run at that width clears it
+  (``pipeline._quant_bits``, ``_restore_quant_bits``);
+- ``h2d_MBps``: a measured link rate, seeding the stage watchdog's H2D
+  budget (``pipeline._make_watchdog``).
+
+The layout is the JAX package's (schema version 2, each entry a value and
+its wall-clock ``ts``), so either package reads and writes the other's
+file.  Entries older than ``TSE1M_ROUTER_CAL_TTL_S`` (6 h) are dropped at
+load; a file of another schema is ignored whole.  Writes are
+read-merge-write through ``atomic_write``; an entry kept from the file
+keeps its timestamp, and ``None`` deletes one.
 
 Location: ``TSE1M_ROUTER_CAL`` (empty = none), else the ``[FRAMEWORK]
 router_cal_path`` key of the INI at ``TSE1M_ENVFILE`` or
@@ -16,10 +29,14 @@ from __future__ import annotations
 
 import configparser
 import json
+import logging
 import os
 import time
 
 from ..config import ini_path
+from .atomic import atomic_write
+
+log = logging.getLogger("tse1m_tpu_torch.calibration")
 
 SCHEMA_VERSION = 2
 _DEFAULT_TTL_S = 6 * 3600.0
@@ -55,6 +72,49 @@ def load_calibration(path: str | None) -> dict:
     return out
 
 
+def update_calibration(path: str | None, cost_per_row: dict | None = None,
+                       wire: dict | None = None) -> None:
+    """Merge new measurements into the file, each stamped with now; still
+    fresh entries stay with their own timestamps (re-stamping them would
+    defeat the TTL); a ``None`` value deletes its entry.  No-op without a
+    path; a failed write is logged, never raised."""
+    if not path:
+        return
+    current = load_calibration(path)
+    now = time.time()
+    payload = {"schema_version": SCHEMA_VERSION,
+               "cost_per_row": {k: {"value": v, "ts": now}
+                                for k, v in current["cost_per_row"].items()},
+               "wire": {k: {"value": v, "ts": now}
+                        for k, v in current["wire"].items()}}
+    try:
+        with open(path, encoding="utf-8") as f:
+            prior = json.load(f)
+        if prior.get("schema_version") == SCHEMA_VERSION:
+            for section in ("cost_per_row", "wire"):
+                for k, entry in (prior.get(section) or {}).items():
+                    if k in payload[section] and isinstance(entry, dict) \
+                            and "ts" in entry:
+                        payload[section][k]["ts"] = entry["ts"]
+    except (OSError, ValueError):
+        pass
+    for k, v in (cost_per_row or {}).items():
+        if v is None:
+            payload["cost_per_row"].pop(k, None)
+        else:
+            payload["cost_per_row"][k] = {"value": float(v), "ts": now}
+    for k, v in (wire or {}).items():
+        if v is None:
+            payload["wire"].pop(k, None)
+        else:
+            payload["wire"][k] = {"value": v, "ts": now}
+    try:
+        with atomic_write(path) as f:
+            json.dump(payload, f, indent=2)
+    except OSError as e:
+        log.warning("could not persist calibration to %s (%s)", path, e)
+
+
 def calibration_path() -> str | None:
     """The configured calibration file; None = none."""
     env = os.environ.get("TSE1M_ROUTER_CAL")
@@ -73,11 +133,5 @@ def calibration_path() -> str | None:
     return parser.get("FRAMEWORK", "router_cal_path", fallback=None) or None
 
 
-def degraded_quant_floor() -> int:
-    """The persisted degraded wire width (0 = none)."""
-    v = load_calibration(calibration_path())["wire"].get("quant_bits")
-    return int(v) if v else 0
-
-
-__all__ = ["SCHEMA_VERSION", "calibration_path", "degraded_quant_floor",
-           "load_calibration", "ttl_s"]
+__all__ = ["SCHEMA_VERSION", "calibration_path", "load_calibration",
+           "ttl_s", "update_calibration"]

@@ -1,18 +1,24 @@
-"""Run-to-completion of multi-step commands (``all``): a trimmed copy of
-``tse1m_tpu/resilience/runner.py:27-195`` without the retry policy and the
-telemetry planes.
+"""Run-to-completion of multi-step commands (``all``, ``cluster``,
+``scrub``, ``serve --status``): a trimmed copy of
+``tse1m_tpu/resilience/runner.py:27-195`` without the retry policy, the
+stage and span telemetry and the pod manifest merge.
 
 Each step runs isolated: a failure is recorded (status, one-line error,
-full traceback) and the remaining steps still run.  The manifest
-``<result_dir>/run_manifest.json`` is rewritten atomically after every
-step and before each one starts, so an interrupted run leaves an
-accurate partial record that names the step it was in.
+full traceback) and the remaining steps still run.  The degradation events
+a step survived (``observability.record_degradation``: halved chunks,
+quant drops, stall and device retries, quarantined shards) are popped into
+its ``degradations``, and the manifest carries ``degradation_counts`` over
+every step.  The manifest ``<result_dir>/run_manifest.json`` is rewritten
+atomically after every step and before each one starts, so an interrupted
+run leaves an accurate partial record that names the step it was in;
+flight dumps land beside it unless a flight directory is set.
 ``exit_code()`` is non-zero when any step failed.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
 import traceback
 from dataclasses import asdict, dataclass
@@ -28,6 +34,7 @@ class StepRecord:
     error: str | None = None      # one-line summary
     traceback: str | None = None  # full text, failures only
     result: dict | None = None    # structured output (record_result)
+    degradations: list | None = None  # events survived; None = ran clean
 
 
 class StepRunner:
@@ -38,14 +45,22 @@ class StepRunner:
         self.manifest_path = manifest_path
         self.steps: list[StepRecord] = []
         self.started_at = time.time()
+        if manifest_path:
+            from ..observability.flight import get_flight_dir, set_flight_dir
+
+            if get_flight_dir() is None:
+                set_flight_dir(os.path.dirname(manifest_path) or ".")
 
     def run(self, name: str, fn, *args, **kwargs) -> StepRecord:
         """Run one step isolated; never raises, apart from a
         KeyboardInterrupt, which is recorded first (the record carries the
         failure)."""
+        from ..observability import pop_degradation_events
+
         rec = StepRecord(name=name, status="running")
         self.steps.append(rec)
         self._write()  # a killed run shows the step it was in
+        pop_degradation_events()  # only this step's events attach to it
         t0 = time.time()
         try:
             fn(*args, **kwargs)
@@ -58,9 +73,11 @@ class StepRunner:
             rec.traceback = traceback.format_exc()
             if isinstance(e, KeyboardInterrupt):
                 rec.wall_s = round(time.time() - t0, 3)
+                rec.degradations = pop_degradation_events() or None
                 self._write()
                 raise
         rec.wall_s = round(time.time() - t0, 3)
+        rec.degradations = pop_degradation_events() or None
         self._write()
         return rec
 
@@ -87,11 +104,15 @@ class StepRunner:
     def _write(self) -> None:
         if not self.manifest_path:
             return
+        from ..observability import degradation_counts
+
+        events = [e for s in self.steps for e in (s.degradations or [])]
         payload = {
             "started_at": self.started_at,
             "wall_seconds": round(time.time() - self.started_at, 3),
             "ok": not self.failed,
             "summary": self.summary(),
+            "degradation_counts": degradation_counts(events),
             "steps": [asdict(s) for s in self.steps],
         }
         with atomic_write(self.manifest_path) as f:
