@@ -6,7 +6,11 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. build: compile the port's CUDA sources (tse1m_tpu_torch/cluster/kernels/
-   csrc/) at first use and time it;
+   csrc/) at first use and time it, and its native host layer with g++
+   (tse1m_tpu_torch/native/decode.cc, encode.cc into the gitignored
+   build/tse1m_tpu_torch/native/): a library that does not build or load
+   fails the run, since the extraction and the delta encoding would
+   otherwise fall back to numpy unseen;
 2. kernel checks: hold each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance: exact).  The MinHash and bin-min kernels
    at the main-path chunk shape (250,368 rows x 64 ids, H=128, B=16) and at
@@ -151,7 +155,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    committed artifacts equal to tests/goldens/synth8/ byte for byte; then
    a study of the paper's scale (446 projects x 1,600 days, ~1M fuzzing
    builds, cutoff 2026-01-01) generated, written to sqlite under the
-   gitignored build/ with its corpus CSV, extracted, and the fused six-RQ
+   gitignored build/ with its corpus CSV, extracted on the numpy path (the
+   native decoder off, the yardstick of phase 4b), and the fused six-RQ
    suite and the six single calls on the card held against
    TorchBackend("cpu") on the same arrays (exact, Spearman and mean
    within 2e-5); the extraction, each RQ and the suite timed warm (median
@@ -162,7 +167,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    every driver's manifest naming TorchBackend on the card, each
    artifact's row count the one the single calls' results imply; each
    driver's wall and phases printed as one ``rq_drivers`` JSON line with
-   the card's name and power limit;
+   the card's name and power limit (the drivers extract through the
+   native decoder, as a user's ``all`` does);
+4b. the study arrives, under the gitignored build/load_smoke/: phase 4's
+   study written as the collectors' CSVs (``to_csv_dir``) and loaded by
+   ``python -m tse1m_tpu_torch ingest`` in a child process; written as a
+   pg_dump (COPY blocks with comment, SET, CREATE and ALTER noise, the
+   analyzer's 'Success' for 'Finish', NULL arrays, YAML cells with a tab, a
+   newline and a backslash, and a block of a table outside the study) and
+   loaded by a child ``restore``: every table's rows as written, the
+   escapes and the canonical result restored, ``projects`` derived; a
+   child ``stats`` of phase 4's file and of both copies, the same lines;
+   both copies extracted by the native decoder (``native_decode``) to
+   phase 4's numpy arrays, numbers element for element and text by value,
+   and the restored copy timed warm (median of 5) against phase 4's numpy
+   extraction; the fused suite on the card over the restored copy's arrays
+   equal to phase 4's, every field exact; the native delta grouper's
+   ``rep_of`` at (c)'s 647,790 kept rows equal to numpy's ``_group_rows``,
+   both timed (cell (c) of phase 3 runs through the native grouper: its
+   labels and launch counts are checked there as before, its encode stage
+   printed here); one ``study_load`` JSON line with the rows, each step's
+   wall, the extraction and grouping walls native and numpy, and the
+   card's name and power limit.  Postgres is not driven: no server runs
+   on the card's machine;
 5. timing: each kernel beside its plain version (CUDA events around
    ``--calls-per-window`` back-to-back calls, 5 by default, median of 20
    windows after warm-up; 1 times each call alone, as earlier versions of
@@ -211,7 +238,8 @@ from tse1m_tpu_torch import (SignatureStore, adjusted_rand_index,
 from tse1m_tpu_torch.analysis import RQ_DRIVERS, run_rqs
 from tse1m_tpu_torch.analysis.corpus import g4_prepost, load_corpus_groups
 from tse1m_tpu_torch.backend import TorchBackend
-from tse1m_tpu_torch.cluster import entropy, kernels, pipeline
+from tse1m_tpu_torch import native
+from tse1m_tpu_torch.cluster import encode, entropy, kernels, pipeline
 from tse1m_tpu_torch.cluster.checkpoint import ClusterCheckpoint
 from tse1m_tpu_torch.cluster.encode import (pack_chunk, pack_delta_meta,
                                             quantize_ids)
@@ -225,7 +253,8 @@ from tse1m_tpu_torch.cluster.observability import StageRecorder
 from tse1m_tpu_torch.cluster.schemes import (make_params,
                                              scheme_host_signatures)
 from tse1m_tpu_torch.config import Config as StudyConfig
-from tse1m_tpu_torch.data.columnar import StudyArrays
+from tse1m_tpu_torch.data import columnar
+from tse1m_tpu_torch.data.columnar import BytesColumn, CodedColumn, StudyArrays
 from tse1m_tpu_torch.data.synth import SynthSpec, generate_study
 from tse1m_tpu_torch.db import connect
 from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
@@ -2337,10 +2366,11 @@ def rq_calls(backend, arrays, limit_ns: int, g1, g2) -> dict:
     }
 
 
-def rq_compare(got, want, rq: str, label: str) -> float:
+def rq_compare(got, want, rq: str, label: str,
+               close: set = RQ_CLOSE) -> float:
     """Every field and dtype of ``got`` against ``want``: exact, or within
-    RQ_TOL for RQ_CLOSE.  Returns the largest share of its tolerance
-    (|x - y| over RQ_TOL * (1 + |y|)) that a RQ_CLOSE value used."""
+    RQ_TOL for the fields in ``close``.  Returns the largest share of its
+    tolerance (|x - y| over RQ_TOL * (1 + |y|)) that such a value used."""
     worst = 0.0
     for f in want.__dataclass_fields__:
         x, y = getattr(got, f), getattr(want, f)
@@ -2351,7 +2381,7 @@ def rq_compare(got, want, rq: str, label: str) -> float:
         if x.dtype != y.dtype or x.shape != y.shape:
             raise AssertionError(f"{label} {rq}.{f}: {x.dtype}{x.shape} vs "
                                  f"{y.dtype}{y.shape}")
-        if (rq, f) in RQ_CLOSE:
+        if (rq, f) in close:
             ok = np.allclose(x, y, rtol=RQ_TOL, atol=RQ_TOL, equal_nan=True)
         else:
             ok = np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
@@ -2359,23 +2389,29 @@ def rq_compare(got, want, rq: str, label: str) -> float:
             raise AssertionError(f"{label} {rq}.{f} differs beyond its "
                                  "tolerance")
         both = ~(np.isnan(x) | np.isnan(y))
-        if (rq, f) in RQ_CLOSE and both.any():
+        if (rq, f) in close and both.any():
             share = np.abs(x - y)[both] / (RQ_TOL * (1 + np.abs(y[both])))
             worst = max(worst, float(share.max()))
     return worst
 
 
-def wall_s(fn, reps: int = RQ_REPS) -> float:
-    """Median host wall of ``reps`` warm calls, each ending with the card
-    idle (every RQ call ends with its device-to-host copy)."""
+def median_wall(fn, reps: int = RQ_REPS) -> tuple:
+    """(median host wall of ``reps`` calls, the last call's result), each
+    call ending with the card idle (every RQ call ends with its
+    device-to-host copy)."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    return statistics.median(times)
+    return statistics.median(times), out
+
+
+def wall_s(fn, reps: int = RQ_REPS) -> float:
+    """Median host wall of ``reps`` warm calls."""
+    return median_wall(fn, reps)[0]
 
 
 def device_busy_share(fn) -> float | None:
@@ -2394,10 +2430,24 @@ def device_busy_share(fn) -> float | None:
     return busy_us * 1e-6 / wall if busy_us else None
 
 
+@contextlib.contextmanager
+def numpy_extraction():
+    """``StudyArrays.from_db`` on its numpy path: the native decoder off."""
+    real = columnar._native_db_path
+    columnar._native_db_path = lambda db: None
+    try:
+        yield
+    finally:
+        columnar._native_db_path = real
+
+
 def rq_phase(dev) -> dict:
     """Phase 4: the golden study on the card, then the 1M-build study:
-    generated and written to sqlite, extracted, the suite and the six
-    single calls on the card held against TorchBackend("cpu"), and timed."""
+    generated and written to sqlite, extracted on the numpy path, the
+    suite and the six single calls on the card held against
+    TorchBackend("cpu"), and timed.  Returns what phase 4b holds its
+    loaded copies against: the study, its file, the numpy arrays and
+    their extraction wall, the card's suite results."""
     t_phase = time.perf_counter()
     rq_golden(dev)
     torch.cuda.synchronize()
@@ -2415,21 +2465,19 @@ def rq_phase(dev) -> dict:
     write_s = time.perf_counter() - t0
     corpus = os.path.join(RQ_DIR, "study_corpus.csv")
     study.write_corpus_csv(corpus)
-    del study
     log(f"  1M-build study: {rows} rows generated in {gen_s:.3f} s, "
         f"written to sqlite in {write_s:.3f} s")
     cfg = StudyConfig(sqlite_path=path, limit_date=RQ_CUTOFF)
 
     def extract():
-        with connect(path) as db:
+        with numpy_extraction(), connect(path) as db:
             return StudyArrays.from_db(db, cfg)
 
-    arrays = extract()
-    extract_s = wall_s(extract)
+    extract_s, arrays = median_wall(extract)
     extracted = {t: len(getattr(arrays, t))
                  for t in ("fuzz", "covb", "issues", "cov")}
     log(f"  extracted {arrays.n_projects} projects, {extracted} rows, in "
-        f"{extract_s:.3f} s (median of {RQ_REPS})")
+        f"{extract_s:.3f} s on the numpy path (median of {RQ_REPS})")
     limit_ns = int(np.datetime64(RQ_CUTOFF, "ns").astype(np.int64))
     g1 = np.arange(0, arrays.n_projects, 2)
     g2 = np.arange(1, arrays.n_projects, 2)
@@ -2470,6 +2518,242 @@ def rq_phase(dev) -> dict:
     }
     print(json.dumps({"rq_path": report}), flush=True)
     rq_drivers(dev, path, corpus, arrays, got, limit_ns)
+    return {"study": study, "path": path, "cfg": cfg, "arrays": arrays,
+            "extract_s": extract_s, "suite": fused, "limit_ns": limit_ns,
+            "g1": g1, "g2": g2}
+
+
+# Phase 4b: cell (h) arrives as the collectors' CSVs and as a pg_dump.
+LOAD_DIR = os.path.join(ROOT, "build", "load_smoke")  # gitignored
+LOAD_TABLES = ("project_info", "buildlog_data", "total_coverage", "issues")
+DELTA_MAX_DIFFS = 16          # encode_delta's default, under S = 64's clamp
+DELTA_PROBES = 3
+
+
+def copy_text(v) -> str:
+    """One cell in COPY's text format, as pg_dump writes it: ``\\N`` for
+    NULL; backslash, tab, newline and carriage return escaped."""
+    if v is None:
+        return "\\N"
+    s = repr(v) if isinstance(v, float) else str(v)
+    return (s.replace("\\", "\\\\").replace("\t", "\\t")
+            .replace("\n", "\\n").replace("\r", "\\r"))
+
+
+def project_yaml(study) -> list:
+    """Each project's YAML keys, the dump's ``yaml_json`` cells: a tab, a
+    newline and a backslash in each, so every COPY escape is restored."""
+    return [f"language: {lang}\n\tmain_repo: {repo}\\"
+            for lang, repo in zip(study.project_info["language"],
+                                  study.project_info["main_repo"])]
+
+
+def write_pg_dump(study, path: str) -> dict:
+    """Cell (h) as pg_dump writes its tables: comment, SET, CREATE TABLE
+    and ALTER noise, one COPY block a study table (no ``projects``: restore
+    derives it), the reference analyzer's 'Success' where the study says
+    'Finish' (restore canonicalises it), NULL for an empty regressed-build
+    array, the projects' YAML keys with escapes, and a block of a table
+    outside the study.  Returns the rows written a table."""
+    rows = {}
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("--\n-- PostgreSQL database dump\n--\n\n"
+                "SET statement_timeout = 0;\n"
+                "SET client_encoding = 'UTF8';\n"
+                "SET standard_conforming_strings = on;\n"
+                "CREATE TABLE public.buildlog_data (\n    name text NOT NULL,"
+                "\n    modules text[],\n    revisions text[]\n);\n"
+                "ALTER TABLE public.buildlog_data OWNER TO replication_user;\n"
+                "\n")
+        for table in LOAD_TABLES:
+            cols = dict(getattr(study, table))
+            if table == "project_info":
+                cols["yaml_json"] = project_yaml(study)
+            elif table == "buildlog_data":
+                cols["result"] = ["Success" if r == "Finish" else r
+                                  for r in cols["result"]]
+            elif table == "issues":
+                cols["regressed_build"] = [v or None for v in
+                                           cols["regressed_build"]]
+            f.write(f"COPY public.{table} ({', '.join(cols)}) FROM stdin;\n")
+            for row in zip(*cols.values()):
+                f.write("\t".join(map(copy_text, row)) + "\n")
+            f.write("\\.\n\n")
+            rows[table] = len(next(iter(cols.values())))
+        f.write("COPY public.pg_stat_statements_info (dealloc, stats_reset) "
+                "FROM stdin;\n0\t2025-01-08 00:00:00+00\n\\.\n\n"
+                "--\n-- PostgreSQL database dump complete\n--\n")
+    return rows
+
+
+def host_command(args: list, name: str) -> tuple:
+    """``python -m tse1m_tpu_torch <args>`` in a child process, its
+    output to ``<LOAD_DIR>/<name>.log``; (wall s, stdout).  Raises on a
+    non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tse1m_tpu_torch", *args],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(LOAD_DIR, name + ".log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode:
+        raise AssertionError(f"{' '.join(args[:2])} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return wall, proc.stdout
+
+
+def same_arrays(got, want, label: str) -> None:
+    """A loaded copy's arrays against phase 4's numpy extraction: the
+    projects and offsets, every numeric column element for element and
+    every text column by value (a lazy-bytes or coded column whose layout
+    differs is materialised and compared cell by cell)."""
+    if got.projects != want.projects:
+        raise AssertionError(f"{label}: projects differ")
+    for table in ("fuzz", "covb", "issues", "cov"):
+        a, b = getattr(got, table), getattr(want, table)
+        if not np.array_equal(a.offsets, b.offsets) \
+                or a.columns.keys() != b.columns.keys():
+            raise AssertionError(f"{label}: {table} offsets or columns")
+        for name, x in a.columns.items():
+            y = b.columns[name]
+            if isinstance(y, BytesColumn):
+                same = isinstance(x, BytesColumn) and all(
+                    np.array_equal(getattr(x, k), getattr(y, k))
+                    for k in ("arena", "starts", "lens"))
+            elif isinstance(y, CodedColumn):
+                same = isinstance(x, CodedColumn) and np.array_equal(
+                    x.codes, y.codes) and list(x.vocab) == list(y.vocab)
+            elif y.dtype == object:
+                same = list(x) == list(y)
+            else:
+                same = x.dtype == y.dtype and np.array_equal(
+                    x, y, equal_nan=y.dtype.kind == "f")
+            if not same and isinstance(y, (BytesColumn, CodedColumn)):
+                same = list(x.materialize()) == list(y.materialize())
+            if not same:
+                raise AssertionError(f"{label}: {table}.{name} differs")
+
+
+def stats_lines(path: str, name: str) -> tuple:
+    wall, out = host_command(["stats", "--db", path], name)
+    if "regression-tracked" not in out:
+        raise AssertionError(f"stats {path}: {out}")
+    return wall, out
+
+
+def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
+                     dev) -> dict:
+    """Phase 4b: phase 4's study written as the collectors' CSVs and
+    ingested by a child ``ingest``, written as a pg_dump and restored by a
+    child ``restore``; ``stats`` of the three files line for line; the
+    loaded copies extracted by the native decoder to phase 4's numpy
+    arrays; the suite on the card over the restored copy's arrays equal to
+    phase 4's; the native delta grouper at (c)'s kept rows equal to
+    numpy's; one ``study_load`` JSON line."""
+    t_phase = time.perf_counter()
+    fresh_dir(LOAD_DIR)
+    os.makedirs(LOAD_DIR)
+    study = rq.pop("study")
+    csv_dir = os.path.join(LOAD_DIR, "csv")
+    f1, f2 = (os.path.join(LOAD_DIR, f) for f in ("ingested.sqlite",
+                                                  "restored.sqlite"))
+    dump = os.path.join(LOAD_DIR, "backup_clean.sql")
+    walls = {}
+    t0 = time.perf_counter()
+    study.to_csv_dir(csv_dir)
+    walls["to_csv_dir_s"] = time.perf_counter() - t0
+    walls["ingest_s"], out = host_command(
+        ["ingest", "--csv-dir", csv_dir, "--db", f1], "ingest")
+    ingested = json.loads(out.splitlines()[-1])["ingested"]
+    t0 = time.perf_counter()
+    dumped = write_pg_dump(study, dump)
+    walls["dump_write_s"] = time.perf_counter() - t0
+    walls["dump_mb"] = os.path.getsize(dump) / 2**20
+    walls["restore_s"], out = host_command(["restore", dump, "--db", f2],
+                                           "restore")
+    restored = json.loads(out.splitlines()[-1])["restored"]
+    want_rows = {t: len(next(iter(getattr(study, t).values())))
+                 for t in LOAD_TABLES}
+    if ingested != want_rows or {t: restored[t] for t in LOAD_TABLES} \
+            != dumped or dumped != want_rows \
+            or restored["skipped_statements"] < 1:
+        raise AssertionError(f"rows: study {want_rows}, ingested "
+                             f"{ingested}, dumped {dumped}, restored "
+                             f"{restored}")
+    with connect(f2) as db:
+        yaml = dict(db.query("SELECT project, yaml_json FROM project_info"))
+        results = dict(db.query("SELECT result, COUNT(*) FROM buildlog_data "
+                                "GROUP BY result"))
+    if [yaml[p] for p in study.project_info["project"]] != project_yaml(
+            study) or "Success" in results:
+        raise AssertionError(f"restore: the escaped YAML cells or the "
+                             f"result canonicalisation ({results})")
+    log(f"  (h) as CSVs in {walls['to_csv_dir_s']:.3f} s, ingested in "
+        f"{walls['ingest_s']:.3f} s; as a {walls['dump_mb']:.1f} MiB "
+        f"pg_dump in {walls['dump_write_s']:.3f} s, restored in "
+        f"{walls['restore_s']:.3f} s; rows {want_rows}, escapes and "
+        "'Success' restored")
+    # The three files are only read: their stats run at once.
+    with ThreadPoolExecutor(3) as pool:
+        futures = {name: pool.submit(stats_lines, path, f"stats_{name}")
+                   for name, path in (("phase4", rq["path"]),
+                                      ("ingested", f1), ("restored", f2))}
+        stats = {name: f.result() for name, f in futures.items()}
+    if not stats["ingested"][1] == stats["restored"][1] \
+            == stats["phase4"][1]:
+        raise AssertionError("stats lines differ: " + json.dumps(
+            {k: v[1] for k, v in stats.items()}))
+    walls["stats_s"] = {k: v[0] for k, v in stats.items()}
+    log("  stats of phase 4's file, the ingested and the restored copy "
+        "(three children at once): the same "
+        + str(len(stats["phase4"][1].splitlines())) + " lines")
+
+    def extract(path):
+        with connect(path) as db:
+            return StudyArrays.from_db(db, rq["cfg"])
+
+    native_s, restored_arrays = median_wall(lambda: extract(f2))
+    for name, arrays in (("ingested", extract(f1)),
+                         ("restored", restored_arrays)):
+        if not arrays.native_decode:
+            raise AssertionError(f"{name}: extraction left the native "
+                                 "decoder")
+        same_arrays(arrays, rq["arrays"], name)
+    log(f"  both copies extracted by the native decoder == phase 4's numpy "
+        f"arrays; warm {native_s:.3f} s against numpy's "
+        f"{rq['extract_s']:.3f} s (median of {RQ_REPS})")
+    suite = TorchBackend(dev).rq_suite(restored_arrays, rq["limit_ns"],
+                                       RQ_MIN_PROJECTS, rq["g1"], rq["g2"])
+    for name in RQS:
+        rq_compare(suite[name], rq["suite"][name], name,
+                   "suite over the restored copy vs phase 4", close=set())
+    log("  the suite on the card over the restored copy's arrays == phase "
+        "4's, every field exact")
+    t0 = time.perf_counter()
+    rep_native = native.group_delta(kept_rows, DELTA_MAX_DIFFS, DELTA_PROBES)
+    group_native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_numpy = encode._group_rows(kept_rows, DELTA_MAX_DIFFS, DELTA_PROBES)
+    group_numpy_s = time.perf_counter() - t0
+    if rep_native is None or not np.array_equal(rep_native, rep_numpy):
+        raise AssertionError("native rep_of differs from numpy's")
+    log(f"  delta grouping of (c)'s {kept_rows.shape[0]} kept rows: native "
+        f"rep_of == numpy's ({int((rep_numpy >= 0).sum())} delta rows), "
+        f"{group_native_s:.3f} s against {group_numpy_s:.3f} s; (c)'s "
+        f"encode stage {c_encode_s} s")
+    report = {
+        "rows": want_rows, "projects_derived": restored["projects"],
+        "skipped_statements": restored["skipped_statements"],
+        "dump_mb": walls.pop("dump_mb"), **walls,
+        "extract_native_s": native_s, "extract_numpy_s": rq["extract_s"],
+        "native_decode": True, "group_rows": int(kept_rows.shape[0]),
+        "group_native_s": group_native_s, "group_numpy_s": group_numpy_s,
+        "c_stage_encode_s": c_encode_s, "reps": RQ_REPS,
+        "phase_s": time.perf_counter() - t_phase,
+        "card": card_name_and_limit(),
+    }
+    print(json.dumps({"study_load": report}), flush=True)
     return report
 
 
@@ -2492,6 +2776,15 @@ def main() -> int:
     log("phase 1: build")
     _build.load_extension()
     log(f"  built {', '.join(_build.SOURCES)} in {_build.build_seconds:.1f} s")
+    t0 = time.perf_counter()
+    # The native host layer (g++): the sqlite decoder and the delta
+    # grouper run on the main path; Postgres's decoder is not driven.
+    for which in ("decode", "encode"):
+        if not native.loaded(which):
+            raise AssertionError(f"native {which} library did not build or "
+                                 f"load into {native.BUILD_DIR}")
+    log(f"  native decode.cc, encode.cc built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     hp = make_params("kminhash", N_HASHES, 0).to(dev)
     items, truth = synth_session_sets(N_SESSIONS, SET_SIZE, seed=0)
@@ -2545,7 +2838,14 @@ def main() -> int:
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
         f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
         f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
-    rq_phase(dev)
+    rq = rq_phase(dev)
+
+    log("phase 4b: the study arrives: phase 4's study as the collectors' "
+        "CSVs (ingest) and as a pg_dump (restore), stats, the native "
+        "decoder and the native delta grouper")
+    study_load_phase(rq, items[plan["keep"]],
+                     default["info"]["stages"]["stage_encode_s"], dev)
+    del rq
 
     log(f"phase 5: timing (CUDA events around {args.calls_per_window} "
         "calls, median)")

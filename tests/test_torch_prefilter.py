@@ -70,3 +70,22 @@ def test_collide_mask_rejects_an_unknown_scheme():
     with pytest.raises(ValueError) as got:
         tpf.collide_mask(items, scheme="minhash")
     assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_prefilter_that_keeps_no_row(n):
+    """Rows that share no band key with each other are all dropped by the
+    prefilter.  The port then labels each row alone, which is the
+    ``prefilter="off"`` answer; JAX raises on the empty wire instead."""
+    from tse1m_tpu.cluster import pipeline as jpipe
+    from tse1m_tpu_torch.cluster import pipeline as tpipe
+
+    items = np.arange(4 * n, dtype=np.uint32).reshape(n, 4)
+    got = tpipe.cluster_sessions(items, tpipe.ClusterParams(prefilter="on"),
+                                 device="cpu")
+    want = jpipe.cluster_sessions(
+        items, jpipe.ClusterParams(prefilter="off", use_pallas="never"))
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="Incompatible shapes"):
+        jpipe.cluster_sessions(
+            items, jpipe.ClusterParams(prefilter="on", use_pallas="never"))

@@ -14,9 +14,12 @@ Every TPU kernel of those paths (the two MinHash kernels, the
 one-permutation bin-min, the rANS decode and the top-k scorer) is written
 by hand in CUDA C++ for Hopper (``cluster/kernels/csrc/``).
 
-It also runs the paper's RQ analysis: a sqlite study (``db/``, written by
-``data/synth.py``) is extracted into per-project CSR arrays
-(``data/columnar.py``) and answered by ``TorchBackend`` (``backend/``,
+It also runs the paper's RQ analysis: a study (``db/``: sqlite, or
+Postgres through psycopg2 or libpq; written by ``data/synth.py``, loaded
+from the collectors' CSVs by ``db/ingest.py`` or from the reference's
+pg_dump by ``db/restore.py``) is extracted into per-project CSR arrays
+(``data/columnar.py``, through the g++-built decoder of ``native/``) and
+answered by ``TorchBackend`` (``backend/``,
 torch ops in ``ops/segment.py``), all six research questions in one pass
 on the card with ``rq_suite``; the six drivers under ``analysis/`` write
 every RQ's artifacts, as the JAX package's drivers do.
@@ -36,7 +39,10 @@ uint32 bits (``tse1m_tpu_torch.device``).
     python -m tse1m_tpu_torch cluster --n 1000000 [--sig-store DIR] \
         [--checkpoint-dir DIR]
     python -m tse1m_tpu_torch scrub DIR [--repair] [--verify-sigs]
-    python -m tse1m_tpu_torch synth --db study.sqlite
+    python -m tse1m_tpu_torch synth --db study.sqlite [--csv-dir DIR]
+    python -m tse1m_tpu_torch ingest --csv-dir DIR --db study.sqlite
+    python -m tse1m_tpu_torch restore backup_clean.sql --db study.sqlite
+    python -m tse1m_tpu_torch stats --db study.sqlite
     python -m tse1m_tpu_torch all --db study.sqlite --result-dir out
     python -m tse1m_tpu_torch serve --sig-store DIR --port-file F
 """

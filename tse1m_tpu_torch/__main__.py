@@ -9,7 +9,10 @@
         [--strict] [--verify-sigs [--verify-n 2000] [--verify-seed 0] \
         [--verify-set-size 64] [--verify-sample 256]]
     python -m tse1m_tpu_torch synth --db PATH [--projects 24] [--days 450] \
-        [--seed 0]
+        [--seed 0] [--csv-dir DIR]
+    python -m tse1m_tpu_torch ingest --csv-dir DIR [--db PATH]
+    python -m tse1m_tpu_torch restore DUMP [--db PATH]
+    python -m tse1m_tpu_torch stats [--db PATH]
     python -m tse1m_tpu_torch {rq1,rq2a,rq2b,rq3,rq4a,rq4b,all} --db PATH \
         --result-dir DIR [--limit-date 2025-01-08] \
         [--min-coverage-days 365] [--test-mode] [--corpus-csv PATH] \
@@ -57,7 +60,17 @@ signatures on the host from the synthetic corpus, and ``--strict`` exits
 
 ``synth`` writes a synthetic study into the sqlite file and its
 corpus-analysis CSV (which RQ4a and RQ4b read) at the config's
-``corpus_csv``; it is host work only and touches no device.
+``corpus_csv``; with ``--csv-dir`` it also writes the study as the
+collectors' CSVs there (the JAX package's bytes).  ``ingest`` loads a
+directory of collector CSVs (``<table>.csv``) into the study database,
+upserting, so a corrected CSV updates its rows; ``restore`` loads a SQL
+dump (pg_dump's COPY blocks or INSERT statements, the reference's
+``backup_clean.sql``); both print their row counts as one JSON line.
+``stats`` prints the study's inventory as the JAX package does: table
+sizes, the projects' build frequency, the eligible projects and the
+regression-tracked issues by severity.  These four are host work only
+and touch no device; the database is the config's engine (sqlite at
+``--db``, or the INI's Postgres server).
 
 ``rq1`` ... ``rq4b`` run one research question over a sqlite study on the
 card, printing the reference transcript's lines and writing its CSVs
@@ -85,7 +98,7 @@ and prints the JSON answer; it exits 1 on an error answer.  Shard mode
 
 ``cluster``, ``serve`` and the RQ commands run on the card unless
 ``--device cpu`` is given, and fail without one; ``synth`` and ``scrub``
-are host work.
+are host work, as are ``ingest``, ``restore`` and ``stats``.
 """
 
 from __future__ import annotations
@@ -250,13 +263,75 @@ def _cmd_synth(args) -> int:
     study = generate_study(SynthSpec(n_projects=args.projects,
                                      days=args.days, seed=args.seed))
     study.to_db(args.db)
+    if args.csv_dir:
+        study.to_csv_dir(args.csv_dir)
     # RQ4 reads the corpus-analysis CSV from the config's corpus_csv
     # (rq4a_bug.py:34): a synthetic study always writes it there.
     study.write_corpus_csv(corpus_csv)
     print(f"wrote {len(study.buildlog_data['name']):,} builds, "
           f"{len(study.issues['number']):,} issues and "
           f"{len(study.total_coverage['date']):,} coverage rows to "
-          f"{args.db}; corpus analysis CSV at {corpus_csv}")
+          f"{args.db}; corpus analysis CSV at {corpus_csv}"
+          + (f"; CSVs in {args.csv_dir}" if args.csv_dir else ""))
+    return 0
+
+
+def _open_db(args):
+    """The study database of a host command: the config's engine, with
+    sqlite at ``--db``."""
+    from .db.connection import DB
+
+    return DB(config=dataclasses.replace(load_config(),
+                                         sqlite_path=args.db)).connect()
+
+
+def _cmd_ingest(args) -> int:
+    from .db.ingest import ingest_csv_dir
+
+    with _open_db(args) as db:
+        counts = ingest_csv_dir(db, args.csv_dir)
+    print(json.dumps({"ingested": counts}))
+    return 0
+
+
+def _cmd_restore(args) -> int:
+    from .db.restore import restore_sql_dump
+
+    with _open_db(args) as db:
+        counts = restore_sql_dump(db, args.dump)
+    print(json.dumps({"restored": counts}))
+    return 0
+
+
+def _cmd_stats(args) -> int:
+    """The study's inventory, line for line the JAX package's: table
+    sizes, the reference's project-frequency query (queries1.py:6-11) and
+    the regression-tracked issues by severity over the eligible projects
+    (queries1.py:104-118)."""
+    from .db import queries
+    from .db.ident import quote_ident
+
+    cfg = load_config()
+    with _open_db(args) as db:
+        db.require_study_tables()
+        for table in ("project_info", "buildlog_data", "total_coverage",
+                      "issues"):
+            n = db.query(f"SELECT COUNT(*) FROM {quote_ident(table)}")[0][0]
+            print(f"{table:16s} {n:>12,} rows")
+        freq = db.query(*queries.count_projects())
+        print(f"projects         {len(freq):>12,} distinct "
+              f"(top: {freq[0][0]} x{freq[0][1]})" if freq else
+              "projects                    0 distinct")
+        sql, params = queries.eligible_projects(cfg.min_coverage_days,
+                                                cfg.limit_date)
+        eligible = [r[0] for r in db.query(sql, params)]
+        print(f"eligible         {len(eligible):>12,} projects "
+              f"(>= {cfg.min_coverage_days} coverage days)")
+        for severity in ("High", "Medium", "Low"):
+            sql, params = queries.severity_issues(
+                severity, eligible, db.dialect, cfg.limit_date)
+            n = db.count(sql, params)
+            print(f"severity {severity:7s} {n:>12,} regression-tracked issues")
     return 0
 
 
@@ -456,6 +531,25 @@ def build_parser() -> argparse.ArgumentParser:
     y.add_argument("--projects", type=int, default=24)
     y.add_argument("--days", type=int, default=450)
     y.add_argument("--seed", type=int, default=0)
+    y.add_argument("--csv-dir", default=None,
+                   help="also write the study as the collectors' CSVs "
+                        "(<table>.csv) in this directory")
+    g = sub.add_parser("ingest", help="load collector CSVs (<table>.csv) "
+                       "into the study database; host only")
+    g.add_argument("--db", default=env.sqlite_path,
+                   help="sqlite study file (default %(default)s)")
+    g.add_argument("--csv-dir", required=True)
+    g = sub.add_parser("restore", help="restore a SQL dump (the "
+                       "reference's backup_clean.sql: pg_dump COPY blocks "
+                       "or INSERT statements) into the study database; "
+                       "host only")
+    g.add_argument("dump", help="path to the .sql dump")
+    g.add_argument("--db", default=env.sqlite_path,
+                   help="sqlite study file (default %(default)s)")
+    g = sub.add_parser("stats", help="study inventory and the severity "
+                       "breakdown; host only")
+    g.add_argument("--db", default=env.sqlite_path,
+                   help="sqlite study file (default %(default)s)")
     helps = {
         "rq1": "RQ1 detection rate",
         "rq2a": "RQ2 change points (CSVs under <dir>/rq3, as the "
@@ -551,6 +645,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_cluster(args)
     if args.cmd == "synth":
         return _cmd_synth(args)
+    if args.cmd == "stats":
+        return _cmd_stats(args)
     if args.cmd == "serve-client":
         return _cmd_serve_client(args)
     if args.cmd == "scrub":
@@ -560,6 +656,10 @@ def main(argv: list[str] | None = None) -> int:
                                "%(message)s")
     if args.cmd == "serve":
         return _cmd_serve(args)
+    if args.cmd == "ingest":
+        return _cmd_ingest(args)
+    if args.cmd == "restore":
+        return _cmd_restore(args)
     return _cmd_rq(args)
 
 

@@ -1,7 +1,7 @@
 """Shared analysis plumbing: a trimmed copy of ``tse1m_tpu/analysis/
 common.py:24-84``.
 
-``StudyContext.open`` opens the sqlite study, prints the study-design
+``StudyContext.open`` opens the study database (``cfg.engine``), prints the study-design
 lines of the reference transcript (rq1_detection_rate.py:121-153),
 extracts ``StudyArrays`` for the eligible projects (the first 10 in test
 mode) and holds a ``TorchBackend`` on the device asked for.
@@ -19,7 +19,7 @@ from ..backend import TorchBackend
 from ..config import FIXED_STATUSES, Config, load_config
 from ..data.columnar import StudyArrays
 from ..db import queries
-from ..db.sqlite import SqliteDB, connect
+from ..db.connection import DB
 
 
 def limit_date_ns(cfg: Config) -> int:
@@ -39,20 +39,20 @@ def fmt_ts_ns(ns: int) -> str:
 @dataclass
 class StudyContext:
     cfg: Config
-    db: SqliteDB
+    db: DB
     backend: TorchBackend
     projects: list
     arrays: StudyArrays
 
     @classmethod
-    def open(cls, cfg: Config | None = None, db: SqliteDB | None = None,
+    def open(cls, cfg: Config | None = None, db: DB | None = None,
              announce: bool = True,
              device: str | torch.device = "cuda") -> "StudyContext":
         cfg = cfg or load_config()
         # The device first: without a card this raises before any work.
         backend = TorchBackend(device)
         if db is None:
-            db = connect(cfg.sqlite_path)
+            db = DB(config=cfg).connect()
         db.require_study_tables()
         if announce:
             n_all, p_all = _issue_counts(db, cfg, fixed=False)
@@ -85,7 +85,7 @@ class StudyContext:
         return path
 
 
-def _issue_counts(db: SqliteDB, cfg: Config, fixed: bool) -> tuple[int, int]:
+def _issue_counts(db: DB, cfg: Config, fixed: bool) -> tuple[int, int]:
     sql = "SELECT COUNT(*), COUNT(DISTINCT project) FROM issues WHERE rts < ?"
     params: tuple = (cfg.limit_date,)
     if fixed:

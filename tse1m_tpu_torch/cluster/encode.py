@@ -1,6 +1,6 @@
 """Host wire encodings for the cluster pipeline (numpy).
 
-A copy of ``tse1m_tpu/cluster/encode.py``, less its native C++ grouper:
+A copy of ``tse1m_tpu/cluster/encode.py``:
 
 - **Adaptive bit-width packing.**  Every chunk picks its own width from its
   actual value range (min subtracted, so a narrow band high in the id space
@@ -17,6 +17,8 @@ A copy of ``tse1m_tpu/cluster/encode.py``, less its native C++ grouper:
   new values).  Every pair is verified by exact comparison before it is
   encoded, so decode reproduces the input bit for bit whatever the
   sketch's quality.  A 1-bit-per-row mask maps lane ranks back to rows.
+  The grouping pass runs in C++ (``native/encode.cc``) when that library
+  builds, else in numpy (``_group_rows``); both give the same ``rep_of``.
 - **Wire v3 lanes.**  Each chunk and each delta metadata lane is offered to
   the rANS codec (``cluster/entropy.py``) and ships coded when the frame
   beats the bit-packed form (``pack_chunk``, ``pack_lane``,
@@ -30,6 +32,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from . import entropy as ent_mod
 
 # Encoding and quantization engage automatically at or above this raw size.
@@ -138,7 +141,9 @@ def encode_delta(items: np.ndarray, *, max_diffs: int = 16,
     if break_even < 1:
         return None
     max_diffs = min(max_diffs, break_even)
-    rep_of = _group_rows(items, max_diffs, n_probes)
+    rep_of = native.group_delta(items, max_diffs, n_probes)
+    if rep_of is None:
+        rep_of = _group_rows(items, max_diffs, n_probes)
     is_delta = rep_of >= 0
     d = int(is_delta.sum())
     if d < max(1, int(min_delta_fraction * n)):

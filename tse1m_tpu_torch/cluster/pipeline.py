@@ -769,15 +769,14 @@ def cluster_sessions_resumable(items, params: ClusterParams | None = None,
     n = items.shape[0]
     if n == 0:
         return np.empty(0, np.int32)
-    if params.wire_quant_bits == 0 and params.sig_store is None:
+    prior_meta = ClusterCheckpoint.peek_meta(checkpoint_dir)
+    if (prior_meta is not None and params.wire_quant_bits == 0
+            and params.sig_store is None):
         # The shards hold signatures of the width the previous attempt
         # used; an auto re-plan that resolved otherwise would refuse.
-        prior_meta = ClusterCheckpoint.peek_meta(checkpoint_dir)
-        if prior_meta is not None:
-            prior_bits = int(prior_meta.get("wire_quant_bits", 0) or 0)
-            params = replace(params,
-                             wire_quant_bits=prior_bits if prior_bits
-                             else -1)
+        prior_bits = int(prior_meta.get("wire_quant_bits", 0) or 0)
+        params = replace(params,
+                         wire_quant_bits=prior_bits if prior_bits else -1)
     digests = None
     if params.sig_store:
         out = _cluster_with_store(items, params, dev, merge_only=True)
@@ -804,7 +803,7 @@ def cluster_sessions_resumable(items, params: ClusterParams | None = None,
     extra: dict = {}
     if enc is None:
         last_run_info.update(encoding="plain")
-        step = _stream_plan(items, params)
+        step = _resume_step(_stream_plan(items, params), prior_meta)
         if qbits:
             extra["wire_quant_bits"] = qbits
         if keep is not None:
@@ -830,7 +829,7 @@ def cluster_sessions_resumable(items, params: ClusterParams | None = None,
         last_run_info.update(encoding="delta", n_full=enc.n_full,
                              n_delta=enc.n_delta)
         full = enc.full_rows
-        step = _stream_plan(full, params)
+        step = _resume_step(_stream_plan(full, params), prior_meta)
         n_full_chunks = max(1, -(-full.shape[0] // step))
         extra = {"encoding": "delta", "lane_fingerprint": hashlib.blake2b(
             enc.mask_bits.tobytes() + enc.counts.tobytes(),
@@ -873,6 +872,17 @@ def cluster_sessions_resumable(items, params: ClusterParams | None = None,
     _record_wire_v3(full_items, qbits_full, keep, rec)
     _finish_run(rec, t_all, lad)
     return out
+
+
+def _resume_step(step: int, prior_meta: dict | None) -> int:
+    """The step of the checkpoint being resumed, else ``step``.  A run
+    halved by an out-of-memory persists the surviving chunk size, which
+    clamps the next plan; the resume keeps the step its shards were cut
+    at (a chunk too large for the card halves inside itself).  The JAX
+    package re-plans here and refuses its own checkpoint."""
+    if prior_meta is not None and int(prior_meta.get("step", 0) or 0) > 0:
+        return int(prior_meta["step"])
+    return step
 
 
 def _resume_delta_shard(ckpt: ClusterCheckpoint, didx: int, enc,

@@ -1,37 +1,65 @@
-"""Bulk columnar extraction: a sqlite study -> per-project CSR arrays.
+"""Bulk columnar extraction: a study database -> per-project CSR arrays.
 
-A port of ``tse1m_tpu/data/columnar.py:36-579`` along its sqlite path
-without the native decoder, in numpy instead of pandas.  Each table is
-fetched once, ordered by (project, time), and cut into per-project
-segments with offset arrays, ready for ``backend/torch_backend.py``.
+A port of ``tse1m_tpu/data/columnar.py``, in numpy instead of pandas.
+Each table is fetched once, ordered by (project, time), and cut into
+per-project segments with offset arrays, ready for
+``backend/torch_backend.py``.
 
-Decode specs of a fetched column: 'p' project -> code, 't' timestamp text
--> int64 epoch nanoseconds (numpy's ``datetime64[ns]`` parser reads
-sqlite's ``YYYY-MM-DD HH:MM:SS`` and ``YYYY-MM-DD``), 'f' float64 (NULL ->
-NaN), 'c' dictionary codes in first-appearance order with NULL as -1
-(``CodedColumn``), 'b' a lazy bytes arena (``BytesColumn``), 's'/'o' the
-stored objects.  ``StudyArrays.from_db`` gives the arrays the JAX
-package's ``from_db`` gives on the same file (``tests/test_torch_rq_data.py``).
+Decode specs of a fetched column: 'p' project -> code, 't' timestamp
+-> int64 epoch nanoseconds, 'f' float64 (NULL -> NaN), 'c' dictionary
+codes in first-appearance order with NULL as -1 (``CodedColumn``), 'b' a
+lazy bytes arena (``BytesColumn``), 's'/'o' the stored objects.  A table
+of an on-disk sqlite study goes through the native decoder
+(``native/decode.cc``), of a Postgres study through its COPY-binary
+decoder (``native/pg_decode.cc``); where the decoder is missing or its
+strict parsers reject the data (a timestamp with a timezone suffix), that
+table takes the numpy path, which gives the same arrays.
+``StudyArrays.native_decode`` says whether all four tables went native.
+``StudyArrays.from_db`` gives the arrays the JAX package's ``from_db``
+gives on the same file (``tests/test_torch_rq_data.py``,
+``tests/test_torch_native.py``).
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import hashlib
+import logging
+import os
+import warnings
 from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import native
 from ..config import RESULT_OK
 from ..db import queries
 from ..db.ingest import parse_array
 
+log = logging.getLogger("tse1m_tpu_torch.columnar")
+
 STUDY_EPOCH = np.datetime64("2015-01-01T00:00:00", "ns")
 
 
+def _naive_utc(v):
+    """A driver's datetime (Postgres rows) as naive UTC; text unchanged."""
+    if isinstance(v, _dt.datetime) and v.tzinfo is not None:
+        return v.astimezone(_dt.timezone.utc).replace(tzinfo=None)
+    return v
+
+
 def to_epoch_ns(values) -> np.ndarray:
-    """Timestamp text (ISO 8601, date-only or with a space or 'T' before
-    the time) -> int64 epoch nanoseconds."""
-    return np.asarray(list(values), dtype="datetime64[ns]").astype(np.int64)
+    """Timestamps -> int64 epoch nanoseconds: ISO 8601 text (date-only or
+    with a space or 'T' before the time), or a driver's dates and
+    datetimes.  A timezone suffix converts to UTC, as the JAX package's
+    pandas path does (the study's times are all UTC)."""
+    vals = list(values)
+    if vals and not isinstance(vals[0], str):
+        vals = [_naive_utc(v) for v in vals]
+    with warnings.catch_warnings():
+        warnings.filterwarnings(
+            "ignore", message="no explicit representation of timezones")
+        return np.asarray(vals, dtype="datetime64[ns]").astype(np.int64)
 
 
 def ns_to_device_s(ns: np.ndarray) -> np.ndarray:
@@ -97,7 +125,10 @@ class CodedColumn:
     @classmethod
     def factorize(cls, vals) -> "CodedColumn":
         """Codes in order of first appearance, None -> -1 (the order
-        ``pd.factorize`` gives)."""
+        ``pd.factorize`` gives).  A driver's list cells (Postgres
+        ``TEXT[]``) are coded as tuples."""
+        if any(isinstance(v, list) for v in vals):
+            vals = [tuple(v) if isinstance(v, list) else v for v in vals]
         uniq = [v for v in dict.fromkeys(vals) if v is not None]
         lookup = {v: i for i, v in enumerate(uniq)}
         lookup[None] = -1
@@ -202,11 +233,92 @@ def masked_csr(offsets: np.ndarray, mask: np.ndarray):
     return pos, running[offsets]
 
 
+def _native_db_path(db) -> str | None:
+    """The file the native sqlite decoder opens (read-only, its own
+    connection), or None: not sqlite, in memory, or not on disk."""
+    if getattr(db, "dialect", None) != "sqlite":
+        return None
+    path = getattr(db.config, "sqlite_path", None)
+    if not path or path == ":memory:" or not os.path.exists(path):
+        return None
+    return path
+
+
+def _native_pg_conninfo(db) -> str | None:
+    """libpq conninfo of the native Postgres decoder (its own
+    connection), or None off Postgres."""
+    if getattr(db, "dialect", None) != "postgres":
+        return None
+    from ..db import pglib
+
+    pg = db.config.postgres
+    return pglib.conninfo(pg.database, pg.user, pg.password, pg.host,
+                          pg.port)
+
+
+def _inline_params(sql: str, params) -> str:
+    """qmark SQL + params -> literal SQL (a COPY statement takes no
+    parameters).  Values are the study's own strings and numbers; strings
+    escape by ''-doubling.  The query builders put no literal '?' in SQL
+    text, so the split is exact."""
+    parts = sql.split("?")
+    if len(parts) != len(params) + 1:
+        raise ValueError("placeholder/param count mismatch")
+    out = [parts[0]]
+    for p, nxt in zip(params, parts[1:]):
+        if p is None:
+            lit = "NULL"
+        elif isinstance(p, (int, float)):
+            lit = str(p)
+        else:
+            lit = "'" + str(p).replace("'", "''") + "'"
+        out.append(lit)
+        out.append(nxt)
+    return "".join(out)
+
+
+def _pg_copy_sql(sql: str, params, spec: str) -> str:
+    """A bulk query wrapped in ``COPY ... TO STDOUT (FORMAT binary)``, its
+    columns aliased by position and the text-spec'd ones cast ``::text``,
+    so array columns arrive in their Postgres literal form."""
+    inner = _inline_params(sql, params)
+    alias = ", ".join(f'"c{i}"' for i in range(len(spec)))
+    sel = ", ".join(f'q."c{i}"::text' if sp in "pscubo" else f'q."c{i}"'
+                    for i, sp in enumerate(spec))
+    return (f"COPY (SELECT {sel} FROM ({inner}) AS q({alias})) "
+            "TO STDOUT (FORMAT binary)")
+
+
+def _fetch_native(db, sql: str, params, spec: str, projects: list):
+    """The native decoder's columns of one bulk query, or None when the
+    decoder is missing, the database is not one it reads, or its strict
+    parsers reject the data."""
+    try:
+        path = _native_db_path(db)
+        if path is not None:
+            return native.fetch_table(path, sql, params, spec, projects)
+        conninfo = _native_pg_conninfo(db)
+        if conninfo is not None:
+            return native.fetch_table_pg(
+                conninfo, _pg_copy_sql(sql, params, spec), spec, projects)
+    except RuntimeError as e:
+        log.info("native decode fell back to numpy: %s", e)
+    return None
+
+
+def _by_project(out: dict, key: str) -> tuple[dict, np.ndarray]:
+    """Columns stably re-sorted by project code (SQL's collation may order
+    project names otherwise than Python; the stable sort keeps SQL's time
+    order within a project)."""
+    codes = out.pop(key).astype(np.int64, copy=False)
+    order = np.argsort(codes, kind="stable")
+    return {c: v[order] for c, v in out.items()}, codes[order]
+
+
 def _fetch(db, sql: str, params, cols: list, spec: str,
            pidx: dict) -> tuple[dict, np.ndarray]:
-    """One bulk query -> ({col: array}, project codes), stably re-sorted
-    by project code (SQL's collation may order project names otherwise
-    than Python; the stable sort keeps SQL's time order within one)."""
+    """One bulk query through the driver -> ({col: array}, project codes)
+    sorted by project code."""
     rows = db.query(sql, params)
     cells = list(zip(*rows)) if rows else [()] * len(cols)
     out = {}
@@ -221,15 +333,28 @@ def _fetch(db, sql: str, params, cols: list, spec: str,
                               dtype=np.float64)
         elif sp == "c":
             out[c] = CodedColumn.factorize(vals)
-        elif sp == "b":
+        elif sp == "b" and all(v is None or isinstance(v, str)
+                               for v in vals):
             out[c] = BytesColumn.from_objects(vals)
         else:
+            # 's', 'o', and a driver's list cells in a 'b' column.
             arr = np.empty(len(vals), dtype=object)
             arr[:] = vals
             out[c] = arr
-    codes = out.pop(cols[0])
-    order = np.argsort(codes, kind="stable")
-    return {c: v[order] for c, v in out.items()}, codes[order]
+    return _by_project(out, cols[0])
+
+
+def _from_native(raw: tuple, cols: list, spec: str) -> tuple[dict,
+                                                              np.ndarray]:
+    out = {}
+    for c, sp, v in zip(cols, spec, raw):
+        if sp == "c":
+            out[c] = CodedColumn(*v)
+        elif sp == "b":
+            out[c] = BytesColumn(*v)
+        else:
+            out[c] = v
+    return _by_project(out, cols[0])
 
 
 def _ok_mask(result_col: CodedColumn) -> np.ndarray:
@@ -249,6 +374,8 @@ class StudyArrays:
     #                    grouphash
     issues: Segmented  # time_ns, number, status, crash_type
     cov: Segmented     # date_ns, coverage, covered, total
+    # True when all four tables went through the native decoder.
+    native_decode: bool = False
 
     @property
     def n_projects(self) -> int:
@@ -262,7 +389,8 @@ class StudyArrays:
                 ) -> "StudyArrays":
         """Extract the study of ``projects`` (default: the eligible ones
         under ``cfg.min_coverage_days`` and ``cfg.limit_date``) from an
-        open ``SqliteDB``."""
+        open ``DB``, each table through the native decoder where it
+        applies, else through the driver and numpy."""
         if projects is None:
             sql, params = queries.eligible_projects(cfg.min_coverage_days,
                                                     cfg.limit_date)
@@ -271,11 +399,20 @@ class StudyArrays:
         pidx = {p: i for i, p in enumerate(projects)}
         n = len(projects)
         plus1 = str(np.datetime64(cfg.limit_date) + np.timedelta64(1, "D"))
+        n_native = 0
 
-        ftb, fcodes = _fetch(
-            db, *queries.all_fuzzing_builds_bulk(projects),
+        def fetch(query, cols: list, spec: str):
+            nonlocal n_native
+            raw = _fetch_native(db, *query, spec, projects)
+            if raw is None:
+                return _fetch(db, *query, cols, spec, pidx)
+            n_native += 1
+            return _from_native(raw, cols, spec)
+
+        ftb, fcodes = fetch(
+            queries.all_fuzzing_builds_bulk(projects),
             ["project", "name", "timecreated", "result", "modules",
-             "revisions"], "pbtcbb", pidx)
+             "revisions"], "pbtcbb")
         fuzz = Segmented(
             offsets=_offsets_from_sorted_codes(fcodes, n),
             columns={"time_ns": ftb["timecreated"], "name": ftb["name"],
@@ -286,10 +423,10 @@ class StudyArrays:
         # RQ2's group key: equality of the (modules, revisions) pair
         # (rq2_coverage_and_added.py:129), as one int64 of the two codes
         # (+1 folds NULL into its own group).
-        ctb, ccodes = _fetch(
-            db, *queries.coverage_builds_bulk(projects),
+        ctb, ccodes = fetch(
+            queries.coverage_builds_bulk(projects),
             ["project", "timecreated", "modules", "revisions", "result"],
-            "ptccc", pidx)
+            "ptccc")
         if len(ccodes):
             cm = ctb["modules"].codes.astype(np.int64) + 1
             cr = ctb["revisions"].codes.astype(np.int64) + 1
@@ -304,11 +441,10 @@ class StudyArrays:
                      "revisions_raw": ctb["revisions"],
                      "grouphash": ghash})
 
-        itb, icodes = _fetch(
-            db, *queries.issues_bulk(projects, cfg.limit_date,
-                                     fixed_only=True),
+        itb, icodes = fetch(
+            queries.issues_bulk(projects, cfg.limit_date, fixed_only=True),
             ["project", "number", "rts", "status", "crash_type",
-             "severity"], "potsss", pidx)
+             "severity"], "potsss")
         issues = Segmented(
             offsets=_offsets_from_sorted_codes(icodes, n),
             columns={"time_ns": itb["rts"], "number": itb["number"],
@@ -317,16 +453,15 @@ class StudyArrays:
 
         # Daily coverage up to the cutoff + 1 day: RQ3 reads the boundary
         # day (rq3:263); every other reader masks back to the cutoff.
-        vtb, vcodes = _fetch(
-            db, *queries.total_coverage_bulk(projects, plus1),
-            ["project", "date", "coverage", "covered", "total"], "ptfff",
-            pidx)
+        vtb, vcodes = fetch(
+            queries.total_coverage_bulk(projects, plus1),
+            ["project", "date", "coverage", "covered", "total"], "ptfff")
         cov = Segmented(
             offsets=_offsets_from_sorted_codes(vcodes, n),
             columns={"date_ns": vtb["date"], "coverage": vtb["coverage"],
                      "covered": vtb["covered"], "total": vtb["total"]})
         return cls(projects=projects, fuzz=fuzz, covb=covb, issues=issues,
-                   cov=cov)
+                   cov=cov, native_decode=n_native == 4)
 
     def fuzz_revhash_at(self, idx: np.ndarray) -> np.ndarray:
         """Revision-set hashes of the given fuzz rows, memoised per row."""

@@ -12,6 +12,7 @@ formats the timestamps in bulk at the end.
 from __future__ import annotations
 
 import csv
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -89,7 +90,7 @@ class SynthStudy:
                                  load_issues, load_project_info,
                                  load_total_coverage)
         from ..db.schema import create_schema
-        from ..db.sqlite import connect
+        from ..db.connection import connect
 
         with connect(path) as db:
             create_schema(db)
@@ -99,17 +100,31 @@ class SynthStudy:
             load_issues(db, _rows(self.issues))
             derive_projects(db)
 
+    def to_csv_dir(self, path: str) -> None:
+        """The study as the collectors' CSVs in ``path``: ``<table>.csv``
+        for the four study tables (what ``db.ingest.ingest_csv_dir``
+        reads) and ``project_corpus_analysis.csv``, each byte for byte
+        what the JAX package's ``to_csv(path, index=False)`` writes."""
+        os.makedirs(path, exist_ok=True)
+        for name in ("project_info", "buildlog_data", "total_coverage",
+                     "issues"):
+            _write_csv(getattr(self, name), os.path.join(path, f"{name}.csv"))
+        self.write_corpus_csv(os.path.join(path,
+                                           "project_corpus_analysis.csv"))
+
     def write_corpus_csv(self, path: str) -> None:
-        """The corpus-analysis table as the CSV that RQ4a and RQ4b read,
-        byte for byte what the JAX package's
-        ``corpus_analysis.to_csv(path, index=False)`` writes: a header,
-        '\n' line ends, ``True``/``False``, empty cells and each float's
-        shortest repr."""
-        table = self.corpus_analysis
-        with atomic_write(path, newline="") as f:
-            w = csv.writer(f, lineterminator="\n")
-            w.writerow(list(table))
-            w.writerows(zip(*table.values()))
+        """The corpus-analysis table as the CSV that RQ4a and RQ4b read."""
+        _write_csv(self.corpus_analysis, path)
+
+
+def _write_csv(table: dict, path: str) -> None:
+    """One table as pandas' ``to_csv(index=False)`` writes it: a header,
+    '\n' line ends, minimal quoting, ``True``/``False``, empty cells and
+    each float's shortest repr."""
+    with atomic_write(path, newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(list(table))
+        w.writerows(zip(*table.values()))
 
 
 def _fmt_s(secs: list) -> list:

@@ -1,6 +1,7 @@
-"""The study database, sqlite only: connection, schema, row loaders and
-the RQ path's queries."""
+"""The study database: the connection (sqlite, or Postgres through
+psycopg2 or libpq), schema, CSV ingest, dump restore and the RQ path's
+queries."""
 
-from .sqlite import SqliteDB, connect
+from .connection import DB, connect
 
-__all__ = ["SqliteDB", "connect"]
+__all__ = ["DB", "connect"]

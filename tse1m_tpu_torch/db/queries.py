@@ -1,9 +1,11 @@
-"""Parameterized queries of the RQ path, sqlite dialect: copies of
-``tse1m_tpu/db/queries.py``'s ``eligible_projects`` (:56), the four bulk
-fetches (``all_fuzzing_builds_bulk`` :88, ``coverage_builds_bulk`` :111,
-``total_coverage_bulk`` :215, ``issues_bulk`` :232) and RQ1's diagnostic
-``issues_without_matching_build`` (:161).  Every builder returns
-``(sql, params)``; values are always bound, never interpolated.
+"""Parameterized queries of the RQ path and ``stats``: copies of
+``tse1m_tpu/db/queries.py``'s ``count_projects`` (:47),
+``eligible_projects`` (:56), the four bulk fetches
+(``all_fuzzing_builds_bulk`` :88, ``coverage_builds_bulk`` :111,
+``total_coverage_bulk`` :215, ``issues_bulk`` :232), RQ1's diagnostic
+``issues_without_matching_build`` (:161) and ``severity_issues`` (:181).
+Every builder returns ``(sql, params)`` with ``?`` placeholders; values
+are always bound, never interpolated.
 """
 
 from __future__ import annotations
@@ -21,6 +23,15 @@ def _in(values: Sequence[str]) -> str:
     if not values:
         return "(NULL)"
     return "(" + ",".join("?" * len(values)) + ")"
+
+
+def count_projects() -> Query:
+    # queries1.py:6-11
+    return (
+        "SELECT project_name, COUNT(*) AS frequency FROM projects "
+        "GROUP BY project_name ORDER BY frequency DESC",
+        (),
+    )
 
 
 def eligible_projects(min_days: int = 365,
@@ -80,6 +91,26 @@ def issues_without_matching_build(targets: Sequence[str],
     return sql, (*FIXED_STATUSES, *targets, *RESULT_OK, limit_date)
 
 
+def severity_issues(severity: str, targets: Sequence[str], dialect: str,
+                    limit_date: str = DEFAULT_LIMIT_DATE) -> Query:
+    """Issues of a severity with at least one non-null regressed build
+    (queries1.py:104-118; unnest on Postgres, json_each on sqlite)."""
+    if dialect == "postgres":
+        exists = ("EXISTS (SELECT 1 FROM unnest(regressed_build) AS b "
+                  "WHERE b IS NOT NULL)")
+    else:
+        exists = ("regressed_build IS NOT NULL AND EXISTS ("
+                  "SELECT 1 FROM json_each(regressed_build) "
+                  "WHERE json_each.value IS NOT NULL)")
+    return (
+        "SELECT project, rts, regressed_build, severity FROM issues "
+        f"WHERE project IN {_in(targets)} AND rts < ? AND severity = ? "
+        f"AND {exists} "
+        "ORDER BY project, rts, number",
+        (*targets, limit_date, severity),
+    )
+
+
 def total_coverage_bulk(targets: Sequence[str],
                         limit_date: str = DEFAULT_LIMIT_DATE) -> Query:
     """All coverage rows before ``limit_date``, unfiltered (callers pass
@@ -108,6 +139,7 @@ def issues_bulk(targets: Sequence[str], limit_date: str = DEFAULT_LIMIT_DATE,
     return sql, params
 
 
-__all__ = ["all_fuzzing_builds_bulk", "coverage_builds_bulk",
-           "eligible_projects", "issues_bulk",
-           "issues_without_matching_build", "total_coverage_bulk"]
+__all__ = ["all_fuzzing_builds_bulk", "count_projects",
+           "coverage_builds_bulk", "eligible_projects", "issues_bulk",
+           "issues_without_matching_build", "severity_issues",
+           "total_coverage_bulk"]

@@ -9,15 +9,15 @@ from .faults import (FaultPlan, FaultRule, InjectedConnectionDrop,
                      InjectedFault, active_plan, clear_plan, fault_point,
                      install_plan, reraise_if_fault)
 from .watchdog import (StageWatchdog, StallError, StickyDeviceError,
-                       deadline_clock, is_device_loss, is_resource_exhausted,
-                       is_sticky_cuda_error, request_budget_s,
-                       run_with_deadline, terminal_device_error,
-                       watchdog_enabled)
+                       deadline_clock, deadline_guard, is_device_loss,
+                       is_resource_exhausted, is_sticky_cuda_error,
+                       request_budget_s, run_with_deadline,
+                       terminal_device_error, watchdog_enabled)
 
 __all__ = ["FaultPlan", "FaultRule", "InjectedConnectionDrop",
            "InjectedFault", "StageWatchdog", "StallError",
            "StickyDeviceError", "active_plan", "clear_plan",
-           "deadline_clock", "fault_point", "install_plan",
+           "deadline_clock", "deadline_guard", "fault_point", "install_plan",
            "is_device_loss", "is_resource_exhausted", "is_sticky_cuda_error",
            "request_budget_s", "reraise_if_fault", "run_with_deadline",
            "terminal_device_error", "watchdog_enabled"]

@@ -1,5 +1,5 @@
 """Watchdog supervision: a copy of
-``tse1m_tpu/resilience/watchdog.py:49-66, 85-121, 160-326``.
+``tse1m_tpu/resilience/watchdog.py:49-66, 85-172, 160-326``.
 
 - :func:`deadline_clock`: the one clock of every deadline, latency window
   and span in the port (monotonic; immune to NTP steps).
@@ -20,12 +20,13 @@
   markers, ``ConnectionError`` and ``StallError``) and
   :func:`is_sticky_cuda_error`: a CUDA error that leaves the context
   unusable, which no rung retries (:func:`terminal_device_error`).
+- :func:`deadline_guard`: an absolute deadline over in-thread work with
+  a cooperative cancel (the study database's statement deadline,
+  ``db/connection.py``).
 - :func:`request_budget_s`: the serving daemon's per-request-class budgets
   (``TSE1M_SERVE_<CLASS>_BUDGET_S``).
 
-``deadline_guard`` and ``Deadline`` are left out: the JAX package calls
-them only from its Postgres connection (ROADMAP.md Queue 1, "Postgres and
-native extraction").
+The JAX package's ``Deadline`` class is left out: nothing calls it.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import logging
 import os
 import threading
 import time
+from contextlib import contextmanager
 from typing import Callable
 
 import torch
@@ -87,6 +89,47 @@ def run_with_deadline(fn: Callable, budget_s: float, site: str):
     if "error" in box:
         raise box["error"]
     return box.get("result")
+
+
+@contextmanager
+def deadline_guard(budget_s: float, on_timeout: Callable[[], None],
+                   site: str = ""):
+    """Absolute deadline for in-thread work with a cooperative cancel.
+
+    Arms a timer that calls ``on_timeout()`` (e.g.
+    ``sqlite3.Connection.interrupt``) once ``budget_s`` elapses while the
+    body is still running; the interrupted operation then fails in-thread
+    with its own exception, after a ``deadline_interrupt`` degradation
+    event.  The hook never fires after the body completed (the completion
+    flag is checked under a lock), so a near miss cannot interrupt a later
+    statement.  0 or None: no deadline."""
+    if budget_s is None or budget_s <= 0:
+        yield
+        return
+    state = {"done": False}
+    lock = threading.Lock()
+
+    def fire() -> None:
+        with lock:
+            if state["done"]:
+                return
+        from ..observability import record_degradation
+
+        record_degradation("deadline_interrupt", site=site,
+                           detail={"budget_s": budget_s})
+        log.warning("%s: deadline %.2fs exceeded; interrupting", site,
+                    budget_s)
+        on_timeout()
+
+    timer = threading.Timer(budget_s, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        with lock:
+            state["done"] = True
+        timer.cancel()
 
 
 # -- device-failure classification -------------------------------------------
@@ -274,6 +317,6 @@ def request_budget_s(request_class: str) -> float:
 
 
 __all__ = ["StageWatchdog", "StallError", "StickyDeviceError",
-           "deadline_clock", "is_device_loss", "is_resource_exhausted",
+           "deadline_clock", "deadline_guard", "is_device_loss", "is_resource_exhausted",
            "is_sticky_cuda_error", "request_budget_s", "run_with_deadline",
            "terminal_device_error", "watchdog_enabled"]
