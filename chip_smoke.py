@@ -149,10 +149,50 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    stages, the child's wall and return code, the shard bytes on disk, the
    calibrated step, peak device memory and the card; the ``kernels`` line
    adds each kernel's launches there under ``resilience_launches``;
+3e. the sharded serving plane over phase 3b's 1,050,000 rows at full width,
+   under the gitignored build/sharded_smoke/: the 1M base rows split by
+   ``digest_range_ids(row_digests(rows), 4)`` and each range populated
+   into ``root/range_000N`` with ``cluster_sessions(sig_store=...)`` at
+   the 10-bit kminhash policy (the MinHash kernel); a replica of range 1
+   pulled then; the uninterrupted oracle in process over copies of the
+   four stores: a ``ShardRouter`` over four ``LocalTransport(ServeDaemon(
+   device=cuda, state_commit_every=1))`` routes the 50,000-row tail in
+   4,096-row batches (the MinHash kernel at least once a shard slice with
+   novel rows, the rANS kernel at most once a slice where the entropy
+   gate codes a chunk padded to a power of two, no other kernel),
+   quiesces and queries all 1,050,000 rows
+   through the router; then the failover round in child processes: four
+   ``python -m tse1m_tpu_torch serve --root R --range N`` on the card and
+   a ``serve-router --root R --shards 4`` driven by a ``ServeClient``, the
+   same tail routed with the same request ids while shard 0 runs under a
+   plan that SIGKILLs it at ``serve.ingest.commit`` on its third commit
+   (a watcher respawns it; the respawn claims lease epoch 2) and the
+   router's plan drops shard 2's answer of batch 8 (its ack replayed from
+   the shard's journal): every batch acked, no acked row lost, every
+   label equal to the oracle round's element for element, the index and
+   store rows the oracle's (none absorbed twice), one replayed ack in the
+   router's status; then, with the children up, the replica is exactly
+   the writer's unpulled generations stale, pulled and refreshed to 0,
+   its labels shard 1's, its scan on the card (the top-k kernel once a
+   chunk) equal to ``score_topk_host`` over range 1's store, its ingest
+   refused; ``backfill --sig-store R/range_0002`` in process (the top-k
+   kernel) equal to ``score_topk_host`` and ``backfill --port-file`` of
+   the router equal to each store's host top-k merged by (-count, digest),
+   the union's; last, a daemon on range 0's old lease epoch appends zero
+   rows.  One ``serve_sharded`` JSON line (populate s per range, routed
+   rows/s of both rounds, the failover s from the kill to the
+   replacement's first ack, the replica's pull s and bytes and staleness,
+   both backfills' pairs_scored_s, the launches, peak device memory in
+   this process, the card); the ``kernels`` line adds each kernel's
+   launches there under ``sharded_launches``; the children's transcripts
+   go to build/sharded_smoke/*.log;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
-   committed artifacts equal to tests/goldens/synth8/ byte for byte; then
+   committed artifacts equal to tests/goldens/synth8/ byte for byte, and
+   its 22 figures drawn where matplotlib imports, or else (the card's
+   machine has none) no PDF written and every one of them listed under
+   ``figures_skipped`` in the drivers' manifests; then
    a study of the paper's scale (446 projects x 1,600 days, ~1M fuzzing
    builds, cutoff 2026-01-01) generated, written to sqlite under the
    gitignored build/ with its corpus CSV, extracted on the numpy path (the
@@ -160,7 +200,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    suite and the six single calls on the card held against
    TorchBackend("cpu") on the same arrays (exact, Spearman and mean
    within 2e-5); the extraction, each RQ and the suite timed warm (median
-   of 5), printed as one ``rq_path`` JSON line with the row counts, peak
+   of 3; of 5 until phase 3e joined the script), printed as one ``rq_path`` JSON line with the row counts, peak
    device memory, host generation and write times and the card's name
    and power limit; then ``all`` once over that study on the card with
    the corpus CSV's G1/G2 groups: every step ok in run_manifest.json,
@@ -171,8 +211,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    native decoder, as a user's ``all`` does);
 4b. the study arrives, under the gitignored build/load_smoke/: phase 4's
    study written as the collectors' CSVs (``to_csv_dir``) and loaded by
-   ``python -m tse1m_tpu_torch ingest`` in a child process; written as a
-   pg_dump (COPY blocks with comment, SET, CREATE and ALTER noise, the
+   ``python -m tse1m_tpu_torch ingest`` in a child process; meanwhile
+   written as a pg_dump (COPY blocks with comment, SET, CREATE and ALTER noise, the
    analyzer's 'Success' for 'Finish', NULL arrays, YAML cells with a tab, a
    newline and a backslash, and a block of a table outside the study) and
    loaded by a child ``restore``: every table's rows as written, the
@@ -180,7 +220,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    child ``stats`` of phase 4's file and of both copies, the same lines;
    both copies extracted by the native decoder (``native_decode``) to
    phase 4's numpy arrays, numbers element for element and text by value,
-   and the restored copy timed warm (median of 5) against phase 4's numpy
+   and the restored copy timed warm (median of 3) against phase 4's numpy
    extraction; the fused suite on the card over the restored copy's arrays
    equal to phase 4's, every field exact; the native delta grouper's
    ``rep_of`` at (c)'s 647,790 kept rows equal to numpy's ``_group_rows``,
@@ -217,6 +257,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import csv
+import io
 import json
 import os
 import shutil
@@ -252,6 +293,7 @@ from tse1m_tpu_torch.cluster.minhash import mul_u32
 from tse1m_tpu_torch.cluster.observability import StageRecorder
 from tse1m_tpu_torch.cluster.schemes import (make_params,
                                              scheme_host_signatures)
+from tse1m_tpu_torch.cluster.store import digest_range_ids
 from tse1m_tpu_torch.config import Config as StudyConfig
 from tse1m_tpu_torch.data import columnar
 from tse1m_tpu_torch.data.columnar import BytesColumn, CodedColumn, StudyArrays
@@ -261,7 +303,12 @@ from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
 from tse1m_tpu_torch.observability import (degradation_counts,
                                            pop_degradation_events)
 from tse1m_tpu_torch.resilience import FaultPlan
-from tse1m_tpu_torch.serve import ServeClient, ServeDaemon, ServeServer
+from tse1m_tpu_torch.resilience.coordinator import (LeaseSupersededError,
+                                                    RangeLeaseGuard,
+                                                    read_lease)
+from tse1m_tpu_torch.serve import (LocalTransport, ServeClient, ServeDaemon,
+                                   ServeReplica, ServeServer, ShardRouter,
+                                   replica_staleness, stream_shards)
 
 N_SESSIONS = 1_000_000
 N_FORCED = 100_000
@@ -1660,6 +1707,558 @@ def serve_phase(warm: dict, dev) -> dict:
     return line
 
 
+SHARD_DIR = os.path.join(ROOT, "build", "sharded_smoke")  # gitignored
+SHARD_ROOT = os.path.join(SHARD_DIR, "root")
+SHARDS = 4                    # phase 3e: digest ranges, one daemon each
+SHARD_KILL_AFTER = 2          # phase 3e: shard 0 dies at its third commit
+SHARD_DROP_BATCH = 8          # phase 3e: the router loses shard 2's ack of
+                              # this batch (the lost-ack window)
+SHARD_QUERY_ROWS = 16_384     # phase 3e: rows a routed query request
+
+
+def shard_params() -> pipeline.ClusterParams:
+    return pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS)
+
+
+def range_dir(root: str, sid: int) -> str:
+    return os.path.join(root, f"range_{sid:04d}")
+
+
+def routed_query(query, items) -> tuple:
+    """(labels, known) of ``items`` through ``query``, in requests of
+    SHARD_QUERY_ROWS rows."""
+    labels, known = [], []
+    for lo in range(0, items.shape[0], SHARD_QUERY_ROWS):
+        r = query(items[lo:lo + SHARD_QUERY_ROWS])
+        labels.append(np.asarray(r["labels"], np.int64))
+        known.append(np.asarray(r["known"], bool))
+    return np.concatenate(labels), np.concatenate(known)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def sharded_populate(base, dev) -> dict:
+    """Phase 3e, step 1: the 1M base rows split by digest range, each range
+    populated into its own store at the 10-bit kminhash policy."""
+    owner = digest_range_ids(row_digests(base), SHARDS)
+    fresh_dir(SHARD_DIR)
+    walls, launches = [], {}
+    for sid in range(SHARDS):
+        rows = base[owner == sid]
+        d = range_dir(SHARD_ROOT, sid)
+        _, counts, wall = counted(lambda: pipeline.cluster_sessions(
+            rows, store_params(d, quant_bits=10), device=dev))
+        info = pipeline.last_run_info
+        store = SignatureStore.open_existing(d)
+        if not (info["cache_mode"] == "union"
+                and info["cache_hit_rate"] == 0.0
+                and store.policy["quant_bits"] == 10
+                and store.policy["scheme"] == "kminhash"
+                and 0 < store.n_rows <= rows.shape[0]):
+            raise AssertionError(f"range {sid} populate: {info}, policy "
+                                 f"{store.policy}, {store.n_rows} rows")
+        expect_launches(counts, {"minhash_and_keys": (1, None)})
+        add_counts(launches, counts)
+        walls.append(wall)
+        log(f"  range {sid}: {rows.shape[0]} rows populated in {wall:.3f} s "
+            f"({store.n_rows} stored), launches {counts}")
+    return {"populate_s": walls, "owner": owner, "launches": launches,
+            "range_rows": [int((owner == s).sum()) for s in range(SHARDS)]}
+
+
+def sharded_oracle(items, dev) -> dict:
+    """Phase 3e, step 2: the uninterrupted round in process, over copies of
+    the four stores: a ShardRouter over four LocalTransport(ServeDaemon)
+    on the card routes the tail in 4,096-row batches (the MinHash kernel
+    at least once a shard slice with novel rows, the rANS kernel at most
+    once, no other kernel), then quiesce and every row queried through
+    the router."""
+    oroot = os.path.join(SHARD_DIR, "oracle")
+    shutil.copytree(SHARD_ROOT, oroot)
+    tail = items[WARM_BASE:]
+    daemons = {sid: ServeDaemon(range_dir(oroot, sid), params=shard_params(),
+                                state_commit_every=1, device=dev).start()
+               for sid in range(SHARDS)}
+    router = ShardRouter({sid: LocalTransport(d)
+                          for sid, d in daemons.items()})
+    launches, novel_slices = {}, 0
+    try:
+        t0 = time.perf_counter()
+        for i, lo in enumerate(range(0, tail.shape[0], SERVE_BATCH)):
+            batch = tail[lo:lo + SERVE_BATCH]
+            before = [d.store.n_rows for d in daemons.values()]
+            ack, counts, _ = counted(lambda: router.ingest(
+                batch, timeout=LONG_REQUEST_S, request_id=f"b{i:04d}"))
+            grown = sum(d.store.n_rows > b
+                        for d, b in zip(daemons.values(), before))
+            if not (ack["ok"] and ack["acked"] == batch.shape[0]):
+                raise AssertionError(f"oracle batch {i}: {ack}")
+            # A slice's novel rows pad to a power of two with copies of
+            # row 0; the plain lane's entropy gate may code such a chunk,
+            # which the rANS kernel then decodes.
+            expect_launches(counts, {"minhash_and_keys": (grown, None),
+                                     "rans_decode": (0, grown)})
+            novel_slices += grown
+            add_counts(launches, counts)
+        ingest_s = time.perf_counter() - t0
+        router.quiesce(timeout=LONG_REQUEST_S)
+        t0 = time.perf_counter()
+        labels, known = routed_query(router.query, items)
+        query_s = time.perf_counter() - t0
+        if not known.all():
+            raise AssertionError("oracle round: a routed row is unknown")
+        rows = sum(int(d._index.n_rows) for d in daemons.values())
+        store_rows = sum(int(d.store.n_rows) for d in daemons.values())
+    finally:
+        router.close()
+        for d in daemons.values():
+            d.stop()
+    if rows != items.shape[0]:
+        raise AssertionError(f"oracle round: {rows} index rows")
+    log(f"  oracle round in process: {tail.shape[0]} tail rows routed in "
+        f"{ingest_s:.3f} s ({novel_slices} slices with novel rows, "
+        f"launches {launches}); {items.shape[0]} rows queried in "
+        f"{query_s:.3f} s, all known; {store_rows} store rows")
+    return {"labels": labels, "rows": rows, "store_rows": store_rows,
+            "ingest_s": ingest_s, "query_s": query_s,
+            "launches": launches, "novel_slices": novel_slices}
+
+
+def spawn_child(args: list, log_name: str, plan: str | None = None):
+    env = dict(os.environ)
+    env.pop("TSE1M_FAULT_PLAN", None)
+    if plan:
+        env["TSE1M_FAULT_PLAN"] = plan
+    with open(os.path.join(SHARD_DIR, log_name), "w") as f:
+        return subprocess.Popen([sys.executable, "-m", "tse1m_tpu_torch",
+                                 *args], env=env, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT)
+
+
+def wait_port(proc, port_file: str, what: str) -> int:
+    deadline = time.monotonic() + CHILD_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if os.path.exists(port_file):
+            with open(port_file, encoding="utf-8") as f:
+                txt = f.read().strip()
+            if txt:
+                return int(txt)
+        if proc.poll() is not None:
+            raise AssertionError(f"{what} exited (rc {proc.returncode}) "
+                                 "before it bound its port")
+        time.sleep(0.05)
+    raise AssertionError(f"{what} wrote no port file in "
+                         f"{CHILD_TIMEOUT_S} s")
+
+
+def start_shard(sid: int, plan: str | None = None):
+    """``serve --root R --range sid`` in a child process on the card."""
+    port_file = os.path.join(SHARD_ROOT, f"serve_{sid:04d}.port")
+    if os.path.exists(port_file):  # never race a stale port
+        os.remove(port_file)
+    return spawn_child(["serve", "--root", SHARD_ROOT, "--range", str(sid)],
+                       f"shard_{sid}_{time.monotonic_ns()}.log", plan)
+
+
+def shard_port(proc, sid: int) -> int:
+    return wait_port(proc, os.path.join(SHARD_ROOT, f"serve_{sid:04d}.port"),
+                     f"shard {sid}")
+
+
+def stop_child(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def host_topk(store, qbits: int, queries: np.ndarray) -> tuple:
+    """score_topk_host over every row of ``store`` in scan order, answered
+    as the topk verb answers: digest ids, hits sorted by (-count, digest
+    hex), ("", -1) padding.  The queries are signed on the host and split
+    over threads (numpy releases the GIL), 8 to a call."""
+    loc = store_scan_locator(store, np.arange(store.n_rows))
+    sigs = store.load_signatures(loc[:, 0], loc[:, 1])
+    hp = make_params("kminhash", N_HASHES, 0)
+    qs = scheme_host_signatures(quantize_ids(queries, qbits), hp)
+    with ThreadPoolExecutor(8) as ex:
+        parts = list(ex.map(lambda lo: score_topk_host(
+            qs[lo:lo + 8], sigs, TOPK_K), range(0, qs.shape[0], 8)))
+    scores, ids = [], []
+    for counts, rows in zip(np.concatenate([p[0] for p in parts]),
+                            np.concatenate([p[1] for p in parts])):
+        ok = rows >= 0
+        dg = store.load_digests(loc[rows[ok], 0], loc[rows[ok], 1])
+        hits = sorted(zip(counts[ok].tolist(),
+                          ["%016x%016x" % (int(a), int(b)) for a, b in dg]),
+                      key=lambda h: (-h[0], h[1]))
+        pad = TOPK_K - len(hits)
+        scores.append([c for c, _ in hits] + [-1] * pad)
+        ids.append([h for _, h in hits] + [""] * pad)
+    return scores, ids
+
+
+def merged_topk(per_store: list) -> tuple:
+    """Each store's host top-k merged as the router merges them: every
+    hit of every store by (-count, digest hex), the first k kept."""
+    scores, ids = [], []
+    for q in range(len(per_store[0][0])):
+        hits = sorted(((c, h) for s, i in per_store
+                       for c, h in zip(s[q], i[q]) if c >= 0),
+                      key=lambda t: (-t[0], t[1]))[:TOPK_K]
+        pad = TOPK_K - len(hits)
+        scores.append([c for c, _ in hits] + [-1] * pad)
+        ids.append([h for _, h in hits] + [""] * pad)
+    return scores, ids
+
+
+def run_backfill(args: list) -> dict:
+    """``python -m tse1m_tpu_torch backfill`` in this process; its summary
+    line."""
+    from tse1m_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["backfill", *args])
+    if rc != 0:
+        raise AssertionError(f"backfill {args}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def sharded_failover(items, owner_all, oracle: dict, replica, dev) -> dict:
+    """Phase 3e, steps 3-5, over the populated stores: four shard children
+    and a router child on the card, shard 0 SIGKILLed at its third commit
+    and respawned at the next lease epoch, the router losing one shard
+    ack; then, with the children still up, the replica's pull and checks
+    and both backfills; last, a daemon on the old epoch's lease."""
+    tail = items[WARM_BASE:]
+    kill_plan = os.path.join(SHARD_DIR, "kill_plan.json")
+    FaultPlan.from_dict({"rules": [{
+        "site": "serve.ingest.commit", "kind": "kill",
+        "after_calls": SHARD_KILL_AFTER, "times": 1}]}).save(kill_plan)
+    # The router's forward seat counts answered forwards: four a batch.
+    drop_plan = os.path.join(SHARD_DIR, "drop_plan.json")
+    FaultPlan.from_dict({"rules": [{
+        "site": "serve.router.forward", "kind": "connection_drop",
+        "after_calls": SHARDS * SHARD_DROP_BATCH + 2, "times": 1}]}
+    ).save(drop_plan)
+    # The children start at once and bind in parallel.
+    procs = [start_shard(0, kill_plan)] + [start_shard(sid)
+                                           for sid in range(1, SHARDS)]
+    victim, out, respawned = procs[0], {}, {}
+    router_port_file = os.path.join(SHARD_DIR, "router.port")
+    router = spawn_child(["serve-router", "--root", SHARD_ROOT, "--shards",
+                          str(SHARDS), "--port-file", router_port_file],
+                         "router.log", drop_plan)
+    procs.append(router)
+
+    def watch_and_respawn():
+        try:
+            victim.wait(timeout=CHILD_TIMEOUT_S)
+            respawned["killed_at"] = time.perf_counter()
+            respawned["proc"] = start_shard(0)
+            shard_port(respawned["proc"], 0)
+            respawned["bound_at"] = time.perf_counter()
+        except Exception as e:  # noqa: BLE001 - raised by the main thread
+            respawned["error"] = e
+
+    watcher = threading.Thread(target=watch_and_respawn, daemon=True)
+    try:
+        t0 = time.perf_counter()
+        for sid in range(SHARDS):
+            shard_port(procs[sid], sid)
+        # The lease shard 0 holds before the kill: the zombie's, at the end.
+        old_lease = read_lease(SHARD_ROOT, 0)
+        if not (old_lease and old_lease["epoch"] == 1
+                and old_lease["owner"] == victim.pid):
+            raise AssertionError(f"shard 0's lease before the kill: "
+                                 f"{old_lease}")
+        client = ServeClient(port=wait_port(router, router_port_file,
+                                            "serve-router"))
+        start_s = time.perf_counter() - t0
+        watcher.start()
+        acks, acked_at = [], []
+        t0 = time.perf_counter()
+        for i, lo in enumerate(range(0, tail.shape[0], SERVE_BATCH)):
+            ack = client.ingest(tail[lo:lo + SERVE_BATCH],
+                                timeout_s=LONG_REQUEST_S,
+                                request_id=f"b{i:04d}")
+            acked_at.append(time.perf_counter())
+            if not (ack["ok"] and ack["acked"] == len(tail[lo:lo
+                                                           + SERVE_BATCH])):
+                raise AssertionError(f"routed batch {i}: {ack}")
+            acks.append(ack)
+        ingest_s = time.perf_counter() - t0
+        watcher.join(timeout=CHILD_TIMEOUT_S)
+        if watcher.is_alive() or "error" in respawned:
+            raise AssertionError(f"shard 0 was not respawned: {respawned}")
+        procs.append(respawned["proc"])
+        if victim.returncode != -9:
+            raise AssertionError(f"shard 0 exited {victim.returncode}, not "
+                                 "by SIGKILL at its third commit")
+        epochs = [read_lease(SHARD_ROOT, s)["epoch"] for s in range(SHARDS)]
+        if epochs != [2] + [1] * (SHARDS - 1):
+            raise AssertionError(f"lease epochs {epochs}")
+        # Kill to the replacement's first ack: the killed batch's ack.
+        failover_s = acked_at[SHARD_KILL_AFTER] - respawned["killed_at"]
+        respawn_s = respawned["bound_at"] - respawned["killed_at"]
+        log(f"  failover round: shard 0 SIGKILLed at its third commit, "
+            f"respawned at epoch 2 in {respawn_s:.3f} s; "
+            f"kill to the replacement's first ack {failover_s:.3f} s; "
+            f"{tail.shape[0]} rows routed in {ingest_s:.3f} s")
+        replayed = [i for i, a in enumerate(acks) if a.get("replayed")]
+        if replayed != [SHARD_DROP_BATCH]:
+            raise AssertionError(f"replayed acks at batches {replayed}, "
+                                 f"expected [{SHARD_DROP_BATCH}]")
+        client.quiesce(timeout_s=LONG_REQUEST_S)
+        t0 = time.perf_counter()
+        labels, known = routed_query(
+            lambda v: client.query(v, timeout_s=LONG_REQUEST_S), items)
+        query_s = time.perf_counter() - t0
+        lost = int((~known).sum())
+        if lost:
+            raise AssertionError(f"{lost} acked rows lost to the failover")
+        if not np.array_equal(labels, oracle["labels"]):
+            raise AssertionError(
+                f"router labels differ from the uninterrupted round's in "
+                f"{int((labels != oracle['labels']).sum())} rows")
+        status = client.status()
+        rows = sum(int(s["rows"]) for s in status["shard_status"].values())
+        store_rows = sum(int(s["store_rows"])
+                         for s in status["shard_status"].values())
+        if not (status["ok"] and status["router_replayed_acks"] >= 1
+                and rows == oracle["rows"]
+                and store_rows == oracle["store_rows"]):
+            raise AssertionError(f"router status {status['ok']}, replayed "
+                                 f"{status['router_replayed_acks']}, rows "
+                                 f"{rows}/{oracle['rows']}, store rows "
+                                 f"{store_rows}/{oracle['store_rows']}")
+        log(f"  after quiesce: 0 acked rows lost, {items.shape[0]} labels "
+            f"== the uninterrupted round's (queried in {query_s:.3f} s), "
+            f"{rows} index and {store_rows} store rows as the oracle's (no "
+            f"row absorbed twice), {status['router_replayed_acks']} "
+            f"replayed ack (batch {SHARD_DROP_BATCH})")
+        out.update(start_s=start_s, ingest_s=ingest_s, failover_s=failover_s,
+                   respawn_s=respawn_s,
+                   query_s=query_s, replayed_acks=status[
+                       "router_replayed_acks"], rows=rows,
+                   store_rows=store_rows)
+        out["replica"] = sharded_replica(items, owner_all, replica, dev)
+        out["backfill"] = sharded_backfill(items, router_port_file, dev)
+        client.shutdown()
+        client.close()
+        for sid in range(SHARDS):
+            with open(os.path.join(SHARD_ROOT, f"serve_{sid:04d}.port")) as f:
+                with ServeClient(port=int(f.read().strip())) as c:
+                    c.shutdown()
+        for proc in procs:
+            if proc.wait(timeout=CHILD_TIMEOUT_S) != 0 and proc is not victim:
+                raise AssertionError(f"a child exited {proc.returncode}")
+    finally:
+        for proc in procs + [respawned.get("proc")]:
+            if proc is not None:
+                stop_child(proc)
+        if watcher.is_alive():
+            watcher.join(timeout=5)
+    out["zombie"] = zombie_check(old_lease, dev)
+    return out
+
+
+def sharded_replica(items, owner_all, replica, dev) -> dict:
+    """Phase 3e, step 4: the replica of range 1, opened after the populate
+    and stale by every generation the writer has committed since, pulled
+    once from the live writer and refreshed; its labels those of shard 1
+    (asked directly), its scan on the card (the top-k kernel) equal to
+    score_topk_host over the range's store, its ingest refused."""
+    src = range_dir(SHARD_ROOT, 1)
+    with open(os.path.join(src, "store_manifest.json")) as f:
+        writer_gen = int(json.load(f)["generation"])
+    behind = writer_gen - int(replica.store.generation)
+    before = replica_staleness(src, replica)
+    if not (before == behind > 0):
+        raise AssertionError(f"replica staleness {before}, {behind} "
+                             "generations unpulled")
+    t0 = time.perf_counter()
+    pulled = stream_shards(src, replica.store.directory)
+    pull_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not replica.refresh():
+        raise AssertionError("the refresh adopted nothing")
+    refresh_s = time.perf_counter() - t0
+    after = replica_staleness(src, replica)
+    if after != 0:
+        raise AssertionError(f"staleness {after} after a pull and refresh")
+    rows1 = items[owner_all == 1]
+    with open(os.path.join(SHARD_ROOT, "serve_0001.port")) as f:
+        with ServeClient(port=int(f.read().strip())) as c:
+            want, known = routed_query(
+                lambda v: c.query(v, timeout_s=LONG_REQUEST_S), rows1)
+    got, got_known = routed_query(replica.query, rows1)
+    if not (known.all() and got_known.all() and np.array_equal(got, want)):
+        raise AssertionError("the replica's labels differ from shard 1's")
+    queries = rows1[np.random.default_rng(5).choice(rows1.shape[0],
+                                                    N_QUERIES, replace=False)]
+    res, counts, scan_s = counted(lambda: replica.topk(queries, k=TOPK_K,
+                                                       mode="scan"))
+    chunks = shard_chunks(replica.store, len(replica.store.shards))
+    expect_launches(counts, {"topk_chunk": chunks})
+    scores, ids = host_topk(replica.store, replica.qbits, queries)
+    if not (res["scores"] == scores and res["ids"] == ids):
+        raise AssertionError("the replica's scan differs from "
+                             "score_topk_host over range 1's store")
+    try:
+        replica.ingest(rows1[:4])
+    except RuntimeError as e:
+        if "read replica" not in str(e):
+            raise
+    else:
+        raise AssertionError("the replica took an ingest")
+    log(f"  replica of range 1: {before} generations stale, pulled "
+        f"{pulled['bytes_copied']} B ({pulled['shards_copied']} shards) in "
+        f"{pull_s:.3f} s, refreshed in {refresh_s:.3f} s, stale 0; "
+        f"{rows1.shape[0]} labels == shard 1's; scan of {N_QUERIES} "
+        f"queries on the card == score_topk_host ({chunks} top-k launches, "
+        f"{scan_s:.3f} s); ingest refused")
+    return {"staleness_before": before, "staleness_after": after,
+            "pull_s": pull_s, "pull_bytes": pulled["bytes_copied"],
+            "pull_shards": pulled["shards_copied"], "refresh_s": refresh_s,
+            "rows": int(replica.store.n_rows), "scan_s": scan_s,
+            "launches": counts}
+
+
+def sharded_backfill(items, router_port_file: str, dev) -> dict:
+    """Phase 3e, step 5: ``backfill --sig-store R/range_0002`` in process
+    (the top-k kernel, counted) equal to score_topk_host over that store;
+    ``backfill --port-file <router>`` equal to each store's host top-k
+    merged by (-count, digest), the union's top-k."""
+    queries = items[np.random.default_rng(6).choice(items.shape[0],
+                                                    N_QUERIES, replace=False)]
+    npy = os.path.join(SHARD_DIR, "backfill_q.npy")
+    np.save(npy, queries)
+    d2 = range_dir(SHARD_ROOT, 2)
+    local, counts, _ = counted(lambda: run_backfill([
+        "--sig-store", d2, "--npy", npy, "--k", str(TOPK_K), "--batch",
+        str(N_QUERIES), "--device", str(dev)]))
+    store2 = SignatureStore.open_existing(d2)
+    expect_launches(counts, {"topk_chunk": shard_chunks(
+        store2, len(store2.shards))})
+    per_store = [host_topk(SignatureStore.open_existing(
+        range_dir(SHARD_ROOT, s)), 10, queries) for s in range(SHARDS)]
+    if (local["results"]["scores"], local["results"]["ids"]) != \
+            per_store[2]:
+        raise AssertionError("backfill --sig-store differs from "
+                             "score_topk_host over range 2's store")
+    routed = run_backfill(["--port-file", router_port_file, "--npy", npy,
+                           "--k", str(TOPK_K), "--batch", str(N_QUERIES),
+                           "--timeout", str(LONG_REQUEST_S)])
+    if (routed["results"]["scores"], routed["results"]["ids"]) != \
+            merged_topk(per_store):
+        raise AssertionError("backfill through the router differs from the "
+                             "host top-k over the union of the stores")
+    log(f"  backfill --sig-store range 2: {local['pairs_scored_s']:.1f} "
+        f"pairs/s ({local['store_rows']} rows, launches {counts}) == "
+        f"score_topk_host; through the router: "
+        f"{routed['pairs_scored_s']:.1f} pairs/s ({routed['store_rows']} "
+        "rows) == the union's host top-k")
+    return {"sig_store": {k: local[k] for k in (
+                "queries", "store_rows", "pairs_scored", "wall_s",
+                "pairs_scored_s")}, "launches": counts,
+            "router": {k: routed[k] for k in (
+                "queries", "store_rows", "pairs_scored", "wall_s",
+                "pairs_scored_s")}}
+
+
+def zombie_check(old_lease: dict, dev) -> dict:
+    """Phase 3e, last: a daemon started on range 0's old lease, the killed
+    writer's exact epoch-1 record read before the kill, is fenced at its
+    first batch: zero rows appended.  Only the respawn's epoch-2 claim
+    changed the lease file since, so that claim is what fences it; a guard
+    built from the current record verifies."""
+    cur = read_lease(SHARD_ROOT, 0)
+    if not (cur and cur["epoch"] == old_lease["epoch"] + 1):
+        raise AssertionError(f"range 0's lease {cur} does not follow "
+                             f"{old_lease}")
+    RangeLeaseGuard(SHARD_ROOT, 0, epoch=cur["epoch"], owner=cur["owner"],
+                    nonce=cur["nonce"]).verify()
+    d0 = range_dir(SHARD_ROOT, 0)
+    rows_before = SignatureStore.open_existing(d0).n_rows
+    fresh = synth_session_sets(512, SET_SIZE, seed=99)[0]
+    zombie = ServeDaemon(d0, params=shard_params(), state_commit_every=1,
+                         device=dev, lease_guard=RangeLeaseGuard(
+                             SHARD_ROOT, 0, epoch=old_lease["epoch"],
+                             owner=old_lease["owner"],
+                             nonce=old_lease["nonce"])).start()
+    try:
+        zombie.ingest(fresh, timeout=LONG_REQUEST_S)
+    except LeaseSupersededError:
+        pass
+    else:
+        raise AssertionError("a daemon on the old epoch's lease ingested")
+    finally:
+        zombie.stop(commit=False)
+    rows_after = SignatureStore.open_existing(d0).n_rows
+    if rows_after != rows_before or zombie._ingest_error is None:
+        raise AssertionError(f"the fenced daemon appended "
+                             f"{rows_after - rows_before} rows")
+    log("  a daemon on range 0's old epoch: fenced at its first batch, 0 "
+        "rows appended")
+    return {"rows_appended": rows_after - rows_before}
+
+
+def sharded_phase(warm: dict, dev) -> dict:
+    """Phase 3e: the sharded serving plane at full width on one card."""
+    t_phase = time.perf_counter()
+    items = warm["items"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pop = sharded_populate(items[:WARM_BASE], dev)
+    owner_all = digest_range_ids(row_digests(items), SHARDS)
+    replica_dir = os.path.join(SHARD_DIR, "replica_0001")
+    stream_shards(range_dir(SHARD_ROOT, 1), replica_dir)
+    replica = ServeReplica(replica_dir, params=shard_params(), device=dev)
+    oracle = sharded_oracle(items, dev)
+    got = sharded_failover(items, owner_all, oracle, replica, dev)
+    launches = {}
+    for counts in (pop["launches"], oracle["launches"],
+                   got["replica"]["launches"], got["backfill"]["launches"]):
+        add_counts(launches, counts)
+    tail_rows = int(items.shape[0] - WARM_BASE)
+    line = {"shards": SHARDS, "rows": int(items.shape[0]),
+            "range_rows": pop["range_rows"], "populate_s": pop["populate_s"],
+            "batch_rows": SERVE_BATCH,
+            "oracle": {"ingest_s": oracle["ingest_s"],
+                       "rows_per_s": tail_rows / oracle["ingest_s"],
+                       "query_s": oracle["query_s"],
+                       "novel_slices": oracle["novel_slices"]},
+            "failover_round": {"children_start_s": got["start_s"],
+                               "ingest_s": got["ingest_s"],
+                               "rows_per_s": tail_rows / got["ingest_s"],
+                               "query_s": got["query_s"],
+                               "failover_s": got["failover_s"],
+                               "respawn_s": got["respawn_s"],
+                               "replayed_acks": got["replayed_acks"],
+                               "lost_acked": 0,
+                               "rows": got["rows"],
+                               "store_rows": got["store_rows"]},
+            "replica": {k: v for k, v in got["replica"].items()
+                        if k != "launches"},
+            "backfill": {k: v for k, v in got["backfill"].items()
+                         if k != "launches"},
+            "zombie_rows_appended": got["zombie"]["rows_appended"],
+            "launches": launches,
+            "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_name_and_limit()}
+    print(json.dumps({"serve_sharded": line}), flush=True)
+    return line
+
+
 RESIL_DIR = os.path.join(ROOT, "build", "resil_smoke")  # gitignored
 RESIL_CAL = os.path.join(RESIL_DIR, "cal.json")
 CHILD_TIMEOUT_S = 300
@@ -2178,6 +2777,20 @@ GOLDEN_FILES = (
     "rq4/coverage/g2_g1_trend_stats.csv",
 )
 # Each driver's manifest, under the result directory.
+# The figures the golden study draws in test mode (every data gate open),
+# besides one per-project chart under rq2/projects/ per |corr| > 0.5.
+GOLDEN_FIGURES = (
+    "rq1/rq1_detection_rate.pdf", "rq2/all_project_corr_hist.pdf",
+    "rq2/average_median_lineplot.pdf", "rq2/session_coverage_boxplot.pdf",
+    "rq2/session_coverage_distribution_trend.pdf",
+    "rq3/coverage_diff_boxplot.pdf", "rq3/coverage_diff_histograms.pdf",
+    "rq3/detected.pdf", "rq3/non_detected.pdf",
+    "rq4/bug/rq4_g1_g2_detection_trend.pdf",
+    "rq4/bug/rq4_gc_bug_detection_venn.pdf",
+    "rq4/bug/rq4_gc_detection_trend.pdf",
+    "rq4/coverage/coverage_delta_timeseries_linear.pdf",
+    "rq4/coverage/g2_g1_boxplot_comparison.pdf",
+)
 DRIVER_MANIFESTS = {
     "rq1": "rq1/rq1_manifest.json",
     "rq2a": "rq3/rq2_changepoints_manifest.json",
@@ -2192,7 +2805,9 @@ RQ_SPEC = dict(n_projects=446, days=1600, fuzz_rate=1.4,
                ineligible_fraction=0.0, seed=0)
 RQ_CUTOFF = "2026-01-01"
 RQ_MIN_PROJECTS = 100
-RQ_REPS = 5
+# Warm medians of 3 (5 until phase 3e joined the script: cut to keep the
+# script inside its time limit on a slow host).
+RQ_REPS = 3
 RQS = ("rq1", "rq2cp", "rq2tr", "rq3", "rq4a", "rq4b")
 # Float32 sums in another order: within rtol = atol = 2e-5 (the repo's
 # cross-engine tolerance); every other field exact.
@@ -2247,10 +2862,10 @@ def fresh_dir(path: str) -> str:
     return path
 
 
-def rq_golden(dev) -> None:
+def rq_golden(dev) -> dict:
     """The frozen golden study through the port's six drivers on the card,
     run as ``all`` runs them: its eight artifacts equal the committed
-    goldens byte for byte."""
+    goldens byte for byte, its figures drawn or listed as skipped."""
     path = os.path.join(RQ_DIR, "golden.sqlite")
     corpus = os.path.join(RQ_DIR, "golden_corpus.csv")
     out = fresh_dir(os.path.join(RQ_DIR, "golden_out"))
@@ -2274,6 +2889,49 @@ def rq_golden(dev) -> None:
     log(f"  golden study through the six drivers on the card: all "
         f"{len(GOLDEN_FILES)} files equal tests/goldens/synth8/ byte for "
         "byte")
+    return check_golden_figures(out)
+
+
+def check_golden_figures(out: str) -> dict:
+    """Where matplotlib imports, the golden study's figures are drawn and
+    no manifest lists a skipped one; where it does not (the card's
+    machine), no PDF is written and the drivers' manifests list every one
+    of them under ``figures_skipped``."""
+    from tse1m_tpu_torch.analysis.common import pyplot
+
+    try:
+        pyplot()
+    except ImportError:
+        drawn = False
+    else:
+        drawn = True
+    pdfs = sorted(os.path.relpath(os.path.join(d, f), out)
+                  for d, _, files in os.walk(out) for f in files
+                  if f.endswith(".pdf"))
+    skipped = set()
+    for rel in DRIVER_MANIFESTS.values():
+        with open(os.path.join(out, rel)) as f:
+            skipped |= {os.path.join(os.path.dirname(rel), name) for name
+                        in json.load(f).get("figures_skipped", [])}
+    projects = [p for p in (pdfs if drawn else sorted(skipped))
+                if p.startswith("rq2/projects/")]
+    if drawn:
+        small = [p for p in pdfs
+                 if os.path.getsize(os.path.join(out, p)) < 1024]
+        if not (set(GOLDEN_FIGURES) <= set(pdfs) and projects and not small
+                and not skipped):
+            raise AssertionError(f"golden figures: drawn {pdfs}, too small "
+                                 f"{small}, skipped {sorted(skipped)}")
+        log(f"  matplotlib imports: the golden study's {len(pdfs)} figures "
+            "drawn, none skipped")
+    else:
+        if pdfs or not (set(GOLDEN_FIGURES) <= skipped and projects):
+            raise AssertionError(f"golden figures without matplotlib: PDFs "
+                                 f"{pdfs}, skipped {sorted(skipped)}")
+        log(f"  no matplotlib here: no PDF written, the {len(skipped)} "
+            "figures listed as skipped in the drivers' manifests")
+    return {"matplotlib": drawn, "figures": len(pdfs) if drawn
+            else len(skipped)}
 
 
 def csv_rows(path: str, header: bool = True) -> int:
@@ -2449,7 +3107,7 @@ def rq_phase(dev) -> dict:
     loaded copies against: the study, its file, the numpy arrays and
     their extraction wall, the card's suite results."""
     t_phase = time.perf_counter()
-    rq_golden(dev)
+    golden_figures = rq_golden(dev)
     torch.cuda.synchronize()
     base_mem = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2513,7 +3171,8 @@ def rq_phase(dev) -> dict:
         "card_s": times, "cpu_s": cpu_times,
         "suite_device_busy_share": busy,
         "peak_device_gib": peak, "tolerance_share_vs_cpu": worst,
-        "reps": RQ_REPS, "phase_s": time.perf_counter() - t_phase,
+        "reps": RQ_REPS, "golden_figures": golden_figures,
+        "phase_s": time.perf_counter() - t_phase,
         "card": card_name_and_limit(),
     }
     print(json.dumps({"rq_path": report}), flush=True)
@@ -2586,21 +3245,43 @@ def write_pg_dump(study, path: str) -> dict:
     return rows
 
 
+def start_host_command(args: list, name: str):
+    """``python -m tse1m_tpu_torch <args>`` started in a child process,
+    its output to files (no pipe to fill while this process works);
+    ``finish_host_command`` waits for it."""
+    base = os.path.join(LOAD_DIR, name)
+    with open(base + ".out", "w") as out, open(base + ".log", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tse1m_tpu_torch", *args], cwd=ROOT,
+            stdout=out, stderr=err, text=True)
+    return proc, args, base, time.perf_counter()
+
+
+def finish_host_command(started) -> tuple:
+    """The child's (wall s, stdout); its output in ``<LOAD_DIR>/<name>.out``
+    and ``.log``.  Raises on a non-zero exit."""
+    proc, args, base, t0 = started
+    try:
+        proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    wall = time.perf_counter() - t0
+    with open(base + ".out") as f:
+        out = f.read()
+    if proc.returncode:
+        with open(base + ".log") as f:
+            err = f.read()
+        raise AssertionError(f"{' '.join(args[:2])} exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    return wall, out
+
+
 def host_command(args: list, name: str) -> tuple:
     """``python -m tse1m_tpu_torch <args>`` in a child process, its
     output to ``<LOAD_DIR>/<name>.log``; (wall s, stdout).  Raises on a
     non-zero exit."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tse1m_tpu_torch", *args],
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=600)
-    wall = time.perf_counter() - t0
-    with open(os.path.join(LOAD_DIR, name + ".log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode:
-        raise AssertionError(f"{' '.join(args[:2])} exited "
-                             f"{proc.returncode}: {proc.stderr[-2000:]}")
-    return wall, proc.stdout
+    return finish_host_command(start_host_command(args, name))
 
 
 def same_arrays(got, want, label: str) -> None:
@@ -2663,9 +3344,11 @@ def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
     t0 = time.perf_counter()
     study.to_csv_dir(csv_dir)
     walls["to_csv_dir_s"] = time.perf_counter() - t0
-    walls["ingest_s"], out = host_command(
-        ["ingest", "--csv-dir", csv_dir, "--db", f1], "ingest")
-    ingested = json.loads(out.splitlines()[-1])["ingested"]
+    # The ingest child runs while this process writes the dump and the
+    # restore child loads it (one after another until phase 3e joined the
+    # script: overlapped to keep it inside its time limit).
+    ingest = start_host_command(["ingest", "--csv-dir", csv_dir, "--db", f1],
+                                "ingest")
     t0 = time.perf_counter()
     dumped = write_pg_dump(study, dump)
     walls["dump_write_s"] = time.perf_counter() - t0
@@ -2673,6 +3356,8 @@ def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
     walls["restore_s"], out = host_command(["restore", dump, "--db", f2],
                                            "restore")
     restored = json.loads(out.splitlines()[-1])["restored"]
+    walls["ingest_s"], out = finish_host_command(ingest)
+    ingested = json.loads(out.splitlines()[-1])["ingested"]
     want_rows = {t: len(next(iter(getattr(study, t).values())))
                  for t in LOAD_TABLES}
     if ingested != want_rows or {t: restored[t] for t in LOAD_TABLES} \
@@ -2828,12 +3513,19 @@ def main() -> int:
         for name, n in counts.items():
             serve_launches[name] = serve_launches.get(name, 0) + n
 
+
     log(f"phase 3d: resilience at {N_SESSIONS} sessions x {SET_SIZE} ids: a "
         "killed run resumed, a real out-of-memory, the calibrated step, "
         "stalls and device retries")
     resil = resilience_phase(items, {"a": plain10["labels"],
                                      "b": plain24["labels"],
                                      "c": default["labels"]}, default, dev)
+
+    log(f"phase 3e: the sharded serving plane, {SHARDS} digest-range "
+        f"daemons over phase 3b's {WARM_ROWS} rows behind a router, a "
+        "shard writer SIGKILLed and replaced, a read replica, backfill")
+    sharded = sharded_phase(warm, dev)
+    del warm["items"], warm["oracle"]
 
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
         f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
@@ -2859,6 +3551,7 @@ def main() -> int:
         "max_abs_err": errs[name], **times[name],
         "warm_launches": warm["launches"].get(name, 0),
         "serve_launches": serve_launches[name],
+        "sharded_launches": sharded["launches"].get(name, 0),
         "resilience_launches": resil["launches"].get(name, 0),
         "warm_shapes": {case.split(":")[1]: t for case, t in times.items()
                         if case.split(":")[0] == name

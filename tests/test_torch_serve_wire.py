@@ -188,9 +188,15 @@ def test_each_package_drives_the_others_server(tmp_path):
         (a, ka), (b, kb) = answers["port->jax"], answers["jax->port"]
         for i, (ra, rb) in enumerate(zip(a, b)):
             for key in sorted(set(ra) | set(rb)):
-                assert ra.get(key) == rb.get(key), (i, key)
+                if (i, key) != (2, "rows"):
+                    assert ra.get(key) == rb.get(key), (i, key)
         assert len(a) == len(b) and ka == kb
         assert answers["port->jax"][0][2]["replayed"] is True
+        # The replay's rows: the port's server names the rows the original
+        # ack named; JAX's names each row's first index row of its content,
+        # which differs where the batch repeats content, as this one does.
+        assert b[2]["rows"] == b[1]["rows"] == a[1]["rows"]
+        assert a[2]["rows"] != a[1]["rows"]
         # The server's span joined the client's trace as its child.
         spans = [s for s in ttracing.recent_spans()
                  if s["name"] == "serve.quiesce"]
@@ -229,8 +235,9 @@ def test_serve_status_records_the_manifest(tmp_path, monkeypatch):
                      str(server.port)]) == 1
     manifest = json.loads((result_dir / "run_manifest.json").read_text())
     assert manifest["steps"][-1]["status"] == "failed"
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        cli_main(["serve", "--root", str(tmp_path), "--range", "0"])
+    # Shard mode runs; --range without --root is refused as the JAX
+    # package refuses it (tse1m_tpu/cli.py:914-917).
+    assert cli_main(["serve", "--range", "0"]) == 2
 
 
 def test_serve_command_end_to_end(tmp_path, capsys):

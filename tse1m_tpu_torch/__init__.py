@@ -27,9 +27,13 @@ It serves, too: ``serve.ServeDaemon`` keeps one signature store live,
 ingesting batches (novel rows MinHashed on the card) and answering
 cluster-membership and top-k queries over a JSON-over-TCP transport
 (``serve.ServeServer``, ``serve.ServeClient``), with admission control,
-watchdog budgets and the telemetry of ``observability``.
+watchdog budgets and the telemetry of ``observability``; and scales out on
+one card: digest-range shard daemons under epoch leases behind a
+``serve.ShardRouter``, read replicas (``serve.ServeReplica``) and
+``backfill``.
 It imports ``torch`` and ``numpy`` and the standard library, and nothing of
-the JAX package, pandas or matplotlib.
+the JAX package or pandas; matplotlib only inside the drivers' figure
+functions, which are skipped where it does not import.
 
 Entry points run on the card unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions; without a card they raise.
@@ -45,6 +49,9 @@ uint32 bits (``tse1m_tpu_torch.device``).
     python -m tse1m_tpu_torch stats --db study.sqlite
     python -m tse1m_tpu_torch all --db study.sqlite --result-dir out
     python -m tse1m_tpu_torch serve --sig-store DIR --port-file F
+    python -m tse1m_tpu_torch serve --root R --range 0
+    python -m tse1m_tpu_torch serve-router --root R --shards 4
+    python -m tse1m_tpu_torch backfill --npy Q.npy --sig-store DIR
 """
 
 from .backend import TorchBackend

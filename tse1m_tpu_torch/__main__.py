@@ -20,7 +20,18 @@
     python -m tse1m_tpu_torch serve --sig-store DIR [--host 127.0.0.1] \
         [--port 0] [--port-file F] [--seed 0] [--state-every 8] \
         [--device cuda]
+    python -m tse1m_tpu_torch serve --root R --range N [--port-file F] \
+        [--state-every 1] [--device cuda]
     python -m tse1m_tpu_torch serve --status {--port P | --port-file F}
+    python -m tse1m_tpu_torch serve-router --root R [--shards 2] \
+        [--host 127.0.0.1] [--shard-host 127.0.0.1] [--port 0] \
+        [--port-file F]
+    python -m tse1m_tpu_torch serve-replica --src DIR --dir DIR \
+        [--interval 2.0] [--seed 0] [--port 0] [--port-file F] \
+        [--device cuda]
+    python -m tse1m_tpu_torch backfill --npy Q.npy \
+        {--sig-store DIR | --port P | --port-file F} [--k 1] \
+        [--batch 256] [--timeout S] [--seed 0] [--out F] [--device cuda]
     python -m tse1m_tpu_torch serve-client {ping,status,query,topk,ingest,\
         metrics,trace,slowlog,profile,quiesce,shutdown} \
         {--port P | --port-file F} [--npy V.npy] [--k 10] \
@@ -93,11 +104,29 @@ nearest (``topk``, ``--mode scan`` scores every stored row on the card).
 ``serve --status`` is a client: it prints a running daemon's status and
 records it as the ``serve_status`` step in
 ``<result_dir>/run_manifest.json``.  ``serve-client`` sends one request
-and prints the JSON answer; it exits 1 on an error answer.  Shard mode
-(``--root``/``--range``) is not ported.
+and prints the JSON answer; it exits 1 on an error answer.
 
-``cluster``, ``serve`` and the RQ commands run on the card unless
-``--device cpu`` is given, and fail without one; ``synth`` and ``scrub``
+Shard mode, ``serve --root R --range N``: the daemon serves
+``R/range_NNNN`` as the single writer of digest range N, claims the
+range's lease at the next epoch (``R/lease_NNNN.json``; the writer it
+replaces is fenced), beats ``R/hb_NNN.json``, commits its LSH state every
+generation unless ``--state-every`` says otherwise, and writes its port
+to ``R/serve_NNNN.port`` unless ``--port-file`` is given.
+``serve-router --root R --shards N`` fronts N such daemons through their
+port files, with the single daemon's verbs; a forward to a shard that
+does not answer retries for three heartbeat timeouts, the window a dead
+writer's replacement has to start in (``serve/router.py:failover_policy``).
+``serve-replica --src DIR --dir DIR`` pulls the writer's committed files
+into ``--dir`` every ``--interval`` seconds and serves reads of them;
+ingest refuses.  ``backfill --npy Q.npy`` prints, for every query vector,
+the k nearest stored sessions by exact signature agreement (the scan):
+in process over ``--sig-store DIR`` (read only), or through the ``topk``
+verb of a running daemon or router (``--port``/``--port-file``); one
+JSON summary line, the results inline or in ``--out``.
+
+``cluster``, ``serve``, ``serve-replica``, ``backfill`` and the RQ
+commands run on the card unless ``--device cpu`` is given, and fail
+without one; ``serve-router`` holds no device; ``synth`` and ``scrub``
 are host work, as are ``ingest``, ``restore`` and ``stats``.
 """
 
@@ -395,44 +424,184 @@ def _serve_status(args) -> int:
 def _cmd_serve(args) -> int:
     """The serving daemon over one signature store, until a ``shutdown``
     request or a signal; ``--status`` pings a running daemon instead."""
-    import signal
-    import threading
-
     if args.status:
         return _serve_status(args)
-    if args.root is not None or args.range is not None:
-        raise _not_ported("serve's shard mode (--root/--range)",
-                          "Multi-GPU")
     from .observability.flight import dump_flight
     from .serve import ServeDaemon, ServeServer, SloPolicy
 
     store = args.sig_store or load_config().sig_store
+    guard = heartbeat = None
+    state_every = args.state_every
+    if args.range is not None:
+        # Shard mode: the single writer of one digest range of a sharded
+        # serve root, fenced by the range's epoch lease.
+        if not args.root:
+            print("--range needs --root <sharded serve root>",
+                  file=sys.stderr)
+            return 2
+        from .resilience.coordinator import HeartbeatWriter, RangeLeaseGuard
+
+        resolve_device(args.device)  # no lease claimed without the card
+        store = os.path.join(args.root, f"range_{args.range:04d}")
+        guard = RangeLeaseGuard.claim(args.root, args.range,
+                                      owner=os.getpid())
+        # The router's PeerMonitor watches heartbeats keyed by range id.
+        heartbeat = HeartbeatWriter(args.root,
+                                    process_id=args.range).start()
+        if state_every is None:
+            # Every generation: a replacement writer keeps the local row
+            # ids of every acked batch (serve/router.py's docstring).
+            state_every = 1
+        if not args.port_file:
+            args.port_file = os.path.join(args.root,
+                                          f"serve_{args.range:04d}.port")
+    if state_every is None:
+        state_every = 8
     if not store:
         print("no signature store: pass --sig-store, or set "
               "TSE1M_SIG_STORE / the INI's sig_store", file=sys.stderr)
         return 2
     daemon = ServeDaemon(store, params=ClusterParams(seed=args.seed),
                          slo=SloPolicy.from_env(),
-                         state_commit_every=args.state_every,
-                         device=args.device).start()
-    server = ServeServer(daemon, host=args.host, port=args.port)
+                         state_commit_every=state_every,
+                         device=args.device, lease_guard=guard).start()
+    try:
+        _serve_forever(
+            ServeServer(daemon, host=args.host, port=args.port), "serve",
+            args.port_file,
+            on_signal=lambda signum: dump_flight(
+                "sigterm", site="serve.shutdown",
+                extra={"signal": int(signum)}))
+    finally:
+        if heartbeat is not None:
+            heartbeat.stop()
+        daemon.stop()
+    return 0 if daemon._ingest_error is None else 1
+
+
+def _serve_forever(server, name: str, port_file: str | None,
+                   on_signal=None) -> None:
+    """``server`` until a ``shutdown`` request, SIGTERM or SIGINT;
+    ``on_signal(signum)`` runs first on a signal."""
+    import signal
+    import threading
 
     def _graceful(signum, frame):  # noqa: ARG001
         logging.getLogger("tse1m_tpu_torch.serve").warning(
-            "serve: signal %d; shutting down", signum)
-        dump_flight("sigterm", site="serve.shutdown",
-                    extra={"signal": int(signum)})
+            "%s: signal %d; shutting down", name, signum)
+        if on_signal is not None:
+            on_signal(signum)
         # shutdown() waits for serve_forever, which runs in this thread.
         threading.Thread(target=server.shutdown, daemon=True).start()
 
     signal.signal(signal.SIGTERM, _graceful)
     signal.signal(signal.SIGINT, _graceful)
     try:
-        server.serve_until_shutdown(port_file=args.port_file)
+        server.serve_until_shutdown(port_file=port_file)
     finally:
         server.server_close()
-        daemon.stop()
-    return 0 if daemon._ingest_error is None else 1
+
+
+def _cmd_serve_router(args) -> int:
+    """The fan-out router over ``--shards`` digest-range shard daemons,
+    each found through ``<root>/serve_NNNN.port`` (read again on every
+    reconnect); no device, no store opened."""
+    from .resilience.coordinator import PeerMonitor
+    from .serve import RouterServer, ShardRouter, TcpTransport
+
+    transports = {
+        sid: TcpTransport(
+            host=args.shard_host,
+            port_file=os.path.join(args.root, f"serve_{sid:04d}.port"))
+        for sid in range(args.shards)}
+    monitor = PeerMonitor(args.root, n_processes=args.shards,
+                          process_id=-1, peers=list(range(args.shards)))
+    router = ShardRouter(transports, monitor=monitor)
+    try:
+        _serve_forever(RouterServer(router, host=args.host, port=args.port),
+                       "serve-router", args.port_file)
+    finally:
+        router.close()
+    return 0
+
+
+def _cmd_serve_replica(args) -> int:
+    """A read replica over a streamed copy of ``--src`` in ``--dir``:
+    the first pull before serving, then one every ``--interval``."""
+    from .serve import (ReplicationPuller, ServeReplica, ServeServer,
+                        stream_shards)
+
+    dev = resolve_device(args.device)
+    stream_shards(args.src, args.dir)
+    replica = ServeReplica(args.dir, params=ClusterParams(seed=args.seed),
+                           device=dev)
+    puller = ReplicationPuller(args.src, replica,
+                               interval_s=args.interval).start()
+    try:
+        _serve_forever(ServeServer(replica, host=args.host, port=args.port),
+                       "serve-replica", args.port_file)
+    finally:
+        puller.stop()
+    return 0
+
+
+def _cmd_backfill(args) -> int:
+    """Exact top-k of every query vector over every committed store row
+    (the scan): in process over ``--sig-store`` or through a running
+    daemon's or router's ``topk`` verb; one JSON summary line."""
+    vectors = np.load(args.npy)
+    n = int(vectors.shape[0])
+    out = {"scores": [], "ids": [], "labels": []}
+    if args.sig_store:
+        from .serve import ServeReplica
+
+        target = ServeReplica(args.sig_store,
+                              params=ClusterParams(seed=args.seed),
+                              device=args.device)
+        store_rows = int(target.store.n_rows)
+
+        def ask(batch):
+            return target.topk(batch, k=args.k, mode="scan")
+    else:
+        client = _serve_client(args)
+        st = client.status()
+        # A router's status carries each shard's rows, not its own.
+        store_rows = int(st.get("store_rows", sum(
+            int(s.get("store_rows", 0))
+            for s in (st.get("shard_status") or {}).values())))
+
+        def ask(batch):
+            return client.topk(batch, k=args.k, mode="scan",
+                               timeout_s=args.timeout)
+    t0 = time.monotonic()
+    rows_scored = 0
+    for lo in range(0, n, args.batch):
+        resp = ask(np.ascontiguousarray(vectors[lo:lo + args.batch],
+                                        np.uint32))
+        out["scores"].extend(np.asarray(resp["scores"]).tolist())
+        out["labels"].extend(np.asarray(resp["labels"]).tolist())
+        out["ids"].extend(resp["ids"])
+        rows_scored += store_rows * int(min(args.batch, n - lo))
+    wall = time.monotonic() - t0
+    if not args.sig_store:
+        client.close()
+    if args.out:
+        from .utils.atomic import atomic_write
+
+        with atomic_write(args.out) as f:
+            json.dump(out, f)
+    summary = {"ok": True, "queries": n, "k": int(args.k),
+               "store_rows": store_rows,
+               "pairs_scored": rows_scored,
+               "wall_s": round(wall, 3),
+               "pairs_scored_s": round(rows_scored / wall, 1)
+               if wall > 0 else 0.0}
+    if args.out:
+        summary["out"] = args.out
+    else:
+        summary["results"] = out
+    print(json.dumps(summary))
+    return 0
 
 
 def _cmd_serve_client(args) -> int:
@@ -601,14 +770,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the bound port here (atomic), for clients "
                         "and --status")
     v.add_argument("--seed", type=int, default=0)
-    v.add_argument("--state-every", type=int, default=8,
+    v.add_argument("--state-every", type=int, default=None,
                    help="commit the LSH state every N ingest generations "
                         "(acks are durable regardless; this bounds the "
-                        "recovery work after a crash)")
+                        "recovery work after a crash); default 8, or 1 in "
+                        "shard mode (--range)")
     v.add_argument("--root", default=None,
-                   help="sharded serve root (shard mode; not ported)")
+                   help="sharded serve root (shard mode; with --range)")
     v.add_argument("--range", type=int, default=None,
-                   help="digest range of shard mode (not ported)")
+                   help="digest range this daemon owns as single writer "
+                        "(shard mode: serves <root>/range_NNNN, claims the "
+                        "range's epoch lease, writes a heartbeat and "
+                        "defaults --port-file to <root>/serve_NNNN.port)")
     v.add_argument("--status", action="store_true",
                    help="client mode: print a running daemon's status "
                         "and record it as the serve_status step of "
@@ -636,6 +809,59 @@ def build_parser() -> argparse.ArgumentParser:
                    help="slowlog: at most N most recent captures")
     c.add_argument("--dump", action="store_true",
                    help="profile: also write profile_NNN.json daemon-side")
+    b = sub.add_parser("backfill", help="bulk re-label: the exact top-k "
+                       "scan of a signature store for every query vector")
+    b.add_argument("--npy", required=True,
+                   help="[K, S] uint32 .npy of coverage vectors to re-label")
+    b.add_argument("--sig-store", default=None,
+                   help="scan this store directory in process (read "
+                        "only); otherwise --port/--port-file drives a "
+                        "running daemon's or router's topk verb")
+    b.add_argument("--host", default="127.0.0.1")
+    b.add_argument("--port", type=int, default=0)
+    b.add_argument("--port-file", default=None)
+    b.add_argument("--k", type=int, default=1,
+                   help="nearest stored sessions a query (default 1: the "
+                        "re-label assignment)")
+    b.add_argument("--batch", type=int, default=256,
+                   help="query vectors a scan pass")
+    b.add_argument("--timeout", type=float, default=None,
+                   help="TCP mode: budget of a batch (default: the "
+                        "ingest-class budget)")
+    b.add_argument("--seed", type=int, default=0)
+    b.add_argument("--out", default=None,
+                   help="write the full (scores, ids, labels) JSON here "
+                        "(atomic); default prints them inline")
+    b.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu: where --sig-store's scan "
+                        "runs")
+    r = sub.add_parser("serve-router", help="stateless fan-out router over "
+                       "digest-range shard daemons; serve-client works "
+                       "unchanged against it")
+    r.add_argument("--root", required=True,
+                   help="sharded serve root holding the shards' "
+                        "serve_NNNN.port files and heartbeats")
+    r.add_argument("--shards", type=int, default=2,
+                   help="number of digest-range shard daemons")
+    r.add_argument("--host", default="127.0.0.1")
+    r.add_argument("--shard-host", default="127.0.0.1",
+                   help="host the shard daemons listen on")
+    r.add_argument("--port", type=int, default=0)
+    r.add_argument("--port-file", default=None)
+    p = sub.add_parser("serve-replica", help="read replica over a streamed "
+                       "store copy (stale-bounded reads; writes refuse)")
+    p.add_argument("--src", required=True,
+                   help="writer store directory to stream shards from")
+    p.add_argument("--dir", required=True,
+                   help="replica store directory (created or refreshed)")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="seconds between pulls (the staleness bound)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--port-file", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu: where topk's scan runs")
     return ap
 
 
@@ -649,6 +875,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_stats(args)
     if args.cmd == "serve-client":
         return _cmd_serve_client(args)
+    if args.cmd == "backfill":
+        return _cmd_backfill(args)
     if args.cmd == "scrub":
         return _cmd_scrub(args)
     logging.basicConfig(level=logging.INFO, datefmt="%H:%M:%S",
@@ -656,6 +884,10 @@ def main(argv: list[str] | None = None) -> int:
                                "%(message)s")
     if args.cmd == "serve":
         return _cmd_serve(args)
+    if args.cmd == "serve-router":
+        return _cmd_serve_router(args)
+    if args.cmd == "serve-replica":
+        return _cmd_serve_replica(args)
     if args.cmd == "ingest":
         return _cmd_ingest(args)
     if args.cmd == "restore":

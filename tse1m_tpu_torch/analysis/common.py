@@ -5,6 +5,13 @@ common.py:24-84``.
 lines of the reference transcript (rq1_detection_rate.py:121-153),
 extracts ``StudyArrays`` for the eligible projects (the first 10 in test
 mode) and holds a ``TorchBackend`` on the device asked for.
+
+``pyplot`` and ``Figures`` draw the drivers' PDFs.  matplotlib is imported
+inside the functions that draw, never when a module is imported (the
+card's machine has none).  Where it does not import, a driver still
+writes every CSV, lists the figures it skipped in its manifest under
+``figures_skipped`` and returns normally; the JAX package's drivers raise
+there instead.
 """
 
 from __future__ import annotations
@@ -85,6 +92,50 @@ class StudyContext:
         return path
 
 
+def pyplot():
+    """matplotlib's pyplot on the Agg backend (raises ImportError where
+    matplotlib is not installed)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+class Figures:
+    """One driver's figures: ``draw`` runs a figure writer when matplotlib
+    imports, else records the figure's path under the driver's output
+    directory; ``finish`` lists the skipped ones in the manifest
+    (``figures_skipped``)."""
+
+    def __init__(self, manifest, out_dir: str) -> None:
+        self.manifest = manifest
+        self.out_dir = out_dir
+        self.skipped: list[str] = []
+        try:
+            pyplot()
+        except ImportError:
+            self.available = False
+        else:
+            self.available = True
+
+    def draw(self, paths, writer, *args, **kwargs) -> bool:
+        """``writer(*args, **kwargs)``, which writes the file ``paths``
+        (or each of a tuple of them), or nothing when its data gate is
+        closed; True when the files are there."""
+        paths = (paths,) if isinstance(paths, str) else tuple(paths)
+        if not self.available:
+            self.skipped += [os.path.relpath(p, self.out_dir) for p in paths]
+            return False
+        writer(*args, **kwargs)
+        return all(os.path.exists(p) for p in paths)
+
+    def finish(self) -> None:
+        if self.skipped:
+            self.manifest.record(figures_skipped=list(self.skipped))
+
+
 def _issue_counts(db: DB, cfg: Config, fixed: bool) -> tuple[int, int]:
     sql = "SELECT COUNT(*), COUNT(DISTINCT project) FROM issues WHERE rts < ?"
     params: tuple = (cfg.limit_date,)
@@ -95,4 +146,5 @@ def _issue_counts(db: DB, cfg: Config, fixed: bool) -> tuple[int, int]:
     return n, p
 
 
-__all__ = ["StudyContext", "fmt_ts_ns", "limit_date_ns"]
+__all__ = ["Figures", "StudyContext", "fmt_ts_ns", "limit_date_ns",
+           "pyplot"]

@@ -6,10 +6,9 @@ Artifacts, byte for byte as the JAX package writes them:
 - ``rq1_detection_rate_stats.csv``: ``Iteration,Total_Projects,
   Detected_Projects_Count`` (rq1:330-335);
 - ``rq1_raw_issues_for_analysis.csv``: the linked issues with their
-  matched build, under a generic ``issue_i`` header (rq1:23-43).
-
-The Figure-6 PDF needs matplotlib, which this package does not import
-(ROADMAP.md Queue 1, "RQ figures").
+  matched build, under a generic ``issue_i`` header (rq1:23-43);
+- ``rq1_detection_rate.pdf``: Figure 6, the dual-axis plot (rq1:46-98),
+  where matplotlib imports (``common.Figures``).
 """
 
 from __future__ import annotations
@@ -26,7 +25,7 @@ from ..db.ingest import parse_array, pg_array_literal
 from ..utils.atomic import atomic_write
 from ..utils.manifest import RunManifest
 from ..utils.timing import PhaseTimer
-from .common import StudyContext, fmt_ts_ns, limit_date_ns
+from .common import Figures, StudyContext, fmt_ts_ns, limit_date_ns, pyplot
 
 
 def save_raw_issues_csv(ctx: StudyContext, result, path: str) -> int:
@@ -68,6 +67,28 @@ def save_stats_csv(result, path: str) -> None:
         for it, tot, det in zip(result.iterations, result.total_projects,
                                 result.detected_counts):
             w.writerow([int(it), int(tot), int(det)])
+
+
+def create_detection_rate_graph(result, path: str,
+                                file_format: str = "pdf") -> None:
+    """Figure 6: the detection-rate line on the primary axis over a
+    project-population bar chart on the secondary axis (rq1:46-98)."""
+    plt = pyplot()
+    rates = result.detection_rates
+    fig, ax1 = plt.subplots(figsize=(5, 3))
+    ax2 = ax1.twinx()
+    ax1.set_zorder(ax2.get_zorder() + 1)
+    ax1.patch.set_visible(False)
+    ax1.plot(range(len(rates)), rates, color="b", marker="o", markersize=1.0,
+             linewidth=1)
+    ax1.set_ylabel("Percentage of Projects Detecting Bugs", y=0.45)
+    ax1.set_xlabel("Fuzzing Session")
+    ax2.bar(range(len(result.total_projects)), result.total_projects,
+            color="#88c778", alpha=0.6)
+    ax2.set_ylabel("Number of Projects")
+    plt.tight_layout(pad=0.1)
+    plt.savefig(path, format=file_format)
+    plt.close(fig)
 
 
 def late_stage_stats(result, threshold_pct: float = 5.0) -> dict:
@@ -129,6 +150,12 @@ def run_rq1(cfg: Config | None = None, db=None,
         raw_path = os.path.join(out_dir, "rq1_raw_issues_for_analysis.csv")
         if save_raw_issues_csv(ctx, result, raw_path):
             manifest.add_artifact(raw_path)
+        figures = Figures(manifest, out_dir)
+        pdf_path = os.path.join(out_dir, "rq1_detection_rate.pdf")
+        if figures.draw(pdf_path, create_detection_rate_graph, result,
+                        pdf_path):
+            manifest.add_artifact(pdf_path)
+        figures.finish()
 
     late = late_stage_stats(result)
     if late:
@@ -151,5 +178,5 @@ def run_rq1(cfg: Config | None = None, db=None,
             "raw_csv": raw_path}
 
 
-__all__ = ["late_stage_stats", "run_rq1", "save_raw_issues_csv",
-           "save_stats_csv"]
+__all__ = ["create_detection_rate_graph", "late_stage_stats", "run_rq1",
+           "save_raw_issues_csv", "save_stats_csv"]

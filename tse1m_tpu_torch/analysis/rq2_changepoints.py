@@ -9,7 +9,7 @@ directory, as the reference does, rq2_coverage_and_added.py:14-15):
 - ``rq3/all_coverage_change_analysis.csv``: every project's rows merged
   (rq2:232-238), written only when there is a change.
 
-This driver draws no figure (ROADMAP.md Queue 1, "RQ figures").
+This driver draws no figure, as the JAX package's draws none.
 """
 
 from __future__ import annotations

@@ -4,13 +4,15 @@
 Artifacts, as the JAX package writes them (under ``rq3/``):
 ``detected_coverage_changes.csv`` and ``non_detected_coverage_changes.csv``,
 header ``CoverageChangePercent,CoveredLinesChange,TotalLinesChange``
-(rq3:307-318).
+(rq3:307-318); and where matplotlib imports (``common.Figures``) and both
+groups have rows, ``coverage_diff_boxplot.pdf`` and
+``coverage_diff_histograms.pdf`` (rq3:157-198), ``detected.pdf`` and
+``non_detected.pdf`` (rq3:70-152, 357-358).
 
 The statistics stay on the host in scipy over the already-reduced delta
 vectors: the summary table per group (rq3:25-66), Anderson-Darling
 normality per group (rq3:329-339), Levene (rq3:344) and Brunner-Munzel
-(rq3:349).  The boxplot and histogram PDFs need matplotlib, which this
-package does not import (ROADMAP.md Queue 1, "RQ figures").
+(rq3:349).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..config import Config
 from ..utils.atomic import atomic_write
 from ..utils.manifest import RunManifest
 from ..utils.timing import PhaseTimer
-from .common import StudyContext, limit_date_ns
+from .common import Figures, StudyContext, limit_date_ns, pyplot
 
 
 def summary_statistics(data: np.ndarray) -> dict:
@@ -120,6 +122,89 @@ def _int_if_whole(x: float):
     return int(x) if float(x).is_integer() else x
 
 
+def create_comparison_plots(out_dir: str, detected, non_detected) -> list[str]:
+    """Side-by-side symlog boxplot and shared-bin histograms
+    (rq3:157-198); returns the paths written."""
+    plt = pyplot()
+    paths = []
+
+    fig = plt.figure(figsize=(4, 3))
+    box = plt.boxplot([detected, non_detected], patch_artist=True,
+                      tick_labels=["Detected", "Not Detected"],
+                      showfliers=True)
+    for patch, color in zip(box["boxes"], ["#A3BCE2", "#E2A3A3"]):
+        patch.set_facecolor(color)
+    plt.ylabel("Coverage Difference (%)")
+    plt.yscale("symlog", linthresh=0.01)
+    plt.grid(axis="y", linestyle="--", alpha=0.6)
+    plt.tight_layout()
+    p = os.path.join(out_dir, "coverage_diff_boxplot.pdf")
+    plt.savefig(p)
+    plt.close(fig)
+    paths.append(p)
+
+    both = np.concatenate([detected, non_detected])
+    bins = np.linspace(both.min(), both.max(), 50) if both.size else 10
+    fig, (ax1, ax2) = plt.subplots(1, 2, figsize=(8, 3), sharey=True,
+                                   sharex=True)
+    ax1.hist(detected, bins=bins, color="skyblue", edgecolor="black")
+    ax1.set_title("Detected")
+    ax1.set_xlabel("Coverage Difference (%)")
+    ax1.set_ylabel("Frequency")
+    ax2.hist(non_detected, bins=bins, color="salmon", edgecolor="black")
+    ax2.set_title("Not Detected")
+    ax2.set_xlabel("Coverage Difference (%)")
+    plt.tight_layout()
+    p = os.path.join(out_dir, "coverage_diff_histograms.pdf")
+    plt.savefig(p)
+    plt.close(fig)
+    paths.append(p)
+    return paths
+
+
+def create_boxplot(path: str, values) -> None:
+    """Single-group symlog boxplot with a mean marker (rq3:70-152)."""
+    plt = pyplot()
+    from matplotlib.ticker import FuncFormatter
+
+    edge = "#444444"
+    fig = plt.figure(figsize=(2.0, 2.5))
+    box = plt.boxplot(values, patch_artist=True, widths=0.5, showfliers=True)
+    for patch in box["boxes"]:
+        patch.set_facecolor("#e3eefa")
+        patch.set_linewidth(0.7)
+        patch.set_edgecolor(edge)
+    plt.setp(box["medians"], color="#FF0000", linewidth=0.3)
+    for whisker in box["whiskers"]:
+        whisker.set_linewidth(0.7)
+        whisker.set_color(edge)
+    for cap in box["caps"]:
+        cap.set_linewidth(0.7)
+        cap.set_color(edge)
+    for flier in box["fliers"]:
+        flier.set(marker="o", alpha=0.5, markersize=2, markeredgewidth=0.2,
+                  markeredgecolor="#c83c3c")
+    plt.scatter(1, np.mean(values), color="#2f6ba3", marker="^", s=15,
+                zorder=3, label="Mean")
+    plt.ylabel("Coverage Difference")
+    plt.xticks([])
+    plt.yscale("symlog", linthresh=0.01)
+    plt.ylim(-100, 100)
+    ticks = [-100, -10, -1, -0.1, -0.01, 0, 0.01, 0.1, 1, 10, 100]
+    plt.yticks(ticks)
+
+    def fmt(x, pos):
+        if x == 0:
+            return "0"
+        e = int(np.log10(abs(x)))
+        return f"$-10^{{{e}}}$" if x < 0 else f"$10^{{{e}}}$"
+
+    plt.gca().get_yaxis().set_major_formatter(FuncFormatter(fmt))
+    plt.tight_layout(pad=0)
+    plt.savefig(path, bbox_inches="tight")
+    plt.close(fig)
+
+
 def run_rq3(cfg: Config | None = None, db=None,
             device: str | torch.device = "cuda") -> dict:
     timer = PhaseTimer()
@@ -171,6 +256,22 @@ def run_rq3(cfg: Config | None = None, db=None,
               f"{tests['brunner_munzel']['statistic']:.4f}")
         print(f"P-value: {tests['brunner_munzel']['p_value']:.4f}")
 
+    with timer.phase("figures"):
+        figures = Figures(manifest, out_dir)
+        if detected.size and non_detected.size:
+            pair = tuple(os.path.join(out_dir, name) for name in (
+                "coverage_diff_boxplot.pdf", "coverage_diff_histograms.pdf"))
+            if figures.draw(pair, create_comparison_plots, out_dir,
+                            detected, non_detected):
+                for path in pair:
+                    manifest.add_artifact(path)
+            for name, vals in (("detected.pdf", detected),
+                               ("non_detected.pdf", non_detected)):
+                path = os.path.join(out_dir, name)
+                if figures.draw(path, create_boxplot, path, vals):
+                    manifest.add_artifact(path)
+        figures.finish()
+
     manifest.record(
         n_issues=n_issues,
         n_detected=int(detected.size),
@@ -184,5 +285,6 @@ def run_rq3(cfg: Config | None = None, db=None,
             "detected_csv": det_path, "non_detected_csv": nondet_path}
 
 
-__all__ = ["print_summary_statistics", "run_rq3", "save_changes_csv",
+__all__ = ["create_boxplot", "create_comparison_plots",
+           "print_summary_statistics", "run_rq3", "save_changes_csv",
            "statistical_tests", "summary_statistics"]

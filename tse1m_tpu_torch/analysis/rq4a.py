@@ -9,10 +9,14 @@ Artifacts, as the JAX package writes them (under ``rq4/bug/``):
 - ``rq4_gc_introduction_iteration.csv``: ``Project,Introduction_Iteration``
   ascending (rq4a:272-291).
 
+Where matplotlib imports (``common.Figures``): ``rq4_g1_g2_detection_
+trend.pdf`` (rq4a:749-784), ``rq4_gc_detection_trend.pdf`` (rq4a:513-568)
+and ``rq4_gc_bug_detection_venn.pdf`` (rq4a:843-879; plain matplotlib
+circles where ``matplotlib_venn`` is absent, as the JAX package draws).
+
 The console block (rq4a:694-801) reports G2's superiority over G1, the
 first iteration below 5 %, the G4 pre/post detection rates and the
-transition counts.  The trend, G4-step and Venn PDFs need matplotlib,
-which this package does not import (ROADMAP.md Queue 1, "RQ figures").
+transition counts.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..config import Config
 from ..utils.atomic import atomic_write
 from ..utils.manifest import RunManifest
 from ..utils.timing import PhaseTimer
-from .common import StudyContext, limit_date_ns
+from .common import Figures, StudyContext, limit_date_ns, pyplot
 from .corpus import GROUP_LABELS, g4_prepost, load_corpus_groups
 
 
@@ -52,6 +56,112 @@ def save_intro_csv(prepost, path: str) -> int:
         w.writerow(["Project", "Introduction_Iteration"])
         w.writerows(rows)
     return len(rows)
+
+
+def plot_g1_g2_trend(result, max_valid_iteration: int, path: str) -> None:
+    plt = pyplot()
+    keep = result.iterations <= max_valid_iteration
+    it = result.iterations[keep]
+    plt.figure(figsize=(5, 3))
+    plt.plot(it, result.rates("g1")[keep], color="#1f77b4", linestyle="-",
+             label=GROUP_LABELS["group1"], linewidth=1, marker="o",
+             markersize=1)
+    plt.plot(it, result.rates("g2")[keep], color="#ff7f0e", linestyle="-",
+             label=GROUP_LABELS["group2"], linewidth=1, alpha=0.7,
+             marker="o", markersize=1)
+    plt.xlabel("Fuzzing Session")
+    plt.ylabel("Percentage of Projects Detecting Bugs", y=0.45)
+    plt.legend()
+    plt.grid(True, linestyle="--", alpha=0.6)
+    if it.size and it.max() > 500:
+        from matplotlib.ticker import MaxNLocator
+
+        plt.gca().xaxis.set_major_locator(
+            MaxNLocator(integer=True, prune="upper"))
+    plt.tight_layout(pad=0.1)
+    plt.savefig(path, format="pdf")
+    plt.close()
+
+
+def plot_g4_trend(prepost, n_windows: int, path: str) -> None:
+    plt = pyplot()
+    rates = prepost.step_rates()
+    if rates.size == 0:
+        return
+    N = n_windows
+    sort_idx = [s + N if s < 0 else s + N - 1 for s in prepost.steps]
+    plt.figure(figsize=(5, 3))
+    plt.plot(sort_idx, rates, color="#2ca02c", linestyle="-", marker="o",
+             markersize=5, linewidth=1.5)
+    plt.axvline(x=(N - 1) + 0.5, color="r", linestyle="--", linewidth=1.0,
+                label="Corpus Specification")
+    plt.xlabel("Fuzzing Session (Relative Step: Pre/Post)")
+    plt.ylabel("Percentage of Projects Detecting Bugs", y=0.45)
+    labels = [f"-{-s}" if s < 0 else f"+{s}" for s in prepost.steps]
+    plt.xticks(sort_idx, labels, rotation=0)
+    plt.ylim(0, 32)
+    plt.legend(loc="upper left")
+    plt.grid(True, linestyle="--", alpha=0.6)
+    plt.tight_layout(pad=0.1)
+    tc = prepost.transition_counts()
+    text = "\n".join([
+        f"no detection: {tc['no_detection']:>2} project",
+        f"pre only detection: {tc['pre_only']:>2} project",
+        f"pre&post detection: {tc['pre_and_post']:>2} project",
+        f"post only detection: {tc['post_only']:>2} project",
+    ])
+    plt.gca().text(0.98, 0.05, text, transform=plt.gca().transAxes,
+                   ha="right", va="bottom", fontsize=9,
+                   fontfamily="monospace",
+                   bbox=dict(facecolor="white", alpha=0.85,
+                             edgecolor=(0, 0, 0, 0.35), linewidth=0.8))
+    plt.savefig(path, format="pdf")
+    plt.close()
+
+
+def plot_transition_venn(prepost, path: str) -> None:
+    """Pre/post detection Venn (rq4a:843-879); without matplotlib_venn
+    the two circles are drawn with plain matplotlib."""
+    plt = pyplot()
+    tc = prepost.transition_counts()
+    pre_only, post_only = tc["pre_only"], tc["post_only"]
+    both, neither = tc["pre_and_post"], tc["no_detection"]
+    total = len(prepost.kept_projects)
+    try:
+        from matplotlib_venn import venn2
+    except ImportError:
+        venn2 = None
+    if venn2 is not None:
+        plt.figure(figsize=(5, 4))
+        v = venn2(subsets=(pre_only, post_only, both),
+                  set_labels=("Detected in Pre", "Detected in Post"))
+        for pid, color in (("10", "skyblue"), ("01", "lightgreen"),
+                           ("11", "violet")):
+            patch = v.get_patch_by_id(pid)
+            if patch:
+                patch.set_alpha(0.5)
+                patch.set_color(color)
+        plt.title("Bug Detection Overlap (Group C)")
+        plt.text(0, -0.65, f"Neither Detected: {neither}\n(Total: {total})",
+                 ha="center", fontsize=9)
+    else:
+        fig, ax = plt.subplots(figsize=(5, 4))
+        for cx, color in ((-0.45, "skyblue"), (0.45, "lightgreen")):
+            ax.add_patch(plt.Circle((cx, 0), 0.9, alpha=0.5, color=color))
+        ax.text(-0.85, 0, str(pre_only), ha="center", fontsize=12)
+        ax.text(0.85, 0, str(post_only), ha="center", fontsize=12)
+        ax.text(0, 0, str(both), ha="center", fontsize=12)
+        ax.text(-0.45, 1.05, "Detected in Pre", ha="center", fontsize=10)
+        ax.text(0.45, 1.05, "Detected in Post", ha="center", fontsize=10)
+        ax.text(0, -1.3, f"Neither Detected: {neither}\n(Total: {total})",
+                ha="center", fontsize=9)
+        ax.set_xlim(-1.8, 1.8)
+        ax.set_ylim(-1.6, 1.3)
+        ax.set_aspect("equal")
+        ax.axis("off")
+        ax.set_title("Bug Detection Overlap (Group C)")
+    plt.savefig(path, bbox_inches="tight")
+    plt.close()
 
 
 def first_below(rates: np.ndarray, threshold: float = 5.0) -> int:
@@ -145,6 +255,21 @@ def run_rq4a(cfg: Config | None = None, db=None,
           f"{tc['no_detection']}")
     print(f"Valid project count for Group C: {n_kept}")
 
+    with timer.phase("figures"):
+        figures = Figures(manifest, out_dir)
+        trend_pdf = os.path.join(out_dir, "rq4_g1_g2_detection_trend.pdf")
+        if figures.draw(trend_pdf, plot_g1_g2_trend, result, max_valid,
+                        trend_pdf):
+            manifest.add_artifact(trend_pdf)
+        g4_pdf = os.path.join(out_dir, "rq4_gc_detection_trend.pdf")
+        if figures.draw(g4_pdf, plot_g4_trend, prepost, N, g4_pdf):
+            manifest.add_artifact(g4_pdf)
+        venn_pdf = os.path.join(out_dir, "rq4_gc_bug_detection_venn.pdf")
+        if n_kept and figures.draw(venn_pdf, plot_transition_venn, prepost,
+                                   venn_pdf):
+            manifest.add_artifact(venn_pdf)
+        figures.finish()
+
     manifest.record(
         n_projects=ctx.arrays.n_projects,
         group_sizes={k: len(v) for k, v in groups.groups.items()},
@@ -161,4 +286,6 @@ def run_rq4a(cfg: Config | None = None, db=None,
             "trend_csv": trend_csv, "intro_csv": intro_csv}
 
 
-__all__ = ["first_below", "run_rq4a", "save_intro_csv", "save_trend_csv"]
+__all__ = ["first_below", "plot_g1_g2_trend", "plot_g4_trend",
+           "plot_transition_venn", "run_rq4a", "save_intro_csv",
+           "save_trend_csv"]

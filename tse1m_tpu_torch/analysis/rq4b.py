@@ -1,18 +1,19 @@
 """RQ4b, the seed corpus's effect on coverage: a port of
 ``tse1m_tpu/analysis/rq4b.py:56-262, 357-451`` over ``TorchBackend``.
 
-Artifact, as the JAX package writes it: ``rq4/coverage/g2_g1_trend_stats.csv``,
-the per-session percentile and count table of G2 and G1 with each
-session's Brunner-Munzel p-value (rq4b:938-976; ``nan`` where the test
-did not run).
+Artifacts, as the JAX package writes them (under ``rq4/coverage/``):
+``g2_g1_trend_stats.csv``, the per-session percentile and count table of
+G2 and G1 with each session's Brunner-Munzel p-value (rq4b:938-976;
+``nan`` where the test did not run); and where matplotlib imports
+(``common.Figures``) and the data allow, ``coverage_delta_timeseries_
+linear.pdf`` (rq4b:1041-1118) and ``g2_g1_boxplot_comparison.pdf``
+(rq4b:491-637).
 
 Console: the per-session Brunner-Munzel summary with the first
 significant session, the Q1/median/Q3 win ratios and Spearman trend
 correlations (rq4b:799-908); the initial-coverage Mann-Whitney U, Cliff's
 delta, Brunner-Munzel and Levene (rq4b:248-313); the per-step coverage
-medians around corpus introduction (rq4b:1060-1085).  The delta and
-boxplot PDFs need matplotlib, which this package does not import
-(ROADMAP.md Queue 1, "RQ figures").
+medians around corpus introduction (rq4b:1060-1085).
 """
 
 from __future__ import annotations
@@ -29,12 +30,13 @@ from ..config import Config
 from ..utils.atomic import atomic_write
 from ..utils.manifest import RunManifest
 from ..utils.timing import PhaseTimer
-from .common import StudyContext, limit_date_ns
+from .common import Figures, StudyContext, limit_date_ns, pyplot
 from .corpus import CorpusGroups, load_corpus_groups
 
 log = logging.getLogger(__name__)
 
 PERCENTILES = (25, 50, 75)
+BOXPLOT_STEP = 100
 
 
 # -- Analysis 2: pre/post coverage deltas (rq4b:725-797) ---------------------
@@ -242,6 +244,102 @@ def save_trend_csv(result, p_values, path: str) -> None:
 
 # -- Entry point -------------------------------------------------------------
 
+# -- Plots --------------------------------------------------------------------
+
+def plot_coverage_deltas(deltas: dict, n_iters: int, path: str) -> None:
+    """Pre/post delta boxplots, chronological t=-N..-1,1..N
+    (rq4b:1041-1118)."""
+    plt = pyplot()
+    if not deltas["projects"]:
+        return
+    N = n_iters
+    data, labels, colors = [], [], []
+    for i in range(N - 1, -1, -1):
+        data.append(deltas["pre_deltas"][:, i])
+        labels.append(f"-{i + 1}")
+        colors.append("#ffcc99")
+    for i in range(N):
+        data.append(deltas["post_deltas"][:, i])
+        labels.append(f"{i + 1}")
+        colors.append("#99ff99")
+    fig, ax = plt.subplots(figsize=(5, 3))
+    box = ax.boxplot(data, patch_artist=True, widths=0.6,
+                     flierprops=dict(markersize=2))
+    for patch, c in zip(box["boxes"], colors):
+        patch.set_facecolor(c)
+        patch.set_alpha(0.6)
+        patch.set_edgecolor("#333333")
+    for part in ("whiskers", "caps", "medians"):
+        for line in box[part]:
+            line.set_color("#333333")
+    ax.set_xticks(range(1, 2 * N + 1))
+    ax.set_xticklabels(labels)
+    ax.set_ylim(-50, 50)
+    ax.set_ylabel("Coverage Delta (Relative to Pre-1)")
+    ax.set_xlabel("Time Step (t)")
+    ax.axhline(0, ls="--", color="black", linewidth=1.0)
+    ax.axvline(N + 0.5, ls=":", color="red", linewidth=1.5)
+    plt.tight_layout()
+    plt.savefig(path, format="pdf")
+    plt.close(fig)
+
+
+def plot_comparative_boxplot(result, g1_idx, g2_idx, min_projects: int,
+                             path: str, step: int = BOXPLOT_STEP) -> None:
+    """Side-by-side G1/G2 boxplots every ``step`` sessions, cut at the
+    first sampled session where either group < min_projects
+    (rq4b:491-637)."""
+    plt = pyplot()
+    S = result.matrix.shape[1]
+    sessions, data_a, data_b = [], [], []
+    for idx in range(0, S, step):
+        a = result.matrix[g1_idx, idx][result.mask[g1_idx, idx]]
+        b = result.matrix[g2_idx, idx][result.mask[g2_idx, idx]]
+        if a.size < min_projects or b.size < min_projects:
+            break
+        sessions.append(idx + 1)
+        data_a.append(a)
+        data_b.append(b)
+    if not sessions:
+        log.warning("No sufficient data for boxplot.")
+        return
+    fig, ax1 = plt.subplots(figsize=(5, 3))
+    central = np.arange(len(sessions))
+    w, d = 0.25, 0.125
+    bp_a = ax1.boxplot(data_a, positions=central - d, widths=w,
+                       patch_artist=True, showfliers=False)
+    bp_b = ax1.boxplot(data_b, positions=central + d, widths=w,
+                       patch_artist=True, showfliers=False)
+    for bp, face, edge, ls in ((bp_a, "#66b3ff", "#104e8b", "--"),
+                               (bp_b, "#ff9999", "#d65f00", "-")):
+        for box in bp["boxes"]:
+            box.set(facecolor=face, edgecolor=edge, linewidth=1.0, alpha=0.6,
+                    linestyle=ls)
+        for part in ("whiskers", "caps"):
+            for line in bp[part]:
+                line.set(color=edge, linewidth=1.0, linestyle=ls)
+        for median in bp["medians"]:
+            median.set(color=edge, linewidth=1.2)
+    from matplotlib.patches import Patch
+
+    ax1.set_ylabel("Coverage (%)")
+    ax1.set_xlabel("Coverage Measurement Count")
+    ax1.set_ylim(0, 100)
+    ax1.set_yticks([0, 20, 40, 60, 80, 100])
+    ax1.set_xticks(central)
+    ax1.set_xticklabels(sessions, rotation=45)
+    ax1.set_xlim(left=-0.5, right=len(sessions) - 0.5)
+    ax1.legend(handles=[
+        Patch(facecolor="#66b3ff", edgecolor="#333333", alpha=0.6,
+              label="Group A (No Seed)"),
+        Patch(facecolor="#ff9999", edgecolor="#333333", alpha=0.6,
+              label="Group B (Initial Seed)"),
+    ], loc="upper left", fontsize="small", ncol=2)
+    plt.tight_layout()
+    plt.savefig(path, format="pdf", bbox_inches="tight")
+    plt.close(fig)
+
+
 def run_rq4b(cfg: Config | None = None, db=None,
              device: str | torch.device = "cuda") -> dict:
     timer = PhaseTimer()
@@ -315,6 +413,18 @@ def run_rq4b(cfg: Config | None = None, db=None,
         trend_csv = os.path.join(out_dir, "g2_g1_trend_stats.csv")
         save_trend_csv(result, p_values, trend_csv)
         manifest.add_artifact(trend_csv)
+    with timer.phase("figures"):
+        figures = Figures(manifest, out_dir)
+        delta_pdf = os.path.join(out_dir,
+                                 "coverage_delta_timeseries_linear.pdf")
+        if figures.draw(delta_pdf, plot_coverage_deltas, deltas, N,
+                        delta_pdf):
+            manifest.add_artifact(delta_pdf)
+        box_pdf = os.path.join(out_dir, "g2_g1_boxplot_comparison.pdf")
+        if figures.draw(box_pdf, plot_comparative_boxplot, result, g1_idx,
+                        g2_idx, ctx.min_projects, box_pdf):
+            manifest.add_artifact(box_pdf)
+        figures.finish()
 
     manifest.record(
         group_sizes={k: len(v) for k, v in groups.groups.items()},
@@ -331,6 +441,7 @@ def run_rq4b(cfg: Config | None = None, db=None,
             "trend_csv": trend_csv}
 
 
-__all__ = ["PERCENTILES", "coverage_deltas", "initial_coverage_stats",
-           "print_trend_summary", "run_rq4b", "save_trend_csv",
-           "session_bm_pvalues", "summarize_trends"]
+__all__ = ["BOXPLOT_STEP", "PERCENTILES", "coverage_deltas",
+           "initial_coverage_stats", "plot_comparative_boxplot",
+           "plot_coverage_deltas", "print_trend_summary", "run_rq4b",
+           "save_trend_csv", "session_bm_pvalues", "summarize_trends"]

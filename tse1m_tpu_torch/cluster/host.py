@@ -21,18 +21,31 @@ _UMAX = np.uint32(0xFFFFFFFF)
 
 
 def host_signatures(items: np.ndarray, a: np.ndarray, b: np.ndarray,
-                    chunk: int = 65536) -> np.ndarray:
+                    chunk: int = 1024) -> np.ndarray:
     """[N, S] uint32 -> [N, H] uint32 kminhash signatures, identical to
-    the kernel's: ``min_s (a * x + b) mod 2^32``."""
+    the kernel's: ``min_s (a * x + b) mod 2^32``.
+
+    A running minimum over the S columns on [chunk, H] blocks that stay in
+    cache, where the JAX package's copy materialises [chunk, S, H]; the
+    serving plane signs here every query row a shard does not hold."""
     items = np.ascontiguousarray(items, dtype=np.uint32)
+    a = np.ascontiguousarray(a, dtype=np.uint32)
+    b = np.ascontiguousarray(b, dtype=np.uint32)
     n, s = items.shape
     h = a.shape[0]
     sig = np.empty((n, h), dtype=np.uint32)
+    tmp = np.empty((min(chunk, n), h), dtype=np.uint32)
     with np.errstate(over="ignore"):
         for lo in range(0, n, chunk):
             blk = items[lo:lo + chunk]  # [bn, S]
-            hashed = blk[:, :, None] * a[None, None, :] + b[None, None, :]
-            sig[lo:lo + chunk] = hashed.min(axis=1)
+            acc = sig[lo:lo + chunk]
+            t = tmp[:blk.shape[0]]
+            np.multiply(blk[:, :1], a, out=acc)
+            np.add(acc, b, out=acc)
+            for j in range(1, s):
+                np.multiply(blk[:, j:j + 1], a, out=t)
+                np.add(t, b, out=t)
+                np.minimum(acc, t, out=acc)
     return sig
 
 

@@ -1287,5 +1287,14 @@ def is_sharded_root(root: str) -> bool:
     return os.path.exists(os.path.join(root, _TOPOLOGY))
 
 
-__all__ = ["POLICY_KEYS", "SignatureStore", "digests_fingerprint",
-           "file_crc", "row_digests"]
+def digest_range_ids(digests: np.ndarray, n_ranges: int) -> np.ndarray:
+    """[N, 2] uint64 digests -> [N] int32 owning range: a contiguous split
+    of the top 32 bits of lane a, the same on every process and machine
+    (the sharded serving plane's deal; ``ShardedSignatureStore`` of the
+    JAX package deals its pod ranges the same way)."""
+    hi = np.ascontiguousarray(digests, dtype="<u8")[:, 0] >> np.uint64(32)
+    return ((hi * np.uint64(n_ranges)) >> np.uint64(32)).astype(np.int32)
+
+
+__all__ = ["POLICY_KEYS", "SignatureStore", "digest_range_ids",
+           "digests_fingerprint", "file_crc", "row_digests"]

@@ -17,6 +17,11 @@ Seats of the port (grep for ``fault_point(``):
 - ``store.sig.save``           a signature-store shard append
 - ``store.compact.save``       a store compaction's shard write
 - ``store.state.save``         the store's LSH state write
+- ``serve.ingest.commit``      an ingest batch's durability point, before
+                               the lease check and the store append
+- ``serve.router.forward``     a router's shard answer, before it is
+                               passed up (the lost-ack window)
+- ``serve.replica.stream``     a replica pull, before its manifest commit
 
 Kinds, as the JAX package's: ``raise`` (:class:`InjectedFault`),
 ``connection_drop`` (:class:`InjectedConnectionDrop`, a
@@ -25,7 +30,8 @@ Kinds, as the JAX package's: ``raise`` (:class:`InjectedFault`),
 raise), ``kill`` (a flight dump, then ``SIGKILL`` of this process) and
 ``stall`` (sleep ``stall_s``, pass through: the hang the watchdog turns
 into a recoverable cancellation).  ``hostloss`` and ``zombie`` need the pod
-coordinator, which is not ported: a plan may name them, and they raise
+supervisor, which is not ported (``coordinator.py`` holds only the serving
+plane's leases and heartbeats): a plan may name them, and they raise
 NotImplementedError when they fire.
 
 The seats fire on the stream's producer thread too, so a plan's counters
@@ -165,7 +171,7 @@ class FaultPlan:
             from ..cluster.pipeline import _not_ported
 
             raise _not_ported(f"the fault plane's {rule.kind!r} kind (the "
-                              "pod coordinator's heartbeats)", "Multi-GPU")
+                              "pod supervisor)", "Multi-GPU")
         if rule.kind == "kill":
             # SIGKILL runs no handler: the flight dump goes first, its
             # terminal span naming this seat.

@@ -34,10 +34,18 @@ but whose state commit the crash outran.
 Device work: the ingest thread launches MinHash kernels and request
 threads launch the top-k kernel, each on its own thread's current stream
 of ``device``, each call with its own buffers.  Only the ingest thread
-writes the store.  Left out against the JAX package: the pod plane's
-lease guard and the serve plane's own fault seats (``serve.ingest.commit``,
-the server's handlers) and the schedule explorer's trace points
-(ROADMAP.md Queue 1, "Serve plane").
+writes the store.
+
+Shard mode: a daemon serving one digest range of a sharded serve root
+behind ``serve.router.ShardRouter`` holds a
+``resilience.coordinator.RangeLeaseGuard`` (``lease_guard=``) and proves
+its tenure at the JAX package's two fence points: before each state
+commit, and in each ingest batch after the seat
+``fault_point("serve.ingest.commit")`` and before the append.  A writer
+whose range was claimed at a later epoch raises ``LeaseSupersededError``
+there with zero rows written, and refuses ingest from then on.  Left out
+against the JAX package: the schedule explorer's trace points (ROADMAP.md
+Queue 1, "Serve plane").
 """
 
 from __future__ import annotations
@@ -66,6 +74,8 @@ from ..observability import profiling, record_degradation
 from ..observability.flight import dump_flight, get_flight_dir, set_flight_dir
 from ..observability.latency import LatencyRecorder
 from ..observability.tracing import continue_trace, current_trace, span
+from ..resilience.coordinator import LeaseSupersededError
+from ..resilience.faults import fault_point
 from ..resilience.watchdog import StageWatchdog, deadline_clock
 from .slo import AdmissionController, SloPolicy, SloTracker
 
@@ -228,14 +238,19 @@ class ServeDaemon:
     scan runs: the card unless the caller asks for the CPU (the kernels'
     plain versions); without a card the constructor raises.  The JAX
     package's ``signer="host"`` option (novel rows signed on the host while
-    a card is present) has no caller here and is left out."""
+    a card is present) has no caller here and is left out.
+
+    ``lease_guard`` (a ``RangeLeaseGuard``) makes this daemon a fenced
+    shard writer: see the module docstring."""
 
     def __init__(self, store_dir: str,
                  params: ClusterParams | None = None,
                  slo: SloPolicy | None = None,
                  state_commit_every: int = 8,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda",
+                 lease_guard=None) -> None:
         self.device = resolve_device(device)
+        self.lease_guard = lease_guard
         if is_sharded_root(store_dir):
             raise ValueError(
                 f"{store_dir} is a pod-sharded store root; the serving "
@@ -420,6 +435,8 @@ class ServeDaemon:
         index = self._index
         if index.n_rows == 0:
             return
+        if self.lease_guard is not None:
+            self.lease_guard.verify()
         self.store.save_state(
             index.labels, index.locator,
             index.band_tables(),
@@ -463,6 +480,14 @@ class ServeDaemon:
             self._busy = True
             try:
                 self._run_ticket(t)
+            except LeaseSupersededError as e:
+                # Self-fence: the check ran before the append, so zero rows
+                # were written.  Latch the error (further submits are
+                # refused) and keep the thread for the query path.
+                t.fail(e)
+                self._ingest_error = e
+                log.error("serve: shard writer fenced (%s); ingest refused "
+                          "from here on", e)
             except Exception as e:  # noqa: BLE001 - one failed batch; the daemon goes on
                 t.fail(e)
                 log.error("serve: ingest batch failed (%s: %s); daemon "
@@ -498,14 +523,40 @@ class ServeDaemon:
         if gen - self._last_committed_gen >= self.state_commit_every:
             self._commit_state()
 
+    def _acked_rows(self, digests: np.ndarray) -> np.ndarray | None:
+        """The index rows the acked batch of these digests took: a batch
+        appends its k rows at once, so the last block of k consecutive
+        index rows holding exactly these digests in order; None when no
+        block does (a restart absorbed the rows in store order)."""
+        k = int(digests.shape[0])
+        every = self._all_digests()
+        if k == 0 or every.shape[0] < k:
+            return None
+        starts = np.flatnonzero((every[:, 0] == digests[0, 0])
+                                & (every[:, 1] == digests[0, 1]))
+        for p in starts[::-1]:
+            if p + k <= every.shape[0] and np.array_equal(every[p:p + k],
+                                                          digests):
+                return p + np.arange(k, dtype=np.int64)
+        return None
+
     def _replay_ack(self, request_id: str, items: np.ndarray) -> dict:
         """The idempotent retry's answer: this request id already
         committed (its journal entry rode the append's manifest write), so
-        the rows are in the index; answer from there."""
+        the rows are in the index; answer from there, with the rows the
+        original ack named.  (The JAX package answers each row with the
+        first index row of its content, which a router then maps to the
+        batch's global ids: a row that repeats earlier content moves that
+        earlier row's global label.)  Where the batch's block is gone, the
+        first row of each content, as the JAX package answers."""
         entry = self.store.serve_journal[request_id]
         index = self._index
         digests = row_digests(items)
-        hit, row = index.lookup_digests(digests)
+        rows = self._acked_rows(digests)
+        if rows is None:
+            hit, row = index.lookup_digests(digests)
+        else:
+            hit, row = np.ones(rows.shape[0], bool), rows.astype(np.int32)
         labels = np.full(int(items.shape[0]), -1, np.int64)
         labels[hit] = index.labels[row[hit]].astype(np.int64)
         record_degradation(
@@ -548,6 +599,11 @@ class ServeDaemon:
             sigs[miss] = self._sign_novel(items[miss])
         # Durability point: the ack is sent only after this commit (tmp +
         # rename shard, then manifest).
+        fault_point("serve.ingest.commit")
+        if self.lease_guard is not None:
+            # Fence point: tenure proven after the seat and before the
+            # append, so a superseded writer raises with zero rows written.
+            self.lease_guard.verify()
         if request_id is not None:
             # Staged under the id, so the append's manifest write commits
             # the ack atomically with the rows it acknowledges.
