@@ -186,6 +186,37 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    this process, the card); the ``kernels`` line adds each kernel's
    launches there under ``sharded_launches``; the children's transcripts
    go to build/sharded_smoke/*.log;
+3f. device tooling at the main path's full width, under the gitignored
+   build/tool_smoke/: (c) again as ``python -m tse1m_tpu_torch cluster
+   --n 1000000 --profile --ari-sample 0`` in a child process on the card:
+   its n_clusters, ARI and wire keys equal phase 3's unprofiled (c), its
+   ``profile_000.json`` beside ``run_manifest.json`` has the JAX package's
+   keys, a live sampler's samples with ``cluster`` among its planes and
+   collapsed stacks, every lock-wait site one of JAX's lock names, and its
+   torch.profiler Chrome trace under ``device_trace/`` launches the
+   MinHash kernel and the rANS kernel as often as (c) did; (c) three
+   times more in this process, plain, under the same wrapper (sampler,
+   lock-wait recorder, device trace) and under the sampler and recorder
+   alone, each with (c)'s labels and launches: the profiler's own cost
+   and its split, with no fresh process in the way; (w2) again, in
+   process, over a copy of the store as run (1) left it, inside
+   ``profiling.device_trace`` (merge, its labels the storeless run's, the
+   trace's MinHash launches the run's); then after one warm-up each, under
+   ``lint.runtime.sanitized(0)`` (no build; host waits counted by their
+   innermost port frame): (b)'s 24-bit run ((b)'s labels, the packed
+   kernel), (w3)'s all-hit run ((2)'s labels, no launch) and (w5)'s
+   64-query scan (the warm-up's ranks, the top-k kernel once a chunk);
+   last the sanitizer's self-check on the card (a wait seen from this
+   thread and from a second one).  One ``profile`` JSON line: for (c) and
+   (w2) the traced window, the device busy share (the union of kernel,
+   copy and fill intervals over the window; for (c) also over the cluster
+   wall), device seconds split by the pipeline's profiler regions into
+   decode, MinHash, the LSH tail with the fetch back, and other, each
+   bucket's ``op/kernel`` names, H2D and D2H copies and bytes (also for
+   the in-process (c) under the wrapper); the child's wall against phase
+   3's (c), the in-process walls and their ratios to the plain run, the
+   stages of each, the child's sampler planes and lock sites; each sanitized run's build count, sync sites, wall and
+   launches; the self-check; the card;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
@@ -300,8 +331,9 @@ from tse1m_tpu_torch.data.columnar import BytesColumn, CodedColumn, StudyArrays
 from tse1m_tpu_torch.data.synth import SynthSpec, generate_study
 from tse1m_tpu_torch.db import connect
 from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
+from tse1m_tpu_torch.lint import runtime as sanitizer
 from tse1m_tpu_torch.observability import (degradation_counts,
-                                           pop_degradation_events)
+                                           pop_degradation_events, profiling)
 from tse1m_tpu_torch.resilience import FaultPlan
 from tse1m_tpu_torch.resilience.coordinator import (LeaseSupersededError,
                                                     RangeLeaseGuard,
@@ -1234,9 +1266,12 @@ def warm_phase(dev) -> dict:
                                            "rans_decode": (0, None)})
     oracle_s.append(expect_equal_to_storeless(
         r["labels"], items[:WARM_BASE], dev, "run 1")[0])
-    # Phase 3c serves a copy of the store as run 1 left it.
+    # Phase 3c serves a copy of the store as run 1 left it; phase 3f
+    # merges the tail into another.
     shutil.rmtree(SERVE_DIR, ignore_errors=True)
     shutil.copytree(store, SERVE_STORE)
+    shutil.rmtree(TOOL_DIR, ignore_errors=True)
+    shutil.copytree(store, TOOL_STORE)
     r2 = warm_run(items, params, dev, f"run 2, accreted to {WARM_ROWS} rows")
     runs["accreted"] = run2 = r2["run"]
     tail = WARM_ROWS - WARM_BASE
@@ -2529,6 +2564,347 @@ def resilience_phase(items, labels: dict, default_run: dict, dev) -> dict:
     return {"line": line, "launches": total}
 
 
+TOOL_DIR = os.path.join(ROOT, "build", "tool_smoke")  # gitignored
+# (w1)'s store as run 1 left it, copied in phase 3b for (w2)'s traced rerun.
+TOOL_STORE = os.path.join(TOOL_DIR, "store")
+# The JAX package's lock names (tse1m_tpu/trace/sync.py's callers): the
+# sites lock_wait_seconds may report, the per-metric ones by prefix.
+LOCK_SITES = frozenset({
+    "SpanRing", "StageRecorder", "observability._degradation_lock",
+    "MetricsRegistry", "Sampler", "SlowRequestLog", "ShardRouter",
+    "AdmissionController", "SloTracker"})
+LOCK_SITE_PREFIXES = ("Counter.", "Gauge.", "LatencyRecorder.")
+# dump_profile's keys in the JAX package (tse1m_tpu/observability/
+# profiling.py:dump_profile), "extra" with the step.
+PROFILE_KEYS = ("pid", "uptime_s", "trace_id", "profiling_enabled",
+                "sampler", "collapsed_stacks", "lock_wait_sites",
+                "slow_requests", "slow_requests_total", "extra")
+WIRE_KEYS = ("encoding", "prefilter_rows_dropped", "wire_quant_bits",
+             "chunk_bits", "wire_mb", "wire_v3_saved_mb")
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# The pipeline's torch.profiler regions (cluster/pipeline.py) -> the split
+# of device time: wire decode, MinHash, the LSH tail and the fetch back.
+REGION_BUCKETS = {"tse1m.decode": "decode", "tse1m.minhash": "minhash",
+                  "tse1m.lsh": "lsh_fetch", "tse1m.fetch": "lsh_fetch"}
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its template arguments, parameters and
+    namespaces; copies and fills keep theirs."""
+    if name.startswith(("Memcpy", "Memset")):
+        return name
+    head = name.replace("(anonymous namespace)::", "")
+    head = head.removeprefix("void ").split("(")[0].split("<")[0]
+    return head.rsplit("::", 1)[-1]
+
+
+def union_us(intervals: list) -> float:
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def trace_summary(path: str) -> dict:
+    """Phase 3f: the device side of a Chrome trace from
+    ``profiling.device_trace``.  The window is the trace's span; busy is
+    the union of kernel, copy and fill intervals; each device event goes
+    to the pipeline region around the host call that launched it (joined
+    by correlation id), else to ``other``, and is listed as ``op/kernel``
+    (the torch op that launched it, by external id, and the kernel's short
+    name; a kernel of the port's extension has no torch op); H2D and D2H
+    copies counted with their bytes."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    device = [e for e in events if e.get("cat") in DEVICE_CATS]
+    launches = {e["args"]["correlation"]: (e["pid"], e["tid"], e["ts"])
+                for e in events if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    regions: dict = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in REGION_BUCKETS:
+            regions.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e["dur"], REGION_BUCKETS[e["name"]]))
+    split = {b: 0.0 for b in ("decode", "minhash", "lsh_fetch", "other")}
+    names = {b: {} for b in split}
+    copies = {"h2d": [0, 0], "d2h": [0, 0]}
+    for e in device:
+        bucket = "other"
+        where = launches.get(e["args"].get("correlation"))
+        if where is not None:
+            inner = [r for r in regions.get(where[:2], ())
+                     if r[0] <= where[2] <= r[1]]
+            if inner:
+                bucket = min(inner, key=lambda r: r[1] - r[0])[2]
+        split[bucket] += e["dur"]
+        op = ops.get(e["args"].get("External id"))
+        n = f"{op}/{short_name(e['name'])}" if op else short_name(e["name"])
+        names[bucket][n] = names[bucket].get(n, 0) + 1
+        for way, tag in (("h2d", "HtoD"), ("d2h", "DtoH")):
+            if e["name"].startswith(f"Memcpy {tag}"):
+                copies[way][0] += 1
+                copies[way][1] += int(e["args"].get("bytes", 0))
+    window_us = t1 - t0
+    busy_us = union_us([(e["ts"], e["ts"] + e["dur"]) for e in device])
+    kernel_names = [e["name"] for e in device if e.get("cat") == "kernel"]
+    return {
+        "window_s": window_us * 1e-6, "device_busy_s": busy_us * 1e-6,
+        "busy_share": busy_us / window_us,
+        "device_s": {b: t * 1e-6 for b, t in split.items()},
+        "ops": {b: dict(sorted(v.items(), key=lambda kv: -kv[1]))
+                for b, v in names.items()},
+        "h2d": {"copies": copies["h2d"][0], "bytes": copies["h2d"][1]},
+        "d2h": {"copies": copies["d2h"][0], "bytes": copies["d2h"][1]},
+        "kernels": len(kernel_names),
+        "minhash_keys_kernel": sum("minhash_keys_kernel" in n
+                                   for n in kernel_names),
+        "rans_decode_kernel": sum("rans_decode_kernel" in n
+                                  for n in kernel_names),
+    }
+
+
+def named_site(site: str) -> bool:
+    return site in LOCK_SITES or site.startswith(LOCK_SITE_PREFIXES)
+
+
+def profiled_child(default: dict) -> dict:
+    """Phase 3f, (c) under ``--profile``: ``python -m tse1m_tpu_torch
+    cluster --n 1000000 --profile`` at the default params on the card, in
+    a child process; its report equals phase 3's unprofiled (c), its
+    profile has the JAX package's keys and a live sampler's snapshot, its
+    lock sites are JAX's names, and its Chrome trace launches kernels 1
+    and 4 as (c) did."""
+    res = fresh_dir(os.path.join(TOOL_DIR, "results"))
+    env = dict(os.environ, TSE1M_RESULT_DIR=res, TSE1M_SIG_STORE="")
+    for name in ("TSE1M_FAULT_PLAN", "TSE1M_PROFILING"):
+        env.pop(name, None)
+    cmd = [sys.executable, "-m", "tse1m_tpu_torch", "cluster", "--n",
+           str(N_SESSIONS), "--seed", "0", "--profile", "--ari-sample", "0"]
+    t0 = time.perf_counter()
+    child = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=CHILD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(TOOL_DIR, "child.log"), "w") as f:
+        f.write(child.stdout + child.stderr)
+    if child.returncode != 0:
+        raise AssertionError(f"cluster --profile exited {child.returncode}: "
+                             f"{child.stderr[-2000:]}")
+    report = json.loads(child.stdout.strip().splitlines()[-1])
+    info = default["info"]
+    want = {"device": torch.cuda.get_device_name(0),
+            "n_clusters": int(np.unique(default["labels"]).size),
+            "ari_vs_planted": round(float(default["ari"]), 5),
+            **{k: json.loads(json.dumps(info[k])) for k in WIRE_KEYS}}
+    got = {k: report.get(k) for k in want}
+    if got != want:
+        raise AssertionError(f"profiled (c) differs from phase 3's: {got} "
+                             f"vs {want}")
+    log(f"  (c) under --profile: child {wall:.3f} s, cluster wall "
+        f"{report['cluster_wall_s']} s (unprofiled {default['wall_s']:.3f} "
+        f"s); n_clusters, ARI and wire keys == phase 3's")
+    if sorted(os.listdir(res)) != ["device_trace", "profile_000.json",
+                                   "run_manifest.json"]:
+        raise AssertionError(f"result dir holds {sorted(os.listdir(res))}")
+    with open(os.path.join(res, "profile_000.json")) as f:
+        prof = json.load(f)
+    sampler = prof.get("sampler") or {}
+    if not (set(PROFILE_KEYS) <= set(prof)
+            and prof["extra"] == {"step": "cluster", "n": N_SESSIONS}
+            and sampler.get("samples", 0) > 0
+            and "cluster" in sampler.get("plane_self", {})
+            and prof["collapsed_stacks"]):
+        raise AssertionError(f"profile_000.json: keys {sorted(prof)}, "
+                             f"sampler {sampler}")
+    sites = [r["site"] for r in prof["lock_wait_sites"]]
+    if not all(named_site(s) for s in sites):
+        raise AssertionError(f"lock sites outside JAX's names: {sites}")
+    (trace_name,) = os.listdir(os.path.join(res, "device_trace"))
+    trace_path = os.path.join(res, "device_trace", trace_name)
+    summary = trace_summary(trace_path)
+    traced = {"minhash_and_keys": summary["minhash_keys_kernel"],
+              "rans_decode": summary["rans_decode_kernel"]}
+    if traced != {k: default["counts"][k] for k in traced}:
+        raise AssertionError(f"the trace launched {traced}, (c) "
+                             f"{default['counts']}")
+    log(f"  trace {trace_name} ({os.path.getsize(trace_path)} B): "
+        f"minhash_keys_kernel x{traced['minhash_and_keys']}, "
+        f"rans_decode_kernel x{traced['rans_decode']} (as in (c)); device "
+        f"busy {summary['busy_share']:.4%} of {summary['window_s']:.3f} s")
+    log(f"  sampler: {sampler['samples']} samples, planes "
+        f"{sampler['plane_self']}; lock sites {sites}")
+    return {"child_wall_s": wall, "cluster_wall_s": report["cluster_wall_s"],
+            "unprofiled_wall_s": default["wall_s"],
+            "wall_ratio": report["cluster_wall_s"] / default["wall_s"],
+            "busy_share_of_cluster_wall": (summary["device_busy_s"]
+                                           / report["cluster_wall_s"]),
+            "stages": {k: v for k, v in report.items()
+                       if k.startswith("stage_")},
+            "sampler": {"samples": sampler["samples"],
+                        "plane_self": sampler["plane_self"]},
+            "lock_wait_sites": prof["lock_wait_sites"],
+            "trace_bytes": os.path.getsize(trace_path), "trace": summary}
+
+
+def profiled_in_process(items, default: dict, dev) -> dict:
+    """Phase 3f: (c) three times in a row in this process: plain, under
+    ``cluster --profile``'s wrapper (the sampler, the lock-wait recorder,
+    the build histograms, a device trace), and under the sampler and the
+    recorder alone: the profiler's own cost and its split, with no fresh
+    process in the way; each run with (c)'s labels and launches."""
+    params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS)
+    runs, summary = {}, None
+    for label, sample, trace_dir in (
+            ("plain", False, None),
+            ("wrapper", True, os.path.join(TOOL_DIR, "c_trace")),
+            ("sampler", True, None)):
+        if sample:
+            profiling.install_compile_listener()
+            profiling.enable_lock_wait(True)
+            profiling.start_sampler()
+        try:
+            with profiling.device_trace(trace_dir) as tr:
+                run = drive(items, params, dev)
+        finally:
+            profiling.stop_sampler()
+            profiling.enable_lock_wait(False)
+        del run["sig"], run["keys"]
+        if not (np.array_equal(run["labels"], default["labels"])
+                and run["counts"] == default["counts"]):
+            raise AssertionError(f"(c) in process, {label}: launches "
+                                 f"{run['counts']} or labels differ")
+        if tr["path"]:
+            summary = trace_summary(tr["path"])
+        runs[label] = {"wall_s": run["wall_s"],
+                       "stages": run["info"]["stages"]}
+    ratios = {k: runs[k]["wall_s"] / runs["plain"]["wall_s"]
+              for k in ("wrapper", "sampler")}
+    log(f"  (c) in process, plain then profiled: walls "
+        f"{[round(r['wall_s'], 3) for r in runs.values()]} s, the wrapper "
+        f"{ratios['wrapper']:.3f}x, the sampler alone "
+        f"{ratios['sampler']:.3f}x the plain run; (c)'s labels and "
+        f"launches each; device busy {summary['busy_share']:.4%} of "
+        f"{summary['window_s']:.3f} s under the wrapper")
+    return {"runs": runs, "ratios": ratios, "trace": summary}
+
+
+def traced_merge(warm: dict, dev) -> dict:
+    """Phase 3f, (w2) under ``device_trace``: phase 3b's accreted merge
+    again, in process, over a copy of the store as run 1 left it."""
+    params = store_params(TOOL_STORE)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profiling.device_trace(os.path.join(TOOL_DIR, "w2_trace")) as tr:
+        t0 = time.perf_counter()
+        labels = pipeline.cluster_sessions(warm["items"], params, device=dev)
+        wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    info = dict(pipeline.last_run_info)
+    if not (info["cache_mode"] == "merge"
+            and 0 < info["cache_novel_rows"] <= WARM_ROWS - WARM_BASE):
+        raise AssertionError(f"traced (w2): {info}")
+    if not np.array_equal(labels, warm["oracle"]):
+        raise AssertionError("traced (w2) labels differ from the storeless "
+                             "run's")
+    summary = trace_summary(tr["path"])
+    if summary["minhash_keys_kernel"] != counts["minhash_and_keys"]:
+        raise AssertionError(f"the (w2) trace launched "
+                             f"{summary['minhash_keys_kernel']}, the run "
+                             f"{counts}")
+    log(f"  (w2) under device_trace: wall {wall:.3f} s, merge, "
+        f"{info['cache_novel_rows']} novel rows, launches {counts}, labels "
+        f"== the storeless run's; device busy {summary['busy_share']:.4%} "
+        f"of {summary['window_s']:.3f} s")
+    return {"wall_s": wall, "launches": counts, "stages": info["stages"],
+            "trace": summary}
+
+
+def sanitized_rerun(label: str, fn, want_launches: dict, dev) -> tuple:
+    """One warm-up call, then ``fn()`` under ``sanitized(0)`` with the
+    launch counts set to 0 just before and read just after; returns its
+    output and the report."""
+    fn()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with sanitizer.sanitized(compile_budget=0) as san:
+        out = fn()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expect_launches(counts, want_launches)
+    rep = san.as_dict()
+    if not rep["sanitizer_transfer_guard"]:
+        raise AssertionError(f"{label}: the sync guard was off on the card")
+    log(f"  {label} under sanitized(0): wall {wall:.3f} s, builds "
+        f"{rep['sanitizer_compile_count']}, launches {counts}, sync sites "
+        f"{rep['sanitizer_sync_sites']}")
+    return out, {**rep, "wall_s": wall, "launches": counts}
+
+
+def sanitized_phase(items, plain24: dict, warm: dict, dev) -> dict:
+    """Phase 3f: (b)'s 24-bit run (kernel 3), (w3)'s all hits and (w5)'s
+    64-query scan (kernel 5), each warm under ``sanitized(0)``."""
+    out = {}
+    labels, out["b"] = sanitized_rerun(
+        "(b) 24-bit, 1M", lambda: pipeline.cluster_sessions(
+            items, params_for(-1), device=dev),
+        {"minhash_and_keys_packed": (1, None)}, dev)
+    if not np.array_equal(labels, plain24["labels"]):
+        raise AssertionError("sanitized (b) labels differ from phase 3's")
+    params = store_params(TOOL_STORE)
+    labels, out["w3"] = sanitized_rerun(
+        "(w3) all hits", lambda: pipeline.cluster_sessions(
+            warm["items"], params, device=dev), {}, dev)
+    if not (pipeline.last_run_info["cache_novel_rows"] == 0
+            and np.array_equal(labels, warm["oracle"])):
+        raise AssertionError("sanitized (w3): novel rows or labels")
+    store = SignatureStore.open_existing(TOOL_STORE)
+    loc = store_scan_locator(store, np.arange(store.n_rows))
+    pick = np.sort(np.random.default_rng(1).choice(store.n_rows, N_QUERIES,
+                                                   replace=False))
+    queries = store.load_signatures(loc[pick, 0], loc[pick, 1])
+    chunks = sum(-(-int(e["rows"]) // SCAN_CHUNK) for e in store.shards)
+    first = bulk_topk_store(store, queries, TOPK_K, device=dev,
+                            chunk_rows=SCAN_CHUNK)
+    (counts, rows), out["w5"] = sanitized_rerun(
+        "(w5) 64-query scan", lambda: bulk_topk_store(
+            store, queries, TOPK_K, device=dev, chunk_rows=SCAN_CHUNK),
+        {"topk_chunk": chunks}, dev)
+    if not (np.array_equal(counts, first[0]) and np.array_equal(rows,
+                                                                first[1])
+            and (counts[:, 0] == N_HASHES).all()):
+        raise AssertionError("sanitized (w5) ranks differ or a first hit "
+                             "is not a full agreement")
+    return out
+
+
+def tooling_phase(items, default: dict, plain24: dict, warm: dict,
+                  dev) -> dict:
+    """Phase 3f: device tooling at the main path's full width; one
+    ``profile`` JSON line."""
+    t_phase = time.perf_counter()
+    line = {"c": profiled_child(default),
+            "c_in_process": profiled_in_process(items, default, dev),
+            "w2": traced_merge(warm, dev),
+            "sanitized": sanitized_phase(items, plain24, warm, dev)}
+    check = sanitizer.self_check(dev)
+    log(f"  self_check on the card: {check}")
+    if not (check["sanitizer_available"] and check["sanitizer_sync_seen"]
+            and check["sanitizer_compile_count"] == 0):
+        raise AssertionError(f"sanitizer self-check failed: {check}")
+    shutil.rmtree(TOOL_STORE, ignore_errors=True)
+    line.update(self_check=check, phase_s=time.perf_counter() - t_phase,
+                card=card_name_and_limit())
+    print(json.dumps({"profile": line}), flush=True)
+    return line
+
+
 def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 1) -> float:
     """Median over ``reps`` windows of the card's time a call, CUDA events
     around ``inner`` back-to-back calls a window.  Kernels are timed with
@@ -3525,6 +3901,11 @@ def main() -> int:
         f"daemons over phase 3b's {WARM_ROWS} rows behind a router, a "
         "shard writer SIGKILLed and replaced, a read replica, backfill")
     sharded = sharded_phase(warm, dev)
+
+    log("phase 3f: device tooling: (c) under cluster --profile in a child, "
+        "(w2) under a device trace, (b), (w3) and (w5) warm under "
+        "sanitized(0), the sanitizer's self-check")
+    tooling_phase(items, default, plain24, warm, dev)
     del warm["items"], warm["oracle"]
 
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "

@@ -90,6 +90,9 @@ def test_port_imports_nothing_of_jax():
     assert {os.path.join(PKG, "serve", f) for f in (
         "router.py", "replicate.py")} | {os.path.join(
             PKG, "resilience", "coordinator.py")} <= set(sources)
+    # So are the device tooling's: the named locks and the sanitizer.
+    assert {os.path.join(PKG, "trace", "sync.py"),
+            os.path.join(PKG, "lint", "runtime.py")} <= set(sources)
 
 
 def test_no_handler_around_kernel_launches():

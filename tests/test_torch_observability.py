@@ -247,11 +247,16 @@ def test_slo_policy_from_env_matches_jax(monkeypatch, env):
 
 def test_profiler_and_slow_request_log_match_jax(tmp_path, monkeypatch):
     """The slow-request record, the ``profile`` verb's answer and the
-    profile dump carry JAX's keys; with no sampler running (a daemon
-    starts none in either package) they agree on the values too."""
+    profile dump carry JAX's keys, with a live sampler and the lock-wait
+    recorder on in each package; the sampled stacks, the sampler's
+    aggregate and the recorded lock sites fill in both."""
     monkeypatch.delenv("TSE1M_PROFILING", raising=False)
-    assert jprof.get_sampler() is None
+    assert tprof.get_sampler() is None and jprof.get_sampler() is None
     try:
+        for prof in (tprof, jprof):
+            assert prof.start_sampler(hz=200.0) is not None
+            assert prof.enable_lock_wait(True) is True
+        time.sleep(0.1)
         with ttracing.span("serve.query"):
             rec = tprof.capture_slow_request("query", 0.2, 50.0,
                                              absorb={"rows": 4}, rows=2)
@@ -262,27 +267,36 @@ def test_profiler_and_slow_request_log_match_jax(tmp_path, monkeypatch):
         assert rec["span_chain"] == jrec["span_chain"] == ["serve.query"]
         assert (rec["wall_ms"], rec["budget_ms"], rec["tags"]) == (
             200.0, 50.0, {"rows": 2})
-        assert (rec["stacks"], rec["lock_waits_ms"]) == (
-            jrec["stacks"], jrec["lock_waits_ms"]) == ([], [])
+        assert rec["stacks"] and jrec["stacks"]
+        assert set(rec["stacks"][0]) == set(jrec["stacks"][0]) == {
+            "t_s", "tid", "span", "stack"}
+        assert isinstance(rec["lock_waits_ms"], list)
         assert rec["absorb"] == jrec["absorb"] == {"rows": 4}
         assert tprof.recent_slow_requests(1)[-1] is rec
         status, jstatus = tprof.profile_status(), jprof.profile_status()
-        jstatus.pop("slow_requests_total")
-        assert {k: v for k, v in status.items()
-                if k != "slow_requests_total"} == jstatus
+        assert set(status) == set(jstatus)
+        assert status["sampler_alive"] is jstatus["sampler_alive"] is True
+        assert set(status["sampler"]) == set(jstatus["sampler"])
         path = tprof.dump_profile(d=str(tmp_path))
         jpath = jprof.dump_profile(d=str(tmp_path / "j"))
         with open(path) as f, open(jpath) as g:
             got, want = json.load(f), json.load(g)
         assert set(got) == set(want)
-        for key in ("sampler", "collapsed_stacks", "profiling_enabled"):
-            assert got[key] == want[key]
+        assert set(got["sampler"]) == set(want["sampler"])
+        assert got["sampler"]["samples"] > 0 and got["collapsed_stacks"]
+        assert "Sampler" in {r["site"] for r in got["lock_wait_sites"]}
+        assert "Sampler" in {r["site"] for r in want["lock_wait_sites"]}
+        assert got["profiling_enabled"] is want["profiling_enabled"] is True
         assert path.endswith("profile_000.json")
         tprof.set_profiling(False)
         assert not tprof.profiling_enabled()
+        assert tprof.get_sampler() is None
         assert not tprof.profile_status()["profiling_enabled"]
     finally:
-        tprof.set_profiling(None)
+        for prof in (tprof, jprof):
+            prof.set_profiling(None)
+            prof.stop_sampler()
+            prof.enable_lock_wait(False)
     assert tprof.profiling_enabled()
     monkeypatch.setenv("TSE1M_PROFILING", "0")
     assert not tprof.profiling_enabled()
@@ -290,4 +304,5 @@ def test_profiler_and_slow_request_log_match_jax(tmp_path, monkeypatch):
     for i in range(3):
         log.append({"i": i})
     assert [r["i"] for r in log.recent()] == [1, 2] and log.total() == 3
-    assert tprof.lock_wait_summary() == []
+    assert tprof.enable_lock_wait(True) is False
+    assert tprof.start_sampler() is None

@@ -4,7 +4,8 @@
         [--wire-quant-bits N] [--prefilter {off,auto,on}] \
         [--entropy {off,auto,force}] \
         [--scheme {kminhash,cminhash,weighted}] [--sig-store DIR] \
-        [--checkpoint-dir DIR] [--ari-sample 10000] [--device cuda]
+        [--checkpoint-dir DIR] [--ari-sample 10000] [--profile] \
+        [--device cuda]
     python -m tse1m_tpu_torch scrub [DIR] [--repair] [--compact] \
         [--strict] [--verify-sigs [--verify-n 2000] [--verify-seed 0] \
         [--verify-set-size 64] [--verify-sample 256]]
@@ -57,6 +58,11 @@ resumes at the first unfinished chunk, and a finished run empties the
 directory.  The run is the ``cluster`` step of
 ``<result_dir>/run_manifest.json``, with the degradation events it
 survived; the report adds ``chunk_halvings`` and ``degradation_events``.
+With ``--profile`` the step runs under the host stack sampler, the
+lock-wait recorder, the build histograms and a ``torch.profiler`` device
+trace: ``profile_NNN.json`` lands next to ``run_manifest.json`` and the
+Chrome trace under ``<result_dir>/device_trace/``; the report is the
+unprofiled run's.  ``TSE1M_PROFILING=0`` wins over the flag.
 The environment steers the long run's supervision: ``TSE1M_FAULT_PLAN``
 (a fault plan's JSON), ``TSE1M_ROUTER_CAL`` (the machine calibration the
 ladder writes), ``TSE1M_WATCHDOG*`` (the stage watchdog's budgets).
@@ -159,13 +165,35 @@ def _cmd_cluster(args) -> int:
     ``run_manifest.json`` (its degradation events attached), the report
     printed as one JSON line.  The device is resolved first: without a
     card it raises before any manifest is written."""
+    from .observability import profiling
     from .utils.runner import StepRunner
 
     dev = resolve_device(args.device)
-    runner = StepRunner(os.path.join(load_config().result_dir,
-                                     "run_manifest.json"))
+    result_dir = load_config().result_dir
+    runner = StepRunner(os.path.join(result_dir, "run_manifest.json"))
     report: dict = {}
-    rec = runner.run("cluster", _run_cluster_step, args, dev, report)
+    # --profile: the step under the host sampler and a device trace,
+    # profile_NNN.json next to run_manifest.json.  The kill switch
+    # (TSE1M_PROFILING=0) wins over the flag.
+    prof_on = args.profile and profiling.profiling_enabled()
+    if prof_on:
+        profiling.install_compile_listener()
+        profiling.enable_lock_wait(True)
+        profiling.start_sampler()
+    try:
+        with profiling.device_trace(
+                os.path.join(result_dir, "device_trace")
+                if prof_on else None):
+            rec = runner.run("cluster", _run_cluster_step, args, dev,
+                             report)
+    finally:
+        if prof_on:
+            prof_path = profiling.dump_profile(
+                extra={"step": "cluster", "n": int(args.n)}, d=result_dir)
+            profiling.stop_sampler()
+            profiling.enable_lock_wait(False)
+            logging.getLogger("tse1m_tpu_torch.cluster").info(
+                "cluster: profile -> %s", prof_path)
     if rec.status != "ok":
         print(f"cluster failed: {rec.error}\n{rec.traceback}",
               file=sys.stderr)
@@ -670,6 +698,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="persist each chunk's signature shard here; a "
                         "killed run re-invoked with the same directory "
                         "resumes at its first unfinished chunk")
+    p.add_argument("--profile", action="store_true",
+                   help="host sampling profiler (span/plane/lock-wait "
+                        "attribution) + torch.profiler device trace + "
+                        "build-time histograms around the run; writes "
+                        "profile_NNN.json (and device_trace/) into the "
+                        "result dir next to run_manifest.json. "
+                        "TSE1M_PROFILING=0 kills the whole plane")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu for the plain versions")
     q = sub.add_parser("scrub", help="walk a signature store: verify its "

@@ -10,7 +10,9 @@ cache by the listed sources only, so a second process with unchanged
 sources loads the library without compiling; an edit of the header alone
 is seen through ninja's dependency file, which rebuilds the objects that
 include it.  It builds nothing but these sources and is never called when
-a module is imported.
+a module is imported.  Each load counts as one build of the runtime
+sanitizer (``lint/runtime.py:record_build``, event ``tse1m_kernels_ext``),
+timed as ``build_seconds``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from __future__ import annotations
 import os
 import threading
 import time
+
+from ...lint.runtime import record_build
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = tuple(os.path.join(_CSRC, f)
@@ -48,4 +52,5 @@ def load_extension():
                         build_directory=BUILD_DIR,
                         extra_cuda_cflags=CUDA_FLAGS)
             build_seconds = time.perf_counter() - t0
+            record_build("tse1m_kernels_ext", build_seconds)
         return _ext

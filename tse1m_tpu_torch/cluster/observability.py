@@ -12,16 +12,17 @@ surplus as ``h2d_overlap_fraction``.  Stage names and the flat
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from collections import defaultdict
+
+from ..trace import sync as tsync
 
 
 class StageRecorder:
     """Thread-safe (wall seconds, bytes) accumulator per pipeline stage."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock("StageRecorder")
         self.wall: dict[str, float] = defaultdict(float)
         self.nbytes: dict[str, int] = defaultdict(int)
         self.total_wall_s: float = 0.0

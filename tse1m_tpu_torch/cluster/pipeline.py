@@ -54,6 +54,13 @@ chunk.  Storeless runs clamp to the calibrated quantization floor and
 chunk size as the JAX pipeline does; store runs never drop or clamp the
 width, since the store's policy key carries it.
 
+The device work carries ``torch.profiler`` regions, so a device trace
+(``observability.profiling.device_trace``) splits it by stage:
+``tse1m.decode`` (unpacking, the rANS decode, the delta rebuild),
+``tse1m.minhash`` (signatures and band keys), ``tse1m.lsh`` (the LSH tail)
+and ``tse1m.fetch`` (the labels', or a merge's novel signatures', copy
+back).  Outside a profile a region costs a few microseconds.
+
 Levers of ``ClusterParams`` this port does not carry yet raise
 ``NotImplementedError`` naming their ROADMAP.md item by its title.
 """
@@ -68,6 +75,7 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..device import U32_MASK, as_u32_numpy, narrow, resolve_device, widen
 from ..observability import record_degradation
@@ -498,12 +506,15 @@ def _chunk_minhash(arrays_d: tuple, wire: ChunkWire, hp,
         _mark_used(arrays_d, device)
         decoded = None
         if wire.ent is not None or want_decoded or wire.bits % 8 != 0:
-            decoded = _decode_wire(arrays_d, wire)
-            sig, keys = scheme_sig_and_keys(decoded, hp, params.n_bands)
+            with record_function("tse1m.decode"):
+                decoded = _decode_wire(arrays_d, wire)
+            with record_function("tse1m.minhash"):
+                sig, keys = scheme_sig_and_keys(decoded, hp, params.n_bands)
         else:
-            sig, keys = scheme_sig_and_keys_packed(
-                arrays_d[0], wire.shape, wire.bits // 8, wire.offset, hp,
-                params.n_bands)
+            with record_function("tse1m.minhash"):
+                sig, keys = scheme_sig_and_keys_packed(
+                    arrays_d[0], wire.shape, wire.bits // 8, wire.offset,
+                    hp, params.n_bands)
         done = None
         if device.type == "cuda":
             done = torch.cuda.Event()
@@ -657,18 +668,23 @@ def _cluster_encoded(enc, hp, params: ClusterParams, rec: StageRecorder,
     meta, mask_d, rep_d, counts_d, pos_d, val_d = _put_delta_meta(
         enc, rec, params.entropy, device)
     with rec.stage("compute"):
-        delta_items = _decode_delta_meta(meta, full_d, rep_d, counts_d,
-                                         pos_d, val_d)
-        dsig, dkeys = scheme_sig_and_keys(delta_items, hp, params.n_bands)
-        sig = torch.cat([p[0] for p in parts] + [dsig])
-        keys = torch.cat([p[1] for p in parts] + [dkeys])
-        # Nothing before the concatenation is kept through the LSH tail.
-        del parts, chunks_d, full_d, delta_items, dsig, dkeys
-        labels, lane_of = _cluster_encoded_labels(
-            sig, keys, mask_d, enc.n, params.threshold, params.n_iters)
-        _sync(device)
+        with record_function("tse1m.decode"):
+            delta_items = _decode_delta_meta(meta, full_d, rep_d, counts_d,
+                                             pos_d, val_d)
+        with record_function("tse1m.minhash"):
+            dsig, dkeys = scheme_sig_and_keys(delta_items, hp,
+                                              params.n_bands)
+        with record_function("tse1m.lsh"):
+            sig = torch.cat([p[0] for p in parts] + [dsig])
+            keys = torch.cat([p[1] for p in parts] + [dkeys])
+            # Nothing before the concatenation is kept through the LSH tail.
+            del parts, chunks_d, full_d, delta_items, dsig, dkeys
+            labels, lane_of = _cluster_encoded_labels(
+                sig, keys, mask_d, enc.n, params.threshold, params.n_iters)
+            _sync(device)
     last_run_info["chunk_bits"] = wire_bits
-    with rec.stage("d2h", nbytes=labels.numel() * 4):
+    with rec.stage("d2h", nbytes=labels.numel() * 4), \
+            record_function("tse1m.fetch"):
         out = labels.cpu().numpy()
     return out, sig[lane_of], keys[lane_of]
 
@@ -699,14 +715,16 @@ def _cluster_single_host(items: np.ndarray, hp, params: ClusterParams,
     parts, _, wire_bits = _minhash_streamed(items, hp, params, rec, device,
                                             False, lad, quant_ctx=quant_ctx)
     last_run_info["chunk_bits"] = wire_bits
-    sig = _cat([p[0] for p in parts])
-    keys = _cat([p[1] for p in parts])
-    del parts  # the per-chunk copies are not kept through the LSH tail
-    with rec.stage("compute"):
-        labels = _cluster_from_sig(sig, keys, params.threshold,
-                                   params.n_iters)
-        _sync(device)
-    with rec.stage("d2h", nbytes=labels.numel() * 4):
+    with record_function("tse1m.lsh"):
+        sig = _cat([p[0] for p in parts])
+        keys = _cat([p[1] for p in parts])
+        del parts  # the per-chunk copies are not kept through the LSH tail
+        with rec.stage("compute"):
+            labels = _cluster_from_sig(sig, keys, params.threshold,
+                                       params.n_iters)
+            _sync(device)
+    with rec.stage("d2h", nbytes=labels.numel() * 4), \
+            record_function("tse1m.fetch"):
         out = labels.cpu().numpy()
     if clamped and not lad.get("quant_drops") \
             and not lad.get("chunk_halvings"):
@@ -1173,7 +1191,8 @@ def _store_warm_merge(items, digests, hit, shard, row, state, store,
         parts, wire_bits = _streamed_sig(sub, params, rec, device, lad)
         last_run_info["chunk_bits"] = wire_bits
         sig_d = _cat([p[0] for p in parts])
-        with rec.stage("d2h", nbytes=sig_d.numel() * 4):
+        with rec.stage("d2h", nbytes=sig_d.numel() * 4), \
+                record_function("tse1m.fetch"):
             new_sig[miss] = as_u32_numpy(sig_d)
     with rec.stage("compute"):
         # The short tail's band keys on the host: bit-identical to the

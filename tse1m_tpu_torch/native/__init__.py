@@ -18,7 +18,10 @@ and again whenever a source is newer than the library.  This is host
 code, not a device kernel, and it is a throughput lever: when g++ or a
 library is missing each function returns None and the caller takes its
 numpy path, as the JAX package does.  :func:`loaded` says whether a
-library came up, so a caller that must not fall back can check.
+library came up, so a caller that must not fall back can check.  Each
+g++ run that builds a library counts as one build of the runtime
+sanitizer (``lint/runtime.py:record_build``, the library's name as its
+event).
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ import subprocess
 import sysconfig
 import tempfile
 import threading
+import time
+
+from ..lint.runtime import record_build
 
 log = logging.getLogger("tse1m_tpu_torch.native")
 
@@ -60,6 +66,7 @@ def _compile(name: str, so: str) -> bool:
     src, stds, link_flags, _ = _LIBS[name]
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         errors = []
         for std in stds:
@@ -71,6 +78,7 @@ def _compile(name: str, so: str) -> bool:
                 capture_output=True, text=True, timeout=300)
             if proc.returncode == 0:
                 os.replace(tmp, so)
+                record_build(name, time.perf_counter() - t0)
                 return True
             lines = proc.stderr.strip().splitlines()
             errors.append(f"{std}: {lines[-1] if lines else proc.returncode}")

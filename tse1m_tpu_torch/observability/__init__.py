@@ -18,10 +18,10 @@ into ``run_manifest.json``.
 
 from __future__ import annotations
 
-import threading
+from ..trace import sync as tsync
 
 _degradations: list = []
-_degradation_lock = threading.Lock()
+_degradation_lock = tsync.Lock("observability._degradation_lock")
 _degradation_seq = 0
 
 

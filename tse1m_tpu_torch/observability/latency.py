@@ -13,9 +13,9 @@ ratio).
 from __future__ import annotations
 
 import math
-import threading
 
 from ..resilience.watchdog import deadline_clock
+from ..trace import sync as tsync
 
 _BUCKETS_PER_DECADE = 20
 _N_BUCKETS = 9 * _BUCKETS_PER_DECADE  # 1e-6 s .. 1e3 s
@@ -44,7 +44,7 @@ class LatencyRecorder:
 
     def __init__(self, name: str) -> None:
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock(f"LatencyRecorder.{name}")
         self._counts = [0] * _N_BUCKETS
         self._n = 0
         self._total_s = 0.0

@@ -11,8 +11,7 @@ the registry.  Every type is thread-safe.
 
 from __future__ import annotations
 
-import threading
-
+from ..trace import sync as tsync
 from .latency import LatencyRecorder
 
 
@@ -26,7 +25,7 @@ class Counter:
     def __init__(self, name: str, labels: dict) -> None:
         self.name = name
         self.labels = dict(labels)
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock(f"Counter.{name}")
         self._value = 0
 
     def inc(self, n: int = 1) -> None:
@@ -47,7 +46,7 @@ class Gauge:
     def __init__(self, name: str, labels: dict) -> None:
         self.name = name
         self.labels = dict(labels)
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock(f"Gauge.{name}")
         self._value = 0.0
 
     def set(self, v: float) -> None:
@@ -88,7 +87,7 @@ class MetricsRegistry:
     process-wide instance backs the module-level helpers."""
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock("MetricsRegistry")
         self._metrics: dict = {}
 
     def _get(self, kind, name: str, labels: dict):

@@ -25,6 +25,7 @@ import os
 import threading
 
 from ..resilience.watchdog import deadline_clock
+from ..trace import sync as tsync
 
 _DEFAULT_RING = 512
 
@@ -42,7 +43,7 @@ class SpanRing:
             capacity = int(os.environ.get("TSE1M_TRACE_RING",
                                           _DEFAULT_RING))
         self.capacity = max(1, int(capacity))
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock("SpanRing")
         self._buf: list = [None] * self.capacity
         self._next = 0
         self._total = 0
@@ -120,6 +121,13 @@ _current: contextvars.ContextVar = contextvars.ContextVar(
 # Each thread only mutates its own entry (one dict store or pop under the
 # GIL).
 _thread_spans: dict = {}
+
+
+def thread_span(tid: int):
+    """Innermost open span of thread ``tid`` as ``(trace, span_id,
+    name)``, or None: the sampler tags each sampled thread with it."""
+    stack = _thread_spans.get(tid)
+    return stack[-1] if stack else None
 
 
 def thread_span_chain(tid: int | None = None) -> list:
@@ -247,4 +255,4 @@ def continue_trace(ctx: dict | None):
 __all__ = ["Span", "SpanRing", "adopt_trace", "clear_spans",
            "continue_trace", "current_trace", "pinned_trace",
            "recent_spans", "set_tracing", "span", "spans_recorded",
-           "start_span", "thread_span_chain"]
+           "start_span", "thread_span", "thread_span_chain"]

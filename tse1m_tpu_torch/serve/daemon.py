@@ -517,7 +517,7 @@ class ServeDaemon:
                 if wall_i > self.slo.ingest_budget_s > 0:
                     profiling.capture_slow_request(
                         "ingest", wall_i, self.slo.ingest_budget_s * 1e3,
-                        absorb=self._inflight,
+                        t0=ti, absorb=self._inflight,
                         rows=int(t.items.shape[0]))
         gen = self._index.generation
         if gen - self._last_committed_gen >= self.state_commit_every:
@@ -676,7 +676,7 @@ class ServeDaemon:
         self.tracker.observe_query(wall)
         if wall * 1e3 > self.slo.query_p99_target_ms:
             profiling.capture_slow_request(
-                "query", wall, self.slo.query_p99_target_ms,
+                "query", wall, self.slo.query_p99_target_ms, t0=t0,
                 absorb=self._inflight if self._busy else None,
                 rows=n, generation=int(index.generation))
         return {"labels": out, "known": hit,
@@ -702,7 +702,7 @@ class ServeDaemon:
             # Only the interactive candidate path is held to the query
             # SLO; the scan is a bulk job.
             profiling.capture_slow_request(
-                "topk", wall, self.slo.query_p99_target_ms,
+                "topk", wall, self.slo.query_p99_target_ms, t0=t0,
                 absorb=self._inflight if self._busy else None,
                 rows=int(vectors.shape[0]),
                 generation=int(index.generation))

@@ -30,8 +30,10 @@ ping, status) fan out to the shards in parallel, one thread a shard, and
 ingest forwards one slice at a time in range order, as the JAX package's
 router does.  A lock around each TCP exchange keeps two concurrent
 requests from interleaving their frames on a shard's one connection.
-Left out against the JAX package: the schedule explorer's trace points
-and lock recorder (ROADMAP.md Queue 1, "Serve plane").
+The router's own lock is the named ``ShardRouter`` lock of
+``trace/sync.py``, so the profiler's lock-wait recorder times it under
+JAX's site name.  Left out against the JAX package: the schedule
+explorer's trace points (ROADMAP.md Queue 1, "Serve plane").
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ from ..observability.tracing import (continue_trace, recent_spans, span,
 from ..resilience.coordinator import heartbeat_timeout_s
 from ..resilience.faults import fault_point
 from ..resilience.watchdog import request_budget_s
+from ..trace import sync as tsync
 from ..utils.atomic import atomic_write
 from ..utils.retry import RetryPolicy, retry_call
 from .daemon import IngestRejected
@@ -187,7 +190,7 @@ class ShardRouter:
         # writers without waiting for a forward to time out.
         self.monitor = monitor
         self.retry = retry or failover_policy()
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock("ShardRouter")
         # shard id -> {local index row -> global row id}; global ids go in
         # submission order, so the smallest global id is the first ingest.
         self._gmap: dict[int, dict[int, int]] = {

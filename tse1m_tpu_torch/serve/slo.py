@@ -15,12 +15,12 @@ count as SLO violations.  The environment names are the JAX package's:
 from __future__ import annotations
 
 import os
-import threading
 from dataclasses import dataclass, field
 
 from ..observability import metrics as obs_metrics
 from ..observability import record_degradation
 from ..resilience.watchdog import request_budget_s
+from ..trace import sync as tsync
 
 
 @dataclass(frozen=True)
@@ -65,7 +65,7 @@ class AdmissionController:
 
     def __init__(self, policy: SloPolicy) -> None:
         self.policy = policy
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock("AdmissionController")
         self._rejected = 0
         self._in_backpressure = False
         self._backlog_max = 0
@@ -109,7 +109,7 @@ class SloTracker:
 
     def __init__(self, policy: SloPolicy) -> None:
         self.policy = policy
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock("SloTracker")
         self._violations = 0
 
     def observe_query(self, wall_s: float) -> None:
