@@ -194,11 +194,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    keys, a live sampler's samples with ``cluster`` among its planes and
    collapsed stacks, every lock-wait site one of JAX's lock names, and its
    torch.profiler Chrome trace under ``device_trace/`` launches the
-   MinHash kernel and the rANS kernel as often as (c) did; (c) three
-   times more in this process, plain, under the same wrapper (sampler,
-   lock-wait recorder, device trace) and under the sampler and recorder
-   alone, each with (c)'s labels and launches: the profiler's own cost
-   and its split, with no fresh process in the way; (w2) again, in
+   MinHash kernel and the rANS kernel as often as (c) did; (c) twice more
+   in this process, plain and under the same wrapper (sampler, lock-wait
+   recorder, device trace), each with (c)'s labels and launches: the
+   profiler's own cost, with no fresh process in the way (the sampler
+   alone ran too until phase 3g joined the script); (w2) again, in
    process, over a copy of the store as run (1) left it, inside
    ``profiling.device_trace`` (merge, its labels the storeless run's, the
    trace's MinHash launches the run's); then after one warm-up each, under
@@ -214,9 +214,45 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    decode, MinHash, the LSH tail with the fetch back, and other, each
    bucket's ``op/kernel`` names, H2D and D2H copies and bytes (also for
    the in-process (c) under the wrapper); the child's wall against phase
-   3's (c), the in-process walls and their ratios to the plain run, the
+   3's (c), the in-process walls and the wrapper's ratio to the plain run, the
    stages of each, the child's sampler planes and lock sites; each sanitized run's build count, sync sites, wall and
    launches; the self-check; the card;
+3g. the mesh on one card, over phase 3's 1,000,000 x 64 items (128
+   hashes, 16 bands), under the gitignored build/mesh_smoke/; each timed
+   run after a 4,096-row warm-up, its launch counts, collective stats and
+   peak memory set to 0 just before and read just after:
+   (m1) a world of 1 on NCCL in this process (``file://`` rendezvous):
+       ``cluster_sessions(items, ClusterParams(prefilter="off"), mesh=)``
+       through the 24-bit pack (the packed kernel once) and through a
+       pre-sharded feed (the uint32 kernel once), each equal to (b)'s
+       labels (the unquantized single-device run), then
+       ``destroy_process_group()``;
+   (m4) 4 ranks sharing the card over gloo, spawned from this script
+       (``--mesh-rank``), each loading the built libraries: first they
+       probe which collectives gloo takes on CUDA tensors (the Mesh stages
+       none through host memory, so every one must be taken), then the
+       same call over their 250,000 rows each, the packed kernel once a
+       rank, every rank's labels equal to (b)'s; then four
+       ``python -m tse1m_tpu_torch cluster --n 1000000 --ari-sample 0``
+       children under the TSE1M_* variables: their merged
+       ``run_manifest.json`` has four fragments, each with (b)'s
+       n_clusters and ARI;
+   (m3c) 3 ranks, ``scheme="cminhash"``: 16 bands pad one dummy band,
+       1,000,000 rows pad two zero rows; the bin-min kernel once a rank;
+       the labels equal the single-device cminhash run's (unquantized,
+       prefilter off);
+   (h-m4) after phase 4: four ranks run ``all`` over its study (999,049
+       builds) under the TSE1M_* variables; rank 0 writes phase 4's
+       single-rank file set, its CSVs byte for byte; no built library
+       changed from
+       before (m4) to after (h-m4) (no rank rebuilt one, none left a
+       lock).
+   One ``mesh`` JSON line: the gloo probe, for each cell the world size,
+   backend, wall and per rank the four stages, the bytes and seconds of
+   the key ``all_to_all``, the signature gather and the ``pmin``s, the
+   propagation's iterations, the launches and peak device memory; (h-m4)'s
+   ``all`` wall beside phase 4's; the card; the ``kernels`` line adds each
+   kernel's launches there under ``mesh_launches``;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
@@ -231,7 +267,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    suite and the six single calls on the card held against
    TorchBackend("cpu") on the same arrays (exact, Spearman and mean
    within 2e-5); the extraction, each RQ and the suite timed warm (median
-   of 3; of 5 until phase 3e joined the script), printed as one ``rq_path`` JSON line with the row counts, peak
+   of 5 until phase 3e and of 3 until phase 3g joined the script, now
+   one warm call each), printed as one ``rq_path`` JSON line with the row counts, peak
    device memory, host generation and write times and the card's name
    and power limit; then ``all`` once over that study on the card with
    the corpus CSV's G1/G2 groups: every step ok in run_manifest.json,
@@ -251,7 +288,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    child ``stats`` of phase 4's file and of both copies, the same lines;
    both copies extracted by the native decoder (``native_decode``) to
    phase 4's numpy arrays, numbers element for element and text by value,
-   and the restored copy timed warm (median of 3) against phase 4's numpy
+   and the restored copy timed warm (one call) against phase 4's numpy
    extraction; the fused suite on the card over the restored copy's arrays
    equal to phase 4's, every field exact; the native delta grouper's
    ``rep_of`` at (c)'s 647,790 kept rows equal to numpy's ``_group_rows``,
@@ -332,6 +369,7 @@ from tse1m_tpu_torch.data.synth import SynthSpec, generate_study
 from tse1m_tpu_torch.db import connect
 from tse1m_tpu_torch.device import U32_MASK, as_u32_numpy, u32_tensor, widen
 from tse1m_tpu_torch.lint import runtime as sanitizer
+from tse1m_tpu_torch.parallel import make_mesh, multihost
 from tse1m_tpu_torch.observability import (degradation_counts,
                                            pop_degradation_events, profiling)
 from tse1m_tpu_torch.resilience import FaultPlan
@@ -2753,17 +2791,16 @@ def profiled_child(default: dict) -> dict:
 
 
 def profiled_in_process(items, default: dict, dev) -> dict:
-    """Phase 3f: (c) three times in a row in this process: plain, under
+    """Phase 3f: (c) twice in a row in this process: plain and under
     ``cluster --profile``'s wrapper (the sampler, the lock-wait recorder,
-    the build histograms, a device trace), and under the sampler and the
-    recorder alone: the profiler's own cost and its split, with no fresh
-    process in the way; each run with (c)'s labels and launches."""
+    the build histograms, a device trace): the profiler's own cost, with
+    no fresh process in the way; each run with (c)'s labels and
+    launches."""
     params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS)
     runs, summary = {}, None
     for label, sample, trace_dir in (
             ("plain", False, None),
-            ("wrapper", True, os.path.join(TOOL_DIR, "c_trace")),
-            ("sampler", True, None)):
+            ("wrapper", True, os.path.join(TOOL_DIR, "c_trace"))):
         if sample:
             profiling.install_compile_listener()
             profiling.enable_lock_wait(True)
@@ -2783,12 +2820,10 @@ def profiled_in_process(items, default: dict, dev) -> dict:
             summary = trace_summary(tr["path"])
         runs[label] = {"wall_s": run["wall_s"],
                        "stages": run["info"]["stages"]}
-    ratios = {k: runs[k]["wall_s"] / runs["plain"]["wall_s"]
-              for k in ("wrapper", "sampler")}
+    ratios = {"wrapper": runs["wrapper"]["wall_s"] / runs["plain"]["wall_s"]}
     log(f"  (c) in process, plain then profiled: walls "
         f"{[round(r['wall_s'], 3) for r in runs.values()]} s, the wrapper "
-        f"{ratios['wrapper']:.3f}x, the sampler alone "
-        f"{ratios['sampler']:.3f}x the plain run; (c)'s labels and "
+        f"{ratios['wrapper']:.3f}x the plain run; (c)'s labels and "
         f"launches each; device busy {summary['busy_share']:.4%} of "
         f"{summary['window_s']:.3f} s under the wrapper")
     return {"runs": runs, "ratios": ratios, "trace": summary}
@@ -3181,9 +3216,10 @@ RQ_SPEC = dict(n_projects=446, days=1600, fuzz_rate=1.4,
                ineligible_fraction=0.0, seed=0)
 RQ_CUTOFF = "2026-01-01"
 RQ_MIN_PROJECTS = 100
-# Warm medians of 3 (5 until phase 3e joined the script: cut to keep the
-# script inside its time limit on a slow host).
-RQ_REPS = 3
+# Warm calls timed a measurement (medians of 5 until phase 3e joined the
+# script, of 3 until phase 3g did: cut to keep the script inside its time
+# limit on a slow host).
+RQ_REPS = 1
 RQS = ("rq1", "rq2cp", "rq2tr", "rq3", "rq4a", "rq4b")
 # Float32 sums in another order: within rtol = atol = 2e-5 (the repo's
 # cross-engine tolerance); every other field exact.
@@ -3511,7 +3547,7 @@ def rq_phase(dev) -> dict:
     extracted = {t: len(getattr(arrays, t))
                  for t in ("fuzz", "covb", "issues", "cov")}
     log(f"  extracted {arrays.n_projects} projects, {extracted} rows, in "
-        f"{extract_s:.3f} s on the numpy path (median of {RQ_REPS})")
+        f"{extract_s:.3f} s on the numpy path (warm calls timed: {RQ_REPS})")
     limit_ns = int(np.datetime64(RQ_CUTOFF, "ns").astype(np.int64))
     g1 = np.arange(0, arrays.n_projects, 2)
     g2 = np.arange(1, arrays.n_projects, 2)
@@ -3552,10 +3588,379 @@ def rq_phase(dev) -> dict:
         "card": card_name_and_limit(),
     }
     print(json.dumps({"rq_path": report}), flush=True)
-    rq_drivers(dev, path, corpus, arrays, got, limit_ns)
+    drivers = rq_drivers(dev, path, corpus, arrays, got, limit_ns)
     return {"study": study, "path": path, "cfg": cfg, "arrays": arrays,
+            "corpus": corpus, "all_out": os.path.join(RQ_DIR, "all_out"),
+            "all_s": drivers["all_s"],
             "extract_s": extract_s, "suite": fused, "limit_ns": limit_ns,
             "g1": g1, "g2": g2}
+
+
+# Phase 3g: the mesh on one card.
+MESH_DIR = os.path.join(ROOT, "build", "mesh_smoke")  # gitignored
+MESH_RANKS = 4                # (m4) and (h-m4): gloo ranks sharing the card
+MESH_CMIN_RANKS = 3           # (m3c): 16 bands pad one, 1M rows pad two
+MESH_WARM_ROWS = 4_096        # each world's warm-up run, before the timed one
+MESH_TIMEOUT_S = 300
+
+
+def gloo_cuda_probe(mesh) -> dict:
+    """Which of the collectives ``Mesh`` calls the gloo group takes on
+    CUDA tensors: the Mesh stages none of them through host memory, so
+    each must be taken."""
+    dist = torch.distributed
+    dev, w = mesh.device, mesh.size
+    trials = {
+        "all_reduce_sum_int32": lambda: dist.all_reduce(
+            torch.ones(8, dtype=torch.int32, device=dev)),
+        "all_reduce_min_int64": lambda: dist.all_reduce(
+            torch.arange(8, device=dev), op=dist.ReduceOp.MIN),
+        "all_to_all_single_int32": lambda: dist.all_to_all_single(
+            torch.empty(4 * w, dtype=torch.int32, device=dev),
+            torch.arange(4 * w, dtype=torch.int32, device=dev)),
+        "all_gather_into_tensor_int32": lambda: dist.all_gather_into_tensor(
+            torch.empty(3 * w, dtype=torch.int32, device=dev),
+            torch.ones(3, dtype=torch.int32, device=dev)),
+    }
+    out = {}
+    for name, fn in trials.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as e:  # what gloo refuses is the probe's answer
+            out[name] = f"refused: {e}"[:200]
+    return out
+
+
+def mesh_run(items, params, mesh, dev) -> dict:
+    """One timed mesh run: the launch counts, the mesh's collective stats
+    and peak device memory set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    labels = pipeline.cluster_sessions(items, params, mesh=mesh, device=dev)
+    wall = time.perf_counter() - t0
+    info = dict(pipeline.last_run_info)
+    stats = json.loads(json.dumps(mesh.stats))
+    return {"labels": labels, "wall_s": wall,
+            "launches": kernels.launch_counts(), "collectives": stats,
+            "iterations": stats["pmin"]["calls"] // 2,
+            "stages": info["stages"], "encoding": info["encoding"],
+            "wire_mb": info.get("wire_mb"),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def mesh_rank(spec: dict) -> int:
+    """One rank of a phase 3g world (``chip_smoke.py --mesh-rank JSON``):
+    start the world on the card, probe gloo if asked, warm up, then one
+    timed run over the saved items; its labels and report go to files."""
+    t0 = time.perf_counter()
+    dev = multihost.init_world(spec["world"], spec["rank"], spec["init"],
+                               spec["device"])
+    mesh = make_mesh()
+    report = {"rank": spec["rank"], "backend": mesh.backend,
+              "device": torch.cuda.get_device_name(dev),
+              "start_s": time.perf_counter() - t0}
+    if mesh.device.type != torch.device(spec["device"]).type:
+        raise AssertionError(f"rank on {mesh.device}")
+    if spec["probe"]:
+        report["gloo_cuda"] = gloo_cuda_probe(mesh)
+    items = np.load(spec["items"], mmap_mode="r")
+    params = pipeline.ClusterParams(**spec["params"])
+    t1 = time.perf_counter()
+    pipeline.cluster_sessions(items[:MESH_WARM_ROWS], params, mesh=mesh,
+                              device=dev)
+    report["warmup_s"] = time.perf_counter() - t1
+    report["extension_load_s"] = _build.build_seconds
+    run = mesh_run(items, params, mesh, dev)
+    np.save(os.path.join(spec["out"], f"labels.r{spec['rank']}.npy"),
+            run.pop("labels"))
+    report.update(run)
+    with open(os.path.join(spec["out"], f"report.r{spec['rank']}.json"),
+              "w") as f:
+        json.dump(report, f)
+    multihost.shutdown()
+    return 0
+
+
+def build_state() -> dict:
+    """mtime of every built library: a rank that rebuilt one changes it."""
+    out = {}
+    for d in (_build.BUILD_DIR, native.BUILD_DIR):
+        for name in os.listdir(d):
+            if name.endswith(".so") or name == "lock":
+                out[os.path.join(d, name)] = os.stat(
+                    os.path.join(d, name)).st_mtime_ns
+    return out
+
+
+def wait_all(procs: list, logs: list, what: str) -> float:
+    """Wait for every child (killing all on the first failure or past the
+    time limit); returns the wall from now."""
+    t0 = time.perf_counter()
+    try:
+        for p, path in zip(procs, logs):
+            rc = p.wait(timeout=MESH_TIMEOUT_S)
+            if rc != 0:
+                with open(path) as f:
+                    tail = f.read()[-3000:]
+                raise AssertionError(f"{what}: a child exited {rc}:\n{tail}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return time.perf_counter() - t0
+
+
+def spawn(cmd: list, path: str, env=None) -> subprocess.Popen:
+    with open(path, "w") as log_f:
+        return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log_f,
+                                stderr=subprocess.STDOUT)
+
+
+def mesh_world(label: str, world: int, params: dict, items_path: str,
+               dev, probe: bool = False) -> tuple:
+    """A world of ``world`` ranks on the card, spawned from this script:
+    (each rank's report, each rank's labels, the world's wall)."""
+    d = fresh_dir(os.path.join(MESH_DIR, label))
+    os.makedirs(d)
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(world):
+        spec = {"rank": r, "world": world, "init": f"file://{d}/rendezvous",
+                "items": items_path, "params": params, "out": d,
+                "probe": probe, "device": dev.type}
+        logs.append(os.path.join(d, f"rank{r}.log"))
+        procs.append(spawn([sys.executable, os.path.abspath(__file__),
+                            "--mesh-rank", json.dumps(spec)], logs[-1]))
+    wait_all(procs, logs, label)
+    wall = time.perf_counter() - t0
+    reports = []
+    for r in range(world):
+        with open(os.path.join(d, f"report.r{r}.json")) as f:
+            reports.append(json.load(f))
+    labels = [np.load(os.path.join(d, f"labels.r{r}.npy"))
+              for r in range(world)]
+    return reports, labels, wall
+
+
+def cell_line(world: int, backend: str, wall: float, runs: list) -> dict:
+    """A cell of the ``mesh`` line: world, backend, wall, and per rank the
+    stages, collectives, iterations, launches and peak memory."""
+    keep = ("wall_s", "stages", "collectives", "iterations", "launches",
+            "peak_gib", "encoding", "wire_mb", "warmup_s", "start_s",
+            "extension_load_s")
+    return {"world": world, "backend": backend, "wall_s": wall,
+            "ranks": [{k: r[k] for k in keep if k in r} for r in runs]}
+
+
+def expect_mesh_labels(labels: list, want, label: str) -> None:
+    for r, got in enumerate(labels):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: rank {r}'s labels differ from "
+                                 "the single-device run's")
+    log(f"  {label}: every rank's labels == the single-device run's, "
+        "element for element")
+
+
+def mesh_m1(items, want, dev) -> dict:
+    """(m1): a world of 1 on NCCL in this process, the host feed (the
+    24-bit pack, kernel 3) and the pre-sharded feed (raw ids on the card,
+    kernel 1), each == (b)'s labels."""
+    rendezvous = os.path.join(MESH_DIR, "m1.rendezvous")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    init = f"file://{rendezvous}"
+    t0 = time.perf_counter()
+    multihost.init_world(1, 0, init, dev)
+    try:
+        mesh = make_mesh()
+        if mesh.backend != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"a world of 1 on {dev} runs on "
+                                 f"{mesh.backend}")
+        params = pipeline.ClusterParams(prefilter="off")
+        pipeline.cluster_sessions(items[:MESH_WARM_ROWS], params, mesh=mesh,
+                                  device=dev)
+        host = mesh_run(items, params, mesh, dev)
+        expect_launches(host["launches"], {"minhash_and_keys_packed": 1})
+        expect_mesh_labels([host.pop("labels")], want, "(m1) host feed")
+        rows, _ = multihost.put_process_local_padded(items, N_SESSIONS, mesh)
+        pre = mesh_run(rows, params, mesh, dev)
+        del rows
+        expect_launches(pre["launches"], {"minhash_and_keys": 1})
+        expect_mesh_labels([pre.pop("labels")[:N_SESSIONS]], want,
+                           "(m1) pre-sharded feed")
+    finally:
+        torch.distributed.destroy_process_group()
+    wall = time.perf_counter() - t0
+    log(f"  (m1) {mesh.backend} world of 1: host feed {host['wall_s']:.3f} s "
+        f"({host['iterations']} iterations), pre-sharded "
+        f"{pre['wall_s']:.3f} s")
+    return {"host": cell_line(1, mesh.backend, host["wall_s"], [host]),
+            "presharded": cell_line(1, mesh.backend, pre["wall_s"], [pre]),
+            "world_s": wall}
+
+
+def world_commands(label: str, args: list, **env) -> tuple:
+    """``python -m tse1m_tpu_torch ARGS`` as each rank of a world of
+    MESH_RANKS under the TSE1M_* variables (a ``file://`` rendezvous in a
+    fresh build/mesh_smoke/LABEL); returns (that directory, the wall)."""
+    d = fresh_dir(os.path.join(MESH_DIR, label))
+    os.makedirs(d)
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r in range(MESH_RANKS):
+        logs.append(os.path.join(d, f"rank{r}.log"))
+        procs.append(spawn(
+            [sys.executable, "-m", "tse1m_tpu_torch", *args], logs[-1],
+            dict(os.environ, TSE1M_COORDINATOR=f"file://{d}/rendezvous",
+                 TSE1M_NUM_PROCESSES=str(MESH_RANKS),
+                 TSE1M_PROCESS_ID=str(r), **env)))
+    wait_all(procs, logs, f"{args[0]} under TSE1M_*")
+    return d, time.perf_counter() - t0
+
+
+def mesh_cli(truth, want) -> dict:
+    """(m4) through the command line: four ``cluster --n 1000000`` ranks
+    under the TSE1M_* variables; the merged run_manifest.json holds four
+    fragments and the single-device run's clusters and ARI."""
+    out = os.path.join(MESH_DIR, "cli", "out")
+    _, wall = world_commands(
+        "cli", ["cluster", "--n", str(N_SESSIONS), "--ari-sample", "0"],
+        TSE1M_RESULT_DIR=out)
+    with open(os.path.join(out, "run_manifest.json")) as f:
+        merged = json.load(f)
+    n_clusters = int(np.unique(want).size)
+    ari = round(float(adjusted_rand_index(want, truth)), 5)
+    steps = merged["steps"]
+    if not (merged["ok"] and merged["pod"]["merged_from"]
+            == list(range(MESH_RANKS)) and not merged["pod"]["missing"]
+            and [s["process"] for s in steps] == list(range(MESH_RANKS))):
+        raise AssertionError(f"merged manifest: {merged['pod']}, ok "
+                             f"{merged['ok']}")
+    for s in steps:
+        res = s["result"]
+        if (res["n_clusters"], res["ari_vs_planted"], res["encoding"],
+                res["processes"]) != (n_clusters, ari, "mesh-presharded",
+                                      MESH_RANKS):
+            raise AssertionError(f"rank {s['process']}: {res}, want "
+                                 f"{n_clusters} clusters, ARI {ari}")
+    log(f"  (m4) {MESH_RANKS} cluster commands: {wall:.3f} s, merged "
+        f"run_manifest.json from {MESH_RANKS} fragments, {n_clusters} "
+        f"clusters and ARI {ari} == the single-device run's")
+    stage_keys = ("cluster_wall_s", "stage_encode_s", "stage_h2d_s",
+                  "stage_compute_s", "stage_d2h_s")
+    return {"world": MESH_RANKS, "backend": "gloo", "wall_s": wall,
+            "n_clusters": n_clusters, "ari_vs_planted": ari,
+            "fragments": len(merged["pod"]["merged_from"]),
+            "ranks": [{k: s["result"].get(k) for k in stage_keys}
+                      for s in steps]}
+
+
+def mesh_phase(items, truth, want, dev) -> dict:
+    """Phase 3g, first part: (m1), (m4) in a spawned world and through the
+    command line, (m3c).  Returns the ``mesh`` line's cells so far and the
+    kernels' launches."""
+    t_phase = time.perf_counter()
+    os.makedirs(MESH_DIR, exist_ok=True)
+    cells = {"m1": mesh_m1(items, want, dev)}
+    items_path = os.path.join(MESH_DIR, "items.npy")
+    np.save(items_path, items)
+    torch.cuda.empty_cache()
+    before = build_state()
+
+    reports, labels, wall = mesh_world(
+        "m4", MESH_RANKS, {"prefilter": "off"}, items_path, dev,
+        probe=True)
+    probe = reports[0]["gloo_cuda"]
+    log(f"  gloo on CUDA tensors: {probe}")
+    refused = {k: v for r in reports for k, v in r["gloo_cuda"].items()
+               if v != "ok"}
+    if refused:
+        raise AssertionError(f"gloo refuses collectives the Mesh calls on "
+                             f"the card: {refused}")
+    for r in reports:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"rank {r['rank']} on {r['backend']}")
+        expect_launches(r["launches"], {"minhash_and_keys_packed": 1})
+    expect_mesh_labels(labels, want, f"(m4) {MESH_RANKS} gloo ranks")
+    cells["m4"] = cell_line(MESH_RANKS, "gloo", wall, reports)
+    log(f"  (m4) world {wall:.3f} s; rank walls "
+        + ", ".join(f"{r['wall_s']:.3f}" for r in reports) + " s")
+    cells["m4_cli"] = mesh_cli(truth, want)
+
+    cmin_want = pipeline.cluster_sessions(items, params_for(-1, "cminhash"),
+                                          device=dev)
+    reports, labels, wall = mesh_world(
+        "m3c", MESH_CMIN_RANKS, {"prefilter": "off", "scheme": "cminhash"},
+        items_path, dev)
+    for r in reports:
+        expect_launches(r["launches"], {"cminhash_binmin": 1})
+        if r["encoding"] != "mesh-pack24":
+            raise AssertionError(f"(m3c) feed {r['encoding']}")
+    expect_mesh_labels(labels, cmin_want,
+                       f"(m3c) {MESH_CMIN_RANKS} gloo ranks, cminhash")
+    cells["m3c"] = cell_line(MESH_CMIN_RANKS, "gloo", wall, reports)
+    os.remove(items_path)
+    launches: dict = {}
+    for cell in (cells["m1"]["host"], cells["m1"]["presharded"],
+                 cells["m4"], cells["m3c"]):
+        for rank in cell["ranks"]:
+            add_counts(launches, rank["launches"])
+    return {"cells": cells, "gloo_cuda": probe,
+            "build_before": before, "launches": launches,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def mesh_all(rq: dict, mesh: dict) -> dict:
+    """Phase 3g, (h-m4): four ranks run ``all`` over phase 4's study under
+    the TSE1M_* variables; rank 0 writes phase 4's single-rank file set,
+    its CSVs byte for byte.  Prints the ``mesh`` line."""
+    t_phase = time.perf_counter()
+    out = os.path.join(MESH_DIR, "all", "out")
+    _, wall = world_commands(
+        "all", ["all", "--db", rq["path"], "--result-dir", out,
+                "--limit-date", RQ_CUTOFF, "--corpus-csv", rq["corpus"]])
+    after = build_state()
+    if after != mesh["build_before"]:
+        raise AssertionError(f"a rank rebuilt a library or left a lock: "
+                             f"{mesh['build_before']} -> {after}")
+    want_files, got_files = {}, {}
+    for root, files in ((rq["all_out"], want_files), (out, got_files)):
+        for base, _, names in os.walk(root):
+            for n in names:
+                if not n.endswith(".json"):
+                    path = os.path.join(base, n)
+                    files[os.path.relpath(path, root)] = path
+    if sorted(want_files) != sorted(got_files):
+        raise AssertionError(f"(h-m4) files {sorted(got_files)} != phase "
+                             f"4's {sorted(want_files)}")
+    csvs = [rel for rel in want_files if rel.endswith(".csv")]
+    for rel in csvs:
+        with open(want_files[rel], "rb") as f, \
+                open(got_files[rel], "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"(h-m4) {rel} differs from phase 4's")
+    run = check_drivers_ran(out, torch.device("cuda", 0))
+    log(f"  (h-m4) all as {MESH_RANKS} ranks: {wall:.3f} s (phase 4's "
+        f"single rank {rq['all_s']:.3f} s), every step ok, phase 4's "
+        f"{len(want_files)} files, its {len(csvs)} CSVs byte for byte")
+    cells = dict(mesh["cells"])
+    cells["h_m4"] = {"world": MESH_RANKS, "backend": "gloo", "all_s": wall,
+                     "phase4_all_s": rq["all_s"],
+                     "files": len(want_files), "csvs_equal": len(csvs),
+                     "steps_s": {s["name"]: s["wall_s"]
+                                 for s in run["steps"]}}
+    line = {"gloo_cuda": mesh["gloo_cuda"], "cells": cells,
+            "libraries_unchanged": sorted(after),
+            "phase_s": mesh["phase_s"] + time.perf_counter() - t_phase,
+            "card": card_name_and_limit()}
+    print(json.dumps({"mesh": line}), flush=True)
+    return line
 
 
 # Phase 4b: cell (h) arrives as the collectors' CSVs and as a pg_dump.
@@ -3783,7 +4188,7 @@ def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
         same_arrays(arrays, rq["arrays"], name)
     log(f"  both copies extracted by the native decoder == phase 4's numpy "
         f"arrays; warm {native_s:.3f} s against numpy's "
-        f"{rq['extract_s']:.3f} s (median of {RQ_REPS})")
+        f"{rq['extract_s']:.3f} s (warm calls timed: {RQ_REPS})")
     suite = TorchBackend(dev).rq_suite(restored_arrays, rq["limit_ns"],
                                        RQ_MIN_PROJECTS, rq["g1"], rq["g2"])
     for name in RQS:
@@ -3823,7 +4228,10 @@ def main() -> int:
     ap.add_argument("--calls-per-window", type=int, default=KERNEL_INNER,
                     help="back-to-back kernel calls in each CUDA-event "
                     "timing window of phase 5 (default %(default)s)")
+    ap.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:  # one rank of a phase 3g world
+        return mesh_rank(json.loads(args.mesh_rank))
     if args.calls_per_window < 1:
         ap.error("--calls-per-window must be at least 1")
     if not torch.cuda.is_available():
@@ -3908,10 +4316,17 @@ def main() -> int:
     tooling_phase(items, default, plain24, warm, dev)
     del warm["items"], warm["oracle"]
 
+    log(f"phase 3g: the mesh on one card: (m1) a world of 1 on NCCL, (m4) "
+        f"{MESH_RANKS} gloo ranks in process and as cluster commands, "
+        f"(m3c) {MESH_CMIN_RANKS} cminhash ranks; (h-m4) after phase 4")
+    mesh = mesh_phase(items, truth, plain24["labels"], dev)
+
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
         f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
         f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
     rq = rq_phase(dev)
+    log(f"phase 3g (h-m4): all as {MESH_RANKS} ranks over phase 4's study")
+    mesh_all(rq, mesh)
 
     log("phase 4b: the study arrives: phase 4's study as the collectors' "
         "CSVs (ingest) and as a pg_dump (restore), stats, the native "
@@ -3934,6 +4349,7 @@ def main() -> int:
         "serve_launches": serve_launches[name],
         "sharded_launches": sharded["launches"].get(name, 0),
         "resilience_launches": resil["launches"].get(name, 0),
+        "mesh_launches": mesh["launches"].get(name, 0),
         "warm_shapes": {case.split(":")[1]: t for case, t in times.items()
                         if case.split(":")[0] == name
                         and case.endswith((":novel", ":scan"))},

@@ -97,11 +97,15 @@ def test_port_imports_nothing_of_jax():
 
 def test_no_handler_around_kernel_launches():
     """No try/except in the kernels package, the pipeline, the RQ backend
-    or its segment ops: a failed build or launch raises, nothing gives way
-    to the plain version or the CPU."""
+    or its segment ops, the band-sharded tail or the mesh: a failed build,
+    launch or collective raises, nothing gives way to the plain version,
+    the single-device path or the CPU."""
     paths = [os.path.join(PKG, "cluster", "pipeline.py"),
+             os.path.join(PKG, "cluster", "sharded.py"),
              os.path.join(PKG, "backend", "torch_backend.py"),
              os.path.join(PKG, "ops", "segment.py")] + [
+        os.path.join(PKG, "parallel", f)
+        for f in ("__init__.py", "mesh.py", "multihost.py", "rq_mesh.py")] + [
         os.path.join(PKG, "cluster", "kernels", f)
         for f in ("__init__.py", "minhash.py", "cminhash.py", "rans.py",
                   "score.py", "_build.py")]

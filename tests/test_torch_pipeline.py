@@ -341,7 +341,9 @@ def test_weighted_rows_keep_the_chunk_plan():
 
 def test_mesh_and_unknown_values_raise():
     items = np.zeros((8, 4), np.uint32)
-    with pytest.raises(NotImplementedError, match='Queue 1, "Multi-GPU"'):
+    # A mesh is ported (tests/test_torch_mesh.py); what is not a Mesh is
+    # refused.
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tpipe.cluster_sessions(items, tpipe.ClusterParams(**PLAIN_WIRE),
                                mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="unknown signature scheme"):

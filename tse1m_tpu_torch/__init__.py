@@ -31,6 +31,11 @@ watchdog budgets and the telemetry of ``observability``; and scales out on
 one card: digest-range shard daemons under epoch leases behind a
 ``serve.ShardRouter``, read replicas (``serve.ServeReplica``) and
 ``backfill``.
+Over several processes (one rank each, ``parallel/``: NCCL across cards,
+gloo where ranks share one) the clustering runs band-sharded
+(``cluster_sessions(items, mesh=make_mesh())``) and ``TorchBackend``
+shards the RQ reductions over the world, every rank getting the
+single-device result.
 It imports ``torch`` and ``numpy`` and the standard library, and nothing of
 the JAX package or pandas; matplotlib only inside the drivers' figure
 functions, which are skipped where it does not import.
@@ -64,11 +69,12 @@ from .cluster.kernels.score import topk_agreement
 from .cluster.schemes import expand_weighted
 from .data import synth_session_hitcounts, synth_session_sets
 from .device import as_u32_numpy, narrow, resolve_device, u32_tensor, widen
+from .parallel import Mesh, make_mesh
 
-__all__ = ["ClusterParams", "SignatureStore", "TorchBackend",
+__all__ = ["ClusterParams", "Mesh", "SignatureStore", "TorchBackend",
            "adjusted_rand_index", "as_u32_numpy", "bulk_topk_store",
            "cluster_sessions", "cluster_sessions_resumable",
-           "expand_weighted", "host_cluster",
+           "expand_weighted", "host_cluster", "make_mesh",
            "minhash_novel_rows", "narrow", "resolve_device", "row_digests",
            "score_topk_host", "store_scan_locator", "synth_session_hitcounts",
            "synth_session_sets", "topk_agreement", "u32_tensor", "widen"]

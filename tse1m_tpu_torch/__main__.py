@@ -130,6 +130,17 @@ in process over ``--sig-store DIR`` (read only), or through the ``topk``
 verb of a running daemon or router (``--port``/``--port-file``); one
 JSON summary line, the results inline or in ``--out``.
 
+Under ``TSE1M_COORDINATOR`` (rank 0's ``host:port``, or a ``tcp://`` or
+``file://`` URL), ``TSE1M_NUM_PROCESSES`` and ``TSE1M_PROCESS_ID``, one
+process a rank, ``cluster`` and the RQ commands run as a world
+(``parallel/multihost.py``; rank r on card ``r % device_count``, NCCL
+when every rank has a card of its own, gloo when ranks share one or run
+on the CPU): ``cluster`` feeds each rank its own block of rows to the
+band-sharded run and process 0 merges the ranks' manifest fragments
+(``run_manifest.pNNN.json``) into ``run_manifest.json``; the RQ
+commands shard the backend's reductions over the world and rank 0 alone
+writes the artifacts and prints the transcript.
+
 ``cluster``, ``serve``, ``serve-replica``, ``backfill`` and the RQ
 commands run on the card unless ``--device cpu`` is given, and fail
 without one; ``serve-router`` holds no device; ``synth`` and ``scrub``
@@ -164,13 +175,41 @@ def _cmd_cluster(args) -> int:
     """``cluster``: one ``cluster`` step into the result directory's
     ``run_manifest.json`` (its degradation events attached), the report
     printed as one JSON line.  The device is resolved first: without a
-    card it raises before any manifest is written."""
+    card it raises before any manifest is written.
+
+    Under ``TSE1M_COORDINATOR``/``TSE1M_NUM_PROCESSES``/``TSE1M_PROCESS_ID``
+    (``parallel/multihost.py``) every process is one rank of a world: it
+    synthesizes every row (the planted truth's permutation is global) but
+    feeds only its own contiguous block to its device, every rank gets the
+    labels of the band-sharded run, and each writes a manifest fragment
+    that process 0 merges into one ``run_manifest.json``.  A signature
+    store under such a world is the pod path, not ported."""
+    from .cluster.store import is_sharded_root
     from .observability import profiling
+    from .observability.merge import (fragment_manifest_path,
+                                      merge_run_manifests)
+    from .parallel import multihost
     from .utils.runner import StepRunner
 
     dev = resolve_device(args.device)
     result_dir = load_config().result_dir
-    runner = StepRunner(os.path.join(result_dir, "run_manifest.json"))
+    # The JAX package's route decision: a store under a multi-process
+    # environment, or a sharded root, is the pod path.
+    env_nproc, _ = multihost.pod_process_env()
+    if args.sig_store and (env_nproc > 1 or is_sharded_root(args.sig_store)):
+        raise _not_ported("the pod path (--sig-store under a multi-process "
+                          "world, or a pod-sharded store)", "Multi-GPU")
+    distributed = multihost.initialize_from_env(device=dev)
+    pid, nproc = ((torch.distributed.get_rank(),
+                   torch.distributed.get_world_size()) if distributed
+                  else (0, 1))
+    if nproc > 1:
+        manifest_path = fragment_manifest_path(result_dir, pid)
+        if os.path.exists(manifest_path):  # a previous run's fragment
+            os.remove(manifest_path)
+    else:
+        manifest_path = os.path.join(result_dir, "run_manifest.json")
+    runner = StepRunner(manifest_path)
     report: dict = {}
     # --profile: the step under the host sampler and a device trace,
     # profile_NNN.json next to run_manifest.json.  The kill switch
@@ -185,7 +224,7 @@ def _cmd_cluster(args) -> int:
                 os.path.join(result_dir, "device_trace")
                 if prof_on else None):
             rec = runner.run("cluster", _run_cluster_step, args, dev,
-                             report)
+                             report, distributed)
     finally:
         if prof_on:
             prof_path = profiling.dump_profile(
@@ -194,16 +233,54 @@ def _cmd_cluster(args) -> int:
             profiling.enable_lock_wait(False)
             logging.getLogger("tse1m_tpu_torch.cluster").info(
                 "cluster: profile -> %s", prof_path)
+    if rec.status == "ok":
+        runner.record_result(rec, report)
+    # The step runner writes a fragment when its step starts and again
+    # when it ends: the barrier holds the merge until every rank's last
+    # write is done.
+    multihost.all_processes_ready("cluster-manifest")
+    if nproc > 1 and pid == 0:
+        merged = merge_run_manifests(result_dir, nproc)
+        logging.getLogger("tse1m_tpu_torch.cluster").info(
+            "manifest merged from %s (missing: %s)",
+            merged["pod"]["merged_from"], merged["pod"]["missing"])
+    if distributed:
+        multihost.shutdown()
     if rec.status != "ok":
         print(f"cluster failed: {rec.error}\n{rec.traceback}",
               file=sys.stderr)
         return 1
-    runner.record_result(rec, report)
     print(json.dumps(report))
     return 0
 
 
-def _run_cluster_step(args, dev, report: dict) -> None:
+def _cluster_labels(args, items, params, dev, distributed: bool):
+    """The run's labels: band-sharded over the world's mesh, each process
+    feeding its own block, or single-device (resumable from
+    ``--checkpoint-dir``)."""
+    if not distributed:
+        return cluster_sessions_resumable(
+            items, params, checkpoint_dir=args.checkpoint_dir, device=dev)
+    from .parallel import multihost
+
+    if args.checkpoint_dir:
+        logging.getLogger("tse1m_tpu_torch.cluster").warning(
+            "--checkpoint-dir is ignored under multi-host: per-chunk "
+            "checkpointing is single-process only (give each process its "
+            "own directory and the resumable API if you need it); this "
+            "run is NOT checkpointed")
+    mesh = multihost.global_mesh()
+    lo, hi = multihost.local_row_range(
+        multihost.padded_row_count(args.n, mesh))
+    rows, _ = multihost.put_process_local_padded(
+        np.ascontiguousarray(items[lo:min(hi, args.n)], dtype=np.uint32),
+        args.n, mesh)
+    labels = cluster_sessions(rows, params, mesh=mesh, device=dev)[:args.n]
+    multihost.all_processes_ready("cluster-report")
+    return labels
+
+
+def _run_cluster_step(args, dev, report: dict, distributed: bool) -> None:
     items, truth = synth_session_sets(args.n, seed=args.seed)
     if args.scheme == "weighted":
         items = expand_weighted(
@@ -213,8 +290,7 @@ def _run_cluster_step(args, dev, report: dict) -> None:
                            wire_quant_bits=args.wire_quant_bits,
                            scheme=args.scheme, sig_store=args.sig_store)
     t0 = time.perf_counter()
-    labels = cluster_sessions_resumable(
-        items, params, checkpoint_dir=args.checkpoint_dir, device=dev)
+    labels = _cluster_labels(args, items, params, dev, distributed)
     wall = time.perf_counter() - t0
     info = dict(last_run_info)
     report.update({
@@ -238,7 +314,9 @@ def _run_cluster_step(args, dev, report: dict) -> None:
         "degradation_events": len(peek_degradation_events()),
         **info.get("stages", {}),
     })
-    if args.checkpoint_dir:
+    if distributed:
+        report["processes"] = torch.distributed.get_world_size()
+    if args.checkpoint_dir and not distributed:
         report["checkpoint_dir"] = args.checkpoint_dir
     if args.sig_store:
         report["sig_store"] = args.sig_store
@@ -393,16 +471,35 @@ def _cmd_stats(args) -> int:
 
 
 def _cmd_rq(args) -> int:
+    """The RQ commands.  Under the ``TSE1M_*`` variables every process is
+    one rank of a world: each runs the drivers over the same study, the
+    backend's reductions sharded over the world's mesh, and rank 0 alone
+    writes the CSVs, figures, manifests and transcript; the other ranks'
+    copies go to a temporary directory that is removed."""
+    import contextlib
+    import tempfile
+
     from .analysis import RQ_DRIVERS, run_rqs
+    from .parallel import multihost
 
     cfg = dataclasses.replace(
         load_config(), sqlite_path=args.db, result_dir=args.result_dir,
         limit_date=args.limit_date, min_coverage_days=args.min_coverage_days,
         test_mode=args.test_mode, corpus_csv=args.corpus_csv)
     names = tuple(RQ_DRIVERS) if args.cmd == "all" else (args.cmd,)
-    # run_rqs resolves the device first: without a card it raises before
-    # any step runs or any manifest is written.
-    runner = run_rqs(cfg, names, device=args.device)
+    # The device first: without a card this raises before any step runs
+    # or any manifest is written.
+    dev = resolve_device(args.device)
+    distributed = multihost.initialize_from_env(device=dev)
+    with contextlib.ExitStack() as stack:
+        if distributed and torch.distributed.get_rank() != 0:
+            cfg = dataclasses.replace(cfg, result_dir=stack.enter_context(
+                tempfile.TemporaryDirectory(prefix="tse1m_rank_")))
+            stack.enter_context(contextlib.redirect_stdout(
+                stack.enter_context(open(os.devnull, "w"))))
+        runner = run_rqs(cfg, names, device=dev)
+        if distributed:
+            multihost.shutdown()
     for rec in runner.failed:
         print(f"step {rec.name} failed: {rec.error}\n{rec.traceback}",
               file=sys.stderr)

@@ -16,7 +16,15 @@ in one pass and one copy, with RQ4b's host float64 percentiles computed
 while the card works.  The host tails (``_*_post``) stay in numpy float64
 so that results equal the JAX package's and the pandas backend's.
 
-There is no mesh here: multi-GPU is ROADMAP.md Queue 1, "Multi-GPU".
+With a mesh (``mesh="auto"`` over a started ``torch.distributed`` world
+of more than one rank, or a ``parallel.Mesh``), each RQ's reductions go
+through ``parallel/rq_mesh.py`` wherever the JAX package's ``JaxBackend``
+routes through its ``rq_mesh``: the issue axis of RQ1, the per-issue
+searches of RQ2's change points, RQ3 and RQ4a, the session and project
+axes of RQ2's trends and RQ4b's percentiles.  Every rank calls the same
+method with the same study and gets the same result, equal to the
+single-device one bit for bit; ``rq_suite`` then runs the six single
+calls.
 """
 
 from __future__ import annotations
@@ -31,6 +39,8 @@ from ..device import resolve_device
 from ..ops.segment import (counts_to_survival, masked_mean, masked_spearman,
                            segment_searchsorted,
                            unique_pairs_count_per_iteration)
+from ..parallel import rq_mesh
+from ..parallel.mesh import Mesh
 from .base import (Backend, RQ1Result, RQ2ChangePointsResult, RQ2TrendsResult,
                    RQ3Result, RQ4aTrendResult, RQ4bTrendsResult)
 
@@ -610,12 +620,31 @@ def _group_ids(P: int, g1_idx, g2_idx) -> np.ndarray:
 
 class TorchBackend(Backend):
     """The six RQs on one device: the card by default, the CPU when asked
-    (the tests).  Raises without a card unless ``device="cpu"``."""
+    (the tests).  Raises without a card unless ``device="cpu"``.
+
+    ``mesh``: "auto" (default) shards the reductions over the started
+    world when it has more than one rank; None keeps them on this device;
+    a ``parallel.Mesh`` uses that mesh (on the same kind of device)."""
 
     name = "torch_cuda"
 
-    def __init__(self, device: str | torch.device = "cuda"):
+    def __init__(self, device: str | torch.device = "cuda", mesh="auto"):
         self.device = resolve_device(device)
+        self._mesh = rq_mesh.auto_mesh() if mesh == "auto" else mesh
+        if self._mesh is not None:
+            if not isinstance(self._mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, 'auto' or "
+                                f"None, got {type(self._mesh).__name__}")
+            if self._mesh.device.type != self.device.type:
+                raise ValueError(f"device {self.device} does not match the "
+                                 f"mesh's {self._mesh.device}")
+
+    def _mesh_search(self, values, offsets, queries, seg,
+                     side: str) -> np.ndarray:
+        """Per-segment searchsorted with the queries sharded over the mesh
+        (host int64 arrays in, host int32 positions out)."""
+        return rq_mesh.segment_searchsorted_mesh(
+            self._mesh, values, offsets, queries, seg, side, None, None)
 
     def _cache(self, arrays: StudyArrays, limit_date_ns: int) -> dict:
         cache = _study_cache(arrays, self.device)
@@ -639,6 +668,17 @@ class TorchBackend(Backend):
                              np.zeros(n_issues, np.int64),
                              np.full(n_issues, -1, np.int64))
         cache = self._cache(arrays, limit_date_ns)
+        if self._mesh is not None and n_issues:
+            t = arrays.fuzz.columns["time_ns"]
+            ok_pos, ok_off = _host_fuzz_ok(arrays, cache, limit_date_ns)
+            seg = np.repeat(np.arange(P), arrays.issues.counts())
+            it, li, detected = rq_mesh.rq1_kernel_mesh(
+                self._mesh, t, None, arrays.fuzz.offsets, t[ok_pos], None,
+                ok_off, ok_pos, arrays.issues.columns["time_ns"], None, seg,
+                n_projects=P, max_iter=max_iter)
+            totals = counts_to_survival(
+                torch.from_numpy(arrays.fuzz.counts()), max_iter).numpy()
+            return _rq1_post(it, li, totals, detected, min_projects)
         packed = self._fetch(_rq1_packed(
             *_dev_fuzz(arrays, cache, dev),
             *_dev_fuzz_ok(arrays, cache, limit_date_ns, dev),
@@ -660,6 +700,12 @@ class TorchBackend(Backend):
             e = np.empty(0, np.int64)
             f = np.empty(0, np.float64)
             return RQ2ChangePointsResult(e, e, e, f, f, f, f)
+        if self._mesh is not None:
+            cov_pos, cov_off = _host_cov_cut(arrays, cache, limit_date_ns)
+            pos = self._mesh_search(arrays.cov.columns["date_ns"][cov_pos],
+                                    cov_off, bounds["q_days"],
+                                    bounds["q_seg"], "left")
+            return _rq2cp_post(arrays, cache, limit_date_ns, bounds, pos)
         _, cov_off_h = _host_cov_cut(arrays, cache, limit_date_ns)
         cp16 = bool(np.diff(cov_off_h).max(initial=0) < (1 << 15))
         pos_d = segment_searchsorted(
@@ -683,6 +729,18 @@ class TorchBackend(Backend):
                 percentiles=np.full((len(RQ2TrendsResult.PCTS), S), np.nan),
                 mean=np.full(S, np.nan),
                 counts=np.zeros(S, dtype=np.int64))
+        if self._mesh is not None:
+            matrix, mask = prep["matrix"], prep["mask"]
+            q = np.array(RQ2TrendsResult.PCTS, dtype=np.float32)
+            return RQ2TrendsResult(
+                matrix=matrix, mask=mask,
+                spearman=rq_mesh.spearman_by_project_mesh(matrix, mask,
+                                                          self._mesh),
+                percentiles=rq_mesh.percentile_by_session_mesh(
+                    matrix.T, mask.T, q, self._mesh),
+                mean=rq_mesh.mean_by_session_mesh(matrix.T, mask.T,
+                                                  self._mesh),
+                counts=rq_mesh.counts_by_project_psum(mask, self._mesh))
         packed = self._fetch(_rq2tr_body(
             *_rq2tr_dev(arrays, cache, limit_date_ns, self.device)))
         return _rq2tr_post(prep, packed)
@@ -693,6 +751,24 @@ class TorchBackend(Backend):
         cached masked CSR arrays; the float64 deltas on the host."""
         dev = self.device
         cache = self._cache(arrays, limit_date_ns)
+        if self._mesh is not None:
+            issue_t = arrays.issues.columns["time_ns"]
+            seg = np.repeat(np.arange(arrays.n_projects),
+                            arrays.issues.counts())
+            f_pos, f_off = _host_fuzz_ok(arrays, cache, limit_date_ns)
+            c_pos, c_off = _host_covb_cut(arrays, cache, limit_date_ns)
+            v_pos, v_off = _host_cov_valid(arrays, cache)
+            # The last ok fuzz build before the report, the first coverage
+            # build after it, the day-after coverage row (rq3:269-293).
+            pos_f = self._mesh_search(arrays.fuzz.columns["time_ns"][f_pos],
+                                      f_off, issue_t, seg, "left")
+            pos_c = self._mesh_search(arrays.covb.columns["time_ns"][c_pos],
+                                      c_off, issue_t, seg, "right")
+            pos_d = self._mesh_search(arrays.cov.columns["date_ns"][v_pos],
+                                      v_off, floor_day_ns(issue_t) + DAY_NS,
+                                      seg, "left")
+            return _rq3_post(arrays, cache, limit_date_ns, pos_f, pos_c,
+                             pos_d)
         okt, okoff, _ = _dev_fuzz_ok(arrays, cache, limit_date_ns, dev)
         pos3 = self._fetch(_rq3_body(
             okt, okoff, *_dev_covb_cut(arrays, cache, limit_date_ns, dev),
@@ -725,6 +801,9 @@ class TorchBackend(Backend):
         if max_iter == 0:
             e = np.empty(0, np.int64)
             return RQ4aTrendResult(e, e, e, e, e)
+        if self._mesh is not None:
+            return self._rq4a_mesh(arrays, cache, limit_date_ns, in_g,
+                                   counts, max_iter, min_projects)
         queries = self._rq4a_queries(arrays, in_g)
         q = queries[0].shape[0]
         packed = self._fetch(_rq4a_body(
@@ -735,6 +814,32 @@ class TorchBackend(Backend):
         return _rq4a_post(packed[q:q + m], packed[q + m:q + 2 * m],
                           packed[q + 2 * m:q + 3 * m], packed[q + 3 * m:],
                           min_projects)
+
+    def _rq4a_mesh(self, arrays, cache, limit_date_ns, in_g, counts,
+                   max_iter: int, min_projects: int) -> RQ4aTrendResult:
+        """RQ4a with the grouped issues' iteration search sharded over the
+        mesh; the per-group survival curves and detected-project counts
+        are integer work on the host."""
+        P = arrays.n_projects
+        f_pos, f_off = _host_fuzz_cut(arrays, cache, limit_date_ns)
+        issue_seg = np.repeat(np.arange(P), arrays.issues.counts())
+        qi = np.flatnonzero(in_g[issue_seg] > 0)
+        seg_q = issue_seg[qi]
+        gid = in_g[seg_q]
+        ks = self._mesh_search(arrays.fuzz.columns["time_ns"][f_pos], f_off,
+                               arrays.issues.columns["time_ns"][qi], seg_q,
+                               "left")
+        out = []
+        for g in (1, 2):
+            sel = (in_g == g) & (counts > 0)
+            gi = gid == g
+            out.append(counts_to_survival(torch.from_numpy(counts[sel]),
+                                          max_iter).numpy().astype(np.int64))
+            out.append(unique_pairs_count_per_iteration(
+                torch.from_numpy(seg_q[gi]),
+                torch.from_numpy(ks[gi].astype(np.int64)), P,
+                max_iter).numpy().astype(np.int64))
+        return _rq4a_post(*out, min_projects)
 
     def rq4b_group_trends(self, arrays: StudyArrays, limit_date_ns: int,
                           g1_idx: np.ndarray, g2_idx: np.ndarray,
@@ -755,6 +860,11 @@ class TorchBackend(Backend):
                 out[key] = (np.full((len(percentiles), S), np.nan),
                             np.zeros(S, dtype=np.int64))
                 continue
+            if self._mesh is not None:
+                out[key] = (rq_mesh.nanpercentile_by_session_mesh(
+                    matrix[idx], q, self._mesh),
+                    rq_mesh.counts_by_project_psum(mask[idx], self._mesh))
+                continue
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", RuntimeWarning)
                 pcts = np.nanpercentile(matrix[idx], q, axis=0)
@@ -771,12 +881,12 @@ class TorchBackend(Backend):
         """All six RQs in one pass on the card and one packed fetch, with
         RQ4b's host percentiles computed while the card works.  Degenerate
         shapes (an empty study, no issue, no change point, no trend, no
-        grouped build) go to the six single calls, whose guards apply."""
+        grouped build) and a mesh go to the six single calls."""
         dev = self.device
         P = arrays.n_projects
         n_issues = len(arrays.issues)
         max_iter1 = int(arrays.fuzz.counts().max()) if len(arrays.fuzz) else 0
-        if max_iter1 == 0 or n_issues == 0:
+        if self._mesh is not None or max_iter1 == 0 or n_issues == 0:
             return super().rq_suite(arrays, limit_date_ns, min_projects,
                                     g1_idx, g2_idx, percentiles)
         cache = self._cache(arrays, limit_date_ns)

@@ -73,23 +73,35 @@ def estimated_jaccard(sig: torch.Tensor, reps: torch.Tensor) -> torch.Tensor:
 
 
 def propagate_labels(reps: torch.Tensor, valid: torch.Tensor,
-                     n_iters: int = 64) -> torch.Tensor:
+                     n_iters: int = 64, mesh=None) -> torch.Tensor:
     """Min-label propagation over verified star edges, to convergence.
 
     reps: [N, B] rep item index per band; valid: [N, B] accepted edges.
     Returns [N] int32 labels = min item index reachable in each component.
     Each step pulls (my label drops to my reps' labels), pushes (my reps'
     labels drop to mine, a scatter-min) and pointer-jumps; the loop stops one
-    step after labels stop changing, or after ``n_iters`` steps."""
+    step after labels stop changing, or after ``n_iters`` steps.
+
+    ``mesh`` (``parallel.Mesh``): each rank holds B/d bands of the same N
+    rows (``cluster/sharded.py``); labels stay replicated and the pull and
+    the push each reduce across ranks with ``pmin``.  Min is associative
+    and commutative, so every iterate, the labels and the trip count
+    equal the single-device run's, and the convergence test needs no
+    collective."""
     n = reps.shape[0]
     self_idx = torch.arange(n, dtype=torch.int64, device=reps.device)
     reps = torch.where(valid, reps.to(torch.int64), self_idx[:, None])
     flat = reps.reshape(-1)
     labels = self_idx
     for _ in range(n_iters):
-        new = torch.minimum(labels, labels[reps].amin(dim=1))
+        pulled = labels[reps].amin(dim=1)
+        if mesh is not None:
+            pulled = mesh.pmin(pulled)
+        new = torch.minimum(labels, pulled)
         pushed = new.scatter_reduce(0, flat, new[:, None].expand_as(reps)
                                     .reshape(-1), "amin")
+        if mesh is not None:
+            pushed = mesh.pmin(pushed)
         new = torch.minimum(new, pushed)
         new = torch.minimum(new, new[new])
         changed = bool((new != labels).any())

@@ -1,5 +1,5 @@
-"""End-to-end session clustering on one GPU: the cold path and the warm
-path through a persistent signature store.
+"""End-to-end session clustering on one GPU, or over a mesh of ranks: the
+cold path and the warm path through a persistent signature store.
 
 Items [N, S] -> host prefilter (drops rows that can collide with nothing)
 -> wire plan (quantization, the base-delta lane) -> adaptive-width or
@@ -61,6 +61,11 @@ The device work carries ``torch.profiler`` regions, so a device trace
 and ``tse1m.fetch`` (the labels', or a merge's novel signatures', copy
 back).  Outside a profile a region costs a few microseconds.
 
+Under a mesh (``cluster_sessions(mesh=)``, ``parallel/``) every rank
+hashes its own block of rows, fed as raw ids or the 24-bit byte pack,
+and the LSH tail runs band-sharded across the ranks
+(``cluster/sharded.py``); every rank gets the labels.
+
 Levers of ``ClusterParams`` this port does not carry yet raise
 ``NotImplementedError`` naming their ROADMAP.md item by its title.
 """
@@ -79,6 +84,8 @@ from torch.profiler import record_function
 
 from ..device import U32_MASK, as_u32_numpy, narrow, resolve_device, widen
 from ..observability import record_degradation
+from ..parallel.mesh import Mesh, pad_to_devices
+from ..parallel.multihost import ShardedRows
 from ..resilience.faults import fault_point
 from ..resilience.watchdog import (StageWatchdog, run_with_deadline,
                                    watchdog_enabled)
@@ -101,6 +108,7 @@ from .prefilter import N_BANDS as PREFILTER_BANDS
 from .prefilter import collide_mask
 from .schemes import (get_scheme, make_params, scheme_sig_and_keys,
                       scheme_sig_and_keys_packed)
+from .sharded import sharded_labels
 from .store import SignatureStore, is_sharded_root, row_digests
 
 
@@ -140,6 +148,8 @@ _WIRE_DTYPES = {np.dtype(np.uint8): torch.uint8,
                 np.dtype(np.uint16): torch.int16,
                 np.dtype(np.uint32): torch.int32}
 _ALIGN = 16  # byte alignment of each array in a staged copy
+# The mesh feed packs ids below this into 3 bytes; others ship raw.
+_PACK_LIMIT = 1 << 24
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -1029,12 +1039,23 @@ def cluster_sessions(items, params: ClusterParams | None = None,
     storeless run returns ``(labels, sig, keys)``: the [M, H] signatures
     and [M, B] band keys, int32 tensors of uint32 bits on the device, of
     the M rows the prefilter kept (all rows when it dropped none), in their
-    row order.  ``mesh`` is accepted for the JAX signature and refused."""
+    row order.
+
+    With ``mesh`` (``parallel.Mesh``) every rank of the mesh calls this
+    with the same host ``items``, or with its own block as a
+    ``parallel.multihost.ShardedRows`` padded to a multiple of the mesh
+    size, and every rank returns the same labels: the band-sharded run of
+    ``cluster/sharded.py`` on the mesh's devices, equal element for
+    element to the single-device run over the same ids.  As in the JAX
+    package, the mesh feed ships raw ids or the 24-bit byte pack: the host
+    prefilter, the base-delta and rANS lanes and the automatic
+    quantization stay off (an explicit ``wire_quant_bits`` applies), and
+    ``device`` must name the mesh's kind of device."""
     params = params or ClusterParams()
-    dev = resolve_device(device)
     _validate_encoding(params)
     if mesh is not None:
-        raise _not_ported("a mesh (multi-GPU clustering)", "Multi-GPU")
+        return _cluster_mesh(items, params, mesh, device, return_signatures)
+    dev = resolve_device(device)
     items = np.ascontiguousarray(items, dtype=np.uint32)
     if params.sig_store:
         if return_signatures:
@@ -1061,6 +1082,98 @@ def cluster_sessions(items, params: ClusterParams | None = None,
     _record_wire_v3(items, qbits_full, keep, rec)
     _finish_run(rec, t_all, lad)
     return (out, sig, keys) if return_signatures else out
+
+
+def _pack24_host(chunk: np.ndarray) -> np.ndarray:
+    """[n, S] uint32 (< 2^24) -> contiguous [n, S, 3] uint8 little-endian
+    bytes: the mesh feed's pack, the packed kernel's wire at k = 3."""
+    if chunk.dtype.byteorder == ">":
+        chunk = chunk.astype("<u4")
+    return np.ascontiguousarray(chunk[..., None].view(np.uint8)[..., :3])
+
+
+def should_pack24(items: np.ndarray) -> bool:
+    """True when every id fits the 24-bit universe: the mesh feed's pack
+    decision."""
+    return bool(items.size) and bool(items.max() < _PACK_LIMIT)
+
+
+def _cluster_mesh(items, params: ClusterParams, mesh, device,
+                  return_signatures: bool) -> np.ndarray:
+    """``cluster_sessions`` under a mesh; refusals in the JAX package's
+    order and words."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a tse1m_tpu_torch.parallel.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if params.prefilter == "on":
+        raise ValueError(
+            "ClusterParams.prefilter='on' is a single-host wire lever: "
+            "the mesh feed has no per-host keep mask to apply. Drop "
+            "prefilter (auto disables itself under a mesh) or run "
+            "single-host.")
+    if params.sig_store:
+        raise ValueError(
+            "--sig-store (ClusterParams.sig_store) is not supported on "
+            "cluster_sessions under a mesh: the signature store shards "
+            "per host by digest range. The pod path that carries it "
+            "(cluster_sessions_pod) is not ported to tse1m_tpu_torch yet "
+            "(ROADMAP.md Queue 1, \"Multi-GPU\"); drop sig_store for a "
+            "cold mesh run.")
+    if return_signatures:
+        raise ValueError("return_signatures is single-device only")
+    dev = resolve_device(device)
+    if dev.type != mesh.device.type:
+        raise ValueError(f"device {dev} does not match the mesh's "
+                         f"{mesh.device}")
+    dev = mesh.device
+    hp = make_params(params.scheme, params.n_hashes, params.seed).to(dev)
+    rec = StageRecorder()
+    t_all = time.perf_counter()
+    last_run_info.clear()
+    packed_shape = None
+    if isinstance(items, ShardedRows):
+        if items.n_rows % mesh.size:
+            raise ValueError(
+                "pre-sharded items must be padded to a multiple of the "
+                "mesh size — feed through parallel/multihost."
+                "put_process_local_padded and slice the labels back to "
+                "the logical row count")
+        n = items.n_rows
+        rows = items.rows
+        last_run_info.update(encoding="mesh-presharded")
+    else:
+        items = np.ascontiguousarray(items, dtype=np.uint32)
+        if params.wire_quant_bits > 0:  # explicit only, as in JAX
+            qb = _quant_bits(items, params)
+            if qb:
+                items = quantize_ids(items, qb)
+            last_run_info.update(wire_quant_bits=qb)
+        n = items.shape[0]
+        items, _ = pad_to_devices(items, mesh)
+        packed = should_pack24(items)
+        block = mesh.block(items)
+        with rec.stage("encode"):
+            payload = _pack24_host(block) if packed else block
+        with rec.stage("h2d", nbytes=payload.nbytes):
+            if packed:
+                rows = torch.from_numpy(payload.reshape(-1)).to(dev)
+                packed_shape = block.shape
+            else:
+                rows = torch.from_numpy(payload.view(np.int32)).to(dev)
+            _sync(dev)
+        # The whole payload's size, as the JAX package records it.
+        last_run_info.update(
+            encoding="mesh-pack24" if packed else "mesh-raw",
+            wire_mb=round(payload.nbytes * mesh.size / 2**20, 2))
+    with rec.stage("compute"):
+        labels = sharded_labels(rows, hp, mesh, params.n_bands,
+                                params.threshold, params.n_iters,
+                                packed_shape)
+        _sync(dev)
+    with rec.stage("d2h"):
+        out = labels.cpu().numpy()[:n]
+    _finish_run(rec, t_all, {})
+    return out
 
 
 # -- the warm path: persistent signature store ------------------------------

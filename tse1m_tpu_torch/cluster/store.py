@@ -44,8 +44,9 @@ JAX package; a shard quarantined while opening is also kept in
 of stored signatures from raw rows on the host, which catches corruption
 that happened before a frame was written.  The JAX package's trace and
 span hooks (``trace_point``, ``shared_access``, ``span``) belong to its
-trace plane, which is not ported; nor is the pod-sharded store
-(``ShardedSignatureStore``, ROADMAP.md Queue 1, "Multi-GPU"):
+trace plane, which is not ported.  The mesh runs storeless
+(``parallel/``); the pod-sharded store (``ShardedSignatureStore``) is
+the pod path, which waits (ROADMAP.md Queue 1, "Multi-GPU"):
 ``is_sharded_root`` tells such a root apart.
 """
 

@@ -4,8 +4,9 @@ reports through: latency histograms (``latency``), the metrics registry
 (``metrics``) and its export (``export``), spans (``tracing``), the flight
 recorder (``flight``) and the profiler and slow-request log
 (``profiling``).  The pipeline's per-stage ``StageRecorder`` stays in
-``cluster/observability.py``; the JAX package's manifest merge and bench
-regression modules are not ported.
+``cluster/observability.py``; ``merge`` folds a multi-process run's
+manifest fragments into one; the JAX package's bench regression module is
+not ported.
 
 Degradation events: every time the system survives a failure by
 degrading (a halved chunk, a quant drop, a stall or device retry, a

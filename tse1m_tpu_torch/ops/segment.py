@@ -14,7 +14,9 @@ each on tensors of one device (the card, or the CPU in the tests):
   iteration (a boolean grid, out-of-range iterations dropped into a
   scratch column).
 - ``masked_mean``, ``masked_spearman`` and ``masked_percentile`` over
-  padded ragged rows, in float32 as the JAX package.
+  padded ragged rows, in float32 as the JAX package; the float sums go
+  through ``tree_sum``, whose order does not depend on the device or the
+  row count.
 
 No op reads a value back to the host, so a chain of them queues on the
 card without a synchronisation.
@@ -78,11 +80,28 @@ def unique_pairs_count_per_iteration(segments: torch.Tensor,
     return grid[:, 1:].sum(dim=0, dtype=torch.int32)
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of each row of a [R, C] float tensor by pairwise halving: the
+    columns pad with zeros to a power of two, then the right half is added
+    to the left until one column is left.  Every add is elementwise, so the
+    order, and the rounding, is the same on every device, layout, thread
+    count and row count: a row block on a mesh rank sums as the whole
+    matrix does on one device (``parallel/rq_mesh.py``)."""
+    r, c = x.shape
+    width = 1 << max(c - 1, 0).bit_length()
+    if width != c:
+        x = torch.cat([x, x.new_zeros((r, width - c))], dim=1)
+    while x.shape[1] > 1:
+        half = x.shape[1] // 2
+        x = x[:, :half] + x[:, half:]
+    return x[:, 0] if c else x.new_zeros(r)
+
+
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """float32 mean of each row's valid entries; NaN where none."""
     x = x.to(torch.float32)
     n = mask.sum(dim=-1)
-    s = torch.where(mask, x, 0.0).sum(dim=-1)
+    s = tree_sum(torch.where(mask, x, 0.0))
     return torch.where(n > 0, s / n, torch.nan)
 
 
@@ -119,9 +138,8 @@ def masked_spearman(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     ry = torch.cumsum(mf, dim=1) * mf
     n = mf.sum(dim=1)
     rx = torch.where(mask, ranks, 0.0)
-    sx, sy = rx.sum(dim=1), ry.sum(dim=1)
-    sxx, syy, sxy = (rx * rx).sum(dim=1), (ry * ry).sum(dim=1), \
-        (rx * ry).sum(dim=1)
+    sx, sy = tree_sum(rx), tree_sum(ry)
+    sxx, syy, sxy = tree_sum(rx * rx), tree_sum(ry * ry), tree_sum(rx * ry)
     nn = torch.clamp(n, min=1.0)
     cov = sxy - sx * sy / nn
     vx = sxx - sx * sx / nn
@@ -158,5 +176,5 @@ def masked_percentile(x: torch.Tensor, mask: torch.Tensor, q):
 
 
 __all__ = ["counts_to_survival", "masked_mean", "masked_percentile",
-           "masked_spearman", "segment_searchsorted",
+           "masked_spearman", "segment_searchsorted", "tree_sum",
            "unique_pairs_count_per_iteration"]

@@ -4,8 +4,9 @@ the stage watchdog, request budgets and the failure classifiers
 engine and the step runner are ``utils/retry.py`` and ``utils/runner.py``;
 the degradation ladder is ``cluster/ladder.py``.  Of the pod coordinator
 the port runs the serving plane's part (``coordinator``: heartbeats, the
-peer monitor and epoch leases); the pod supervisor and the membership
-ledger are not ported (ROADMAP.md Queue 1, "Multi-GPU")."""
+peer monitor and epoch leases).  The mesh runs (``parallel/``); what
+waits is the pod path, the pod supervisor and the membership ledger
+among it (ROADMAP.md Queue 1, "Multi-GPU")."""
 
 from .coordinator import (HeartbeatWriter, LeaseSupersededError,
                           PeerMonitor, RangeLeaseGuard)

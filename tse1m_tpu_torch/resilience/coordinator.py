@@ -20,9 +20,10 @@ run (``:81-101``, ``:195-383``, ``:576-688``).
   rows written.
 
 The files are the JAX package's, byte for byte, so either package fences
-the other's writer and reads its heartbeats.  The pod supervisor, the
-nonce exchange, the membership ledger and the ``jax.distributed``
-teardown are not ported (ROADMAP.md Queue 1, "Multi-GPU").
+the other's writer and reads its heartbeats.  The mesh's world is
+``parallel/multihost.py``'s; what waits is the pod path: the pod
+supervisor, the nonce exchange, the membership ledger and the host-loss
+teardown (ROADMAP.md Queue 1, "Multi-GPU").
 """
 
 from __future__ import annotations
