@@ -241,18 +241,61 @@ Phases, in order; any failure ends the run with a non-zero exit code:
        1,000,000 rows pad two zero rows; the bin-min kernel once a rank;
        the labels equal the single-device cminhash run's (unquantized,
        prefilter off);
-   (h-m4) after phase 4: four ranks run ``all`` over its study (999,049
+   (h-m2) after phase 4: two ranks run ``all`` over its study (999,049
        builds) under the TSE1M_* variables; rank 0 writes phase 4's
        single-rank file set, its CSVs byte for byte; no built library
        changed from
-       before (m4) to after (h-m4) (no rank rebuilt one, none left a
+       before (m4) to after (h-m2) (no rank rebuilt one, none left a
        lock).
    One ``mesh`` JSON line: the gloo probe, for each cell the world size,
    backend, wall and per rank the four stages, the bytes and seconds of
    the key ``all_to_all``, the signature gather and the ``pmin``s, the
-   propagation's iterations, the launches and peak device memory; (h-m4)'s
+   propagation's iterations, the launches and peak device memory; (h-m2)'s
    ``all`` wall beside phase 4's; the card; the ``kernels`` line adds each
    kernel's launches there under ``mesh_launches``;
+3h. the pod on one card, over phase 3b's 1,050,000 x 64 sessions (128
+   hashes, 16 bands), under the gitignored build/pod_smoke/: each cell is
+   two child processes of this script under
+   TSE1M_NUM_PROCESSES/TSE1M_PROCESS_ID, heartbeats every 0.2 s and a 5 s
+   loss timeout, each loading the built libraries:
+   (p2) ``--pod-rank`` children, each running ``run_pod_cluster`` (the
+       ``cluster --sig-store`` command's pod route, no torch.distributed
+       world) over phase 3b's rows as the ``pod-cluster`` step of a
+       manifest fragment closed as the command closes its step
+       (``close_cluster_step``), its launch counts and peak device memory
+       set to 0 just before and read just after; the reference is the
+       single-device, unquantized storeless run of the same rows
+       (``params_for(-1)``):
+       cold over the first 1,000,000 rows into a fresh root, then warm
+       over all 1,050,000 against it: both processes ok, each one's labels
+       the reference's element for element, the cold hit rate 0 and the
+       warm one phase 3b's run 2's, a MinHash launch for each chunk of a
+       process's novel tail and no other hashing, the merged
+       ``run_manifest.json`` of both fragments at the membership epoch;
+   (p-kill) process 1 SIGKILLed at ``pipeline.h2d``, (p-lead) process 0
+       SIGKILLed there, (p-zombie) process 1 wedged there by the
+       ``zombie`` kind and woken once the survivor has advanced the epoch
+       and exited: the three pods at once, each process the ``cluster``
+       command itself (``--pod-cli``: ``tse1m_tpu_torch.__main__.main``,
+       its ``_cluster_labels`` wrapped to keep the labels and counts)
+       over 100,000 of its own sessions (cut from 1M) with ``--sig-store``
+       and a TSE1M_COORDINATOR in the environment; every process that
+       reports took the pod route and never had a torch.distributed
+       world; the survivor fails over at epoch 1 (``host_lost``,
+       ``pod_failover``, ``epoch_advance``, ``shard_range_reassigned``,
+       and ``leader_promoted`` when process 0 died, in the manifest the
+       command merged) with the labels of the command's sessions
+       clustered without the store; the zombie exits 1 with
+       ``LeaseSupersededError`` (``lease_superseded`` in its fragment),
+       no labels, and the root's files outside ``pod/`` byte for byte as
+       the survivor left them.
+   One ``pod`` JSON line: each cell's wall, hit rate, novel and appended
+   rows, exchanged bytes and epoch, and per process the walls of probe,
+   load, MinHash, exchange, append and the LSH tail, its start, launches
+   and peak device memory; the failover cells' survivor exit times, its
+   timeline from spawn (imports done, labels back, the command returned)
+   and degradation counts; the card; the ``kernels`` line adds each kernel's
+   launches in (p2)'s four processes under ``pod_launches``;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
@@ -329,6 +372,8 @@ import io
 import json
 import os
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -372,6 +417,7 @@ from tse1m_tpu_torch.lint import runtime as sanitizer
 from tse1m_tpu_torch.parallel import make_mesh, multihost
 from tse1m_tpu_torch.observability import (degradation_counts,
                                            pop_degradation_events, profiling)
+from tse1m_tpu_torch.observability.merge import fragment_manifest_path
 from tse1m_tpu_torch.resilience import FaultPlan
 from tse1m_tpu_torch.resilience.coordinator import (LeaseSupersededError,
                                                     RangeLeaseGuard,
@@ -1354,7 +1400,8 @@ def warm_phase(dev) -> dict:
         "minhash_and_keys": runs["populate"]["launches"]["minhash_and_keys"]
         + run2["launches"]["minhash_and_keys"],
         "topk_chunk": scan["run"]["launches"]}, "scan_args": scan["args"],
-        "items": items, "oracle": oracle}
+        "items": items, "oracle": oracle,
+        "hit_rate": run2["cache_hit_rate"]}
 
 
 SERVE_DIR = os.path.join(ROOT, "build", "serve_smoke")  # gitignored
@@ -3598,7 +3645,9 @@ def rq_phase(dev) -> dict:
 
 # Phase 3g: the mesh on one card.
 MESH_DIR = os.path.join(ROOT, "build", "mesh_smoke")  # gitignored
-MESH_RANKS = 4                # (m4) and (h-m4): gloo ranks sharing the card
+MESH_RANKS = 4                # (m4): gloo ranks sharing the card
+ALL_RANKS = 2                 # (h-m2): ranks running all (fewer than (m4)'s
+                              # for the script's time)
 MESH_CMIN_RANKS = 3           # (m3c): 16 bands pad one, 1M rows pad two
 MESH_WARM_ROWS = 4_096        # each world's warm-up run, before the timed one
 MESH_TIMEOUT_S = 300
@@ -3805,20 +3854,21 @@ def mesh_m1(items, want, dev) -> dict:
             "world_s": wall}
 
 
-def world_commands(label: str, args: list, **env) -> tuple:
+def world_commands(label: str, args: list, ranks: int = MESH_RANKS,
+                   **env) -> tuple:
     """``python -m tse1m_tpu_torch ARGS`` as each rank of a world of
-    MESH_RANKS under the TSE1M_* variables (a ``file://`` rendezvous in a
+    ``ranks`` under the TSE1M_* variables (a ``file://`` rendezvous in a
     fresh build/mesh_smoke/LABEL); returns (that directory, the wall)."""
     d = fresh_dir(os.path.join(MESH_DIR, label))
     os.makedirs(d)
     procs, logs = [], []
     t0 = time.perf_counter()
-    for r in range(MESH_RANKS):
+    for r in range(ranks):
         logs.append(os.path.join(d, f"rank{r}.log"))
         procs.append(spawn(
             [sys.executable, "-m", "tse1m_tpu_torch", *args], logs[-1],
             dict(os.environ, TSE1M_COORDINATOR=f"file://{d}/rendezvous",
-                 TSE1M_NUM_PROCESSES=str(MESH_RANKS),
+                 TSE1M_NUM_PROCESSES=str(ranks),
                  TSE1M_PROCESS_ID=str(r), **env)))
     wait_all(procs, logs, f"{args[0]} under TSE1M_*")
     return d, time.perf_counter() - t0
@@ -3917,14 +3967,15 @@ def mesh_phase(items, truth, want, dev) -> dict:
 
 
 def mesh_all(rq: dict, mesh: dict) -> dict:
-    """Phase 3g, (h-m4): four ranks run ``all`` over phase 4's study under
-    the TSE1M_* variables; rank 0 writes phase 4's single-rank file set,
-    its CSVs byte for byte.  Prints the ``mesh`` line."""
+    """Phase 3g, (h-m2): ALL_RANKS ranks run ``all`` over phase 4's study
+    under the TSE1M_* variables; rank 0 writes phase 4's single-rank file
+    set, its CSVs byte for byte.  Prints the ``mesh`` line."""
     t_phase = time.perf_counter()
     out = os.path.join(MESH_DIR, "all", "out")
     _, wall = world_commands(
         "all", ["all", "--db", rq["path"], "--result-dir", out,
-                "--limit-date", RQ_CUTOFF, "--corpus-csv", rq["corpus"]])
+                "--limit-date", RQ_CUTOFF, "--corpus-csv", rq["corpus"]],
+        ALL_RANKS)
     after = build_state()
     if after != mesh["build_before"]:
         raise AssertionError(f"a rank rebuilt a library or left a lock: "
@@ -3937,20 +3988,20 @@ def mesh_all(rq: dict, mesh: dict) -> dict:
                     path = os.path.join(base, n)
                     files[os.path.relpath(path, root)] = path
     if sorted(want_files) != sorted(got_files):
-        raise AssertionError(f"(h-m4) files {sorted(got_files)} != phase "
+        raise AssertionError(f"(h-m2) files {sorted(got_files)} != phase "
                              f"4's {sorted(want_files)}")
     csvs = [rel for rel in want_files if rel.endswith(".csv")]
     for rel in csvs:
         with open(want_files[rel], "rb") as f, \
                 open(got_files[rel], "rb") as g:
             if f.read() != g.read():
-                raise AssertionError(f"(h-m4) {rel} differs from phase 4's")
+                raise AssertionError(f"(h-m2) {rel} differs from phase 4's")
     run = check_drivers_ran(out, torch.device("cuda", 0))
-    log(f"  (h-m4) all as {MESH_RANKS} ranks: {wall:.3f} s (phase 4's "
+    log(f"  (h-m2) all as {ALL_RANKS} ranks: {wall:.3f} s (phase 4's "
         f"single rank {rq['all_s']:.3f} s), every step ok, phase 4's "
         f"{len(want_files)} files, its {len(csvs)} CSVs byte for byte")
     cells = dict(mesh["cells"])
-    cells["h_m4"] = {"world": MESH_RANKS, "backend": "gloo", "all_s": wall,
+    cells["h_m2"] = {"world": ALL_RANKS, "backend": "gloo", "all_s": wall,
                      "phase4_all_s": rq["all_s"],
                      "files": len(want_files), "csvs_equal": len(csvs),
                      "steps_s": {s["name"]: s["wall_s"]
@@ -3960,6 +4011,510 @@ def mesh_all(rq: dict, mesh: dict) -> dict:
             "phase_s": mesh["phase_s"] + time.perf_counter() - t_phase,
             "card": card_name_and_limit()}
     print(json.dumps({"mesh": line}), flush=True)
+    return line
+
+
+# Phase 3h: the pod on one card.
+POD_DIR = os.path.join(ROOT, "build", "pod_smoke")  # gitignored
+POD_PROCESSES = 2
+POD_FAULT_ROWS = 100_000      # (p-kill), (p-lead), (p-zombie): cut from 1M
+POD_ZOMBIE_STALL_S = 240.0    # the zombie's wedge, unless woken first
+POD_TIMEOUT_S = 180
+# Fast beats, a loss declared in seconds: JAX's tests/pod_harness.py:29-34.
+POD_ENV = {"TSE1M_HEARTBEAT_INTERVAL_S": "0.2",
+           "TSE1M_HEARTBEAT_TIMEOUT_S": "5",
+           "TSE1M_WATCHDOG": "0"}
+
+
+def pod_rank(spec: dict) -> int:
+    """One process of a phase 3h (p2) pod (``chip_smoke.py --pod-rank
+    JSON``), its identity from TSE1M_NUM_PROCESSES/TSE1M_PROCESS_ID: load
+    the built libraries, then ``run_pod_cluster`` (the ``cluster``
+    command's pod route) over the saved rows as the ``pod-cluster`` step of
+    a manifest fragment, the launch counts and peak device memory set to 0
+    just before and read just after; the step closes as the command's does
+    (``close_cluster_step``: process 0, or the failover survivor, merges
+    the fragments).  Its labels and report go to files."""
+    import faulthandler
+
+    from tse1m_tpu_torch.__main__ import close_cluster_step, run_pod_cluster
+    from tse1m_tpu_torch.utils.runner import StepRunner
+
+    # A hung child's threads go to its transcript when the parent gives up.
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    t0 = time.perf_counter()
+    dev = torch.device(spec["device"])
+    _build.load_extension()
+    nproc, pid = multihost.pod_process_env()
+    report = {"process": pid, "extension_load_s": _build.build_seconds,
+              "start_s": time.perf_counter() - t0}
+    items = np.ascontiguousarray(np.load(spec["items"], mmap_mode="r")[
+        :spec["rows"]])
+    params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS,
+                                    sig_store=spec["store"])
+    runner = StepRunner(fragment_manifest_path(spec["out"], pid))
+    box: dict = {}
+
+    def step() -> None:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        labels, pod = run_pod_cluster(items, spec["rows"], params,
+                                      device=dev)
+        torch.cuda.synchronize()
+        box.update(labels=labels, pod=pod,
+                   wall_s=time.perf_counter() - t1,
+                   launches=kernels.launch_counts(),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   info=dict(pipeline.last_run_info))
+
+    rec = runner.run("pod-cluster", step)
+    result: dict = {}
+    if box:
+        info = box["info"]
+        report.update(
+            wall_s=box["wall_s"], launches=box["launches"],
+            peak_gib=box["peak_gib"], stages=info["stages"],
+            chunk_bits=info.get("chunk_bits", []))
+        report.update({k: v for k, v in info.items()
+                       if k.startswith(("cache_", "pod_"))})
+        report.update(box["pod"])
+        result = {k: v for k, v in report.items() if k != "stages"}
+        np.save(os.path.join(spec["out"], f"labels.p{pid}.npy"),
+                box["labels"])
+    report.update(status=rec.status, error=rec.error)
+    close_cluster_step(runner, rec, result, spec["out"], nproc, pid,
+                       pod_route=True)
+    with open(os.path.join(spec["out"], f"report.p{pid}.json"), "w") as f:
+        json.dump(report, f)
+    return 0 if rec.status == "ok" else 1
+
+
+def pod_cli(spec: dict) -> int:
+    """One process of a phase 3h fault cell (``chip_smoke.py --pod-cli
+    JSON``): the ``cluster`` command itself (``tse1m_tpu_torch.__main__.
+    main``) over its own ``spec["rows"]`` synthesized sessions with
+    ``--sig-store``, under TSE1M_NUM_PROCESSES/TSE1M_PROCESS_ID and a
+    TSE1M_COORDINATOR a world would meet at, so a wrong route would start
+    one.  ``_cluster_labels`` is wrapped to record the route it was given
+    and whether a world is up, and to keep its labels, launch counts
+    (set to 0 just before), peak device memory and stages; the command's
+    printed report, its exit code, its step's error and whether a world
+    is up after it go to a file."""
+    import faulthandler
+
+    import tse1m_tpu_torch.__main__ as cli
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    t0 = time.perf_counter()
+    t0_epoch = time.time()
+    _build.load_extension()
+    nproc, pid = multihost.pod_process_env()
+    report = {"process": pid, "extension_load_s": _build.build_seconds,
+              "t0_epoch": t0_epoch}
+    real = cli._cluster_labels
+
+    def keep(args, items, params, dev, distributed, pod_route=False,
+             pod_report=None):
+        report.update(start_s=time.perf_counter() - t0, route={
+            "pod": pod_route, "distributed": distributed,
+            "world": torch.distributed.is_initialized()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        labels = real(args, items, params, dev, distributed, pod_route,
+                      pod_report)
+        torch.cuda.synchronize()
+        report.update(wall_s=time.perf_counter() - t1,
+                      launches=kernels.launch_counts(),
+                      peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                      stages=dict(pipeline.last_run_info["stages"]),
+                      chunk_bits=pipeline.last_run_info.get("chunk_bits", []))
+        np.save(os.path.join(spec["out"], f"labels.p{pid}.npy"), labels)
+        report["labels_at_s"] = time.perf_counter() - t0
+        return labels
+
+    cli._cluster_labels = keep
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = cli.main(["cluster", "--n", str(spec["rows"]), "--seed", "0",
+                       "--sig-store", spec["store"], "--ari-sample", "0",
+                       "--device", spec["device"]])
+    sys.stdout.write(printed.getvalue())
+    report.update(rc=rc, world_after=torch.distributed.is_initialized(),
+                  command_done_s=time.perf_counter() - t0)
+    if rc == 0:
+        report.update(json.loads(printed.getvalue().strip().splitlines()[-1]))
+    with open(fragment_manifest_path(spec["out"], pid)) as f:
+        report["error"] = json.load(f)["steps"][-1]["error"]
+    with open(os.path.join(spec["out"], f"report.p{pid}.json"), "w") as f:
+        json.dump(report, f)
+    return rc
+
+
+def pod_spawn(label: str, rows: int, items_path: str | None, dev,
+              plans: dict | None = None, store: str | None = None) -> dict:
+    """A pod of POD_PROCESSES children, their fragments and transcripts in
+    a fresh build/pod_smoke/LABEL, into ``store`` (default: a fresh root
+    there); ``plans``: process -> fault plan.  With ``items_path`` the
+    children are ``--pod-rank`` over its first ``rows`` saved rows, without
+    it ``--pod-cli``: the ``cluster`` command over ``rows`` of its own
+    sessions, a free coordinator port in the environment."""
+    d = fresh_dir(os.path.join(POD_DIR, label))
+    os.makedirs(d)
+    spec = {"items": items_path, "rows": rows, "device": dev.type,
+            "store": store or os.path.join(d, "root"), "out": d}
+    mode = "--pod-rank" if items_path else "--pod-cli"
+    base = dict(os.environ, TSE1M_NUM_PROCESSES=str(POD_PROCESSES), **POD_ENV)
+    for k in ("TSE1M_COORDINATOR", "TSE1M_FAULT_PLAN"):
+        base.pop(k, None)
+    if not items_path:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            base.update(TSE1M_COORDINATOR=f"localhost:"
+                        f"{sock.getsockname()[1]}", TSE1M_RESULT_DIR=d)
+    procs, logs = [], []
+    for pid in range(POD_PROCESSES):
+        env = dict(base, TSE1M_PROCESS_ID=str(pid))
+        if plans and pid in plans:
+            env["TSE1M_FAULT_PLAN"] = FaultPlan.from_dict(
+                plans[pid]).save(os.path.join(d, f"plan.p{pid}.json"))
+        logs.append(os.path.join(d, f"p{pid}.log"))
+        procs.append(spawn([sys.executable, os.path.abspath(__file__),
+                            mode, json.dumps(spec)], logs[-1], env))
+    return {"label": label, "dir": d, "store": spec["store"],
+            "procs": procs, "logs": logs, "t0": time.perf_counter(),
+            "t0_epoch": time.time(), "exit_s": [None] * POD_PROCESSES}
+
+
+def pod_wait(cells: list, ticks=()) -> None:
+    """Poll every cell's children until all have exited (each exit time
+    kept), calling each of ``ticks`` every poll; past POD_TIMEOUT_S the
+    rest are killed and the phase fails."""
+    deadline = time.perf_counter() + POD_TIMEOUT_S
+    try:
+        while True:
+            for tick in ticks:
+                tick()
+            busy = False
+            for c in cells:
+                for i, p in enumerate(c["procs"]):
+                    if p.poll() is None:
+                        busy = True
+                    elif c["exit_s"][i] is None:
+                        c["exit_s"][i] = time.perf_counter() - c["t0"]
+            if not busy:
+                return
+            if time.perf_counter() > deadline:
+                hung = [(c, i, p) for c in cells
+                        for i, p in enumerate(c["procs"]) if p.poll() is None]
+                for _, _, p in hung:
+                    p.send_signal(signal.SIGUSR1)  # dump its stacks
+                time.sleep(2.0)
+                tails = []
+                for c, i, _ in hung:
+                    with open(c["logs"][i]) as f:
+                        tails.append(f"--- {c['label']} p{i}\n"
+                                     f"{f.read()[-4000:]}")
+                raise AssertionError(
+                    f"pod: children still running after {POD_TIMEOUT_S} s:"
+                    "\n" + "\n".join(tails))
+            time.sleep(0.1)
+    finally:
+        for c in cells:
+            for p in c["procs"]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def pod_results(cell: dict) -> list:
+    """Each child's (exit code, report or None, labels or None)."""
+    out = []
+    for pid, p in enumerate(cell["procs"]):
+        path = os.path.join(cell["dir"], f"report.p{pid}.json")
+        rep = None
+        if os.path.exists(path):
+            with open(path) as f:
+                rep = json.load(f)
+        lab = os.path.join(cell["dir"], f"labels.p{pid}.npy")
+        out.append((p.returncode, rep,
+                    np.load(lab) if os.path.exists(lab) else None))
+    return out
+
+
+def pod_fail(cell: dict, what: str) -> None:
+    tails = []
+    for path in cell["logs"]:
+        with open(path) as f:
+            tails.append(f"--- {os.path.basename(path)}\n{f.read()[-3000:]}")
+    raise AssertionError(f"({cell['label']}) {what}\n" + "\n".join(tails))
+
+
+def pod_manifest(cell: dict) -> dict:
+    with open(os.path.join(cell["dir"], "run_manifest.json")) as f:
+        return json.load(f)
+
+
+def exchanged_bytes(store: str) -> int:
+    """Bytes of the last run's exchange files under the pod directory."""
+    pod = os.path.join(store, "pod")
+    return sum(os.path.getsize(os.path.join(pod, x, name))
+               for x in os.listdir(pod) if x.startswith("xch_")
+               for name in os.listdir(os.path.join(pod, x))
+               if name.endswith(".npz"))
+
+
+def pod_stages(rep: dict) -> dict:
+    """A process's walls by the pod path's steps: the novel tail's MinHash
+    is its encode, h2d, compute and d2h stages."""
+    st = rep["stages"]
+    return {"wall_s": rep["wall_s"],
+            "probe_s": st.get("stage_probe_s", 0.0),
+            "load_s": st.get("stage_load_s", 0.0),
+            "minhash_s": sum(st.get(f"stage_{k}_s", 0.0)
+                             for k in ("encode", "h2d", "compute", "d2h")),
+            "exchange_s": st.get("stage_exchange_s", 0.0),
+            "append_s": st.get("stage_append_s", 0.0),
+            "tail_s": st.get("stage_tail_s", 0.0),
+            "start_s": rep["start_s"], "peak_gib": rep["peak_gib"],
+            "launches": rep["launches"], "novel_chunks": len(
+                rep["chunk_bits"])}
+
+
+def expect_novel_launches(counts: dict, chunks: int) -> None:
+    """One MinHash launch (either kernel) a novel chunk, the rANS kernel
+    where the entropy gate codes one, nothing else."""
+    expect_launches(counts, {"minhash_and_keys": (0, chunks),
+                             "minhash_and_keys_packed": (0, chunks),
+                             "rans_decode": (0, None)})
+    hashed = (counts.get("minhash_and_keys", 0)
+              + counts.get("minhash_and_keys_packed", 0))
+    if hashed != chunks:
+        raise AssertionError(f"{hashed} MinHash launches for {chunks} "
+                             "novel chunks")
+
+
+def pod_clean(label: str, rows: int, items_path: str, want, dev,
+              store: str | None = None) -> dict:
+    """(p2)'s cold or warm run: both processes ok, each one's labels
+    ``want`` element for element, MinHash launches only for its novel
+    tail's chunks (the rANS kernel where the entropy gate codes one), the
+    merged manifest of both fragments at the membership epoch."""
+    cell = pod_spawn(label, rows, items_path, dev, store=store)
+    pod_wait([cell])
+    wall = max(cell["exit_s"])
+    res = pod_results(cell)
+    for pid, (rc, rep, lab) in enumerate(res):
+        if rc != 0 or lab is None:
+            pod_fail(cell, f"process {pid} exited {rc}")
+        if not np.array_equal(lab, want):
+            raise AssertionError(f"({label}) process {pid}'s labels differ "
+                                 "from the storeless unquantized run's "
+                                 f"({int((lab != want).sum())} rows)")
+        expect_novel_launches(rep["launches"], len(rep["chunk_bits"]))
+        if rep.get("pod_survivor") is not None:
+            pod_fail(cell, f"process {pid} failed over")
+    m = pod_manifest(cell)
+    if not (m["ok"] and m["pod"]["merged_from"] == [0, 1]
+            and not m["pod"]["missing"]
+            and m["pod"]["epoch"] == res[0][1]["pod_epoch"]
+            and {s["process"] for s in m["steps"]} == {0, 1}):
+        raise AssertionError(f"({label}) merged manifest {m['pod']}, ok "
+                             f"{m['ok']}")
+    reps = [r[1] for r in res]
+    line = {"rows": rows, "wall_s": wall,
+            "hit_rate": reps[0]["cache_hit_rate"],
+            "novel_rows": reps[0]["cache_novel_rows"],
+            "appended_rows": [r["pod_appended_rows"] for r in reps],
+            "exchanged_bytes": exchanged_bytes(cell["store"]),
+            "epoch": reps[0]["pod_epoch"],
+            "processes": [pod_stages(r) for r in reps]}
+    log(f"  ({label}) {rows} rows as 2 processes: {wall:.3f} s, hit rate "
+        f"{line['hit_rate']}, {line['novel_rows']} novel rows, "
+        f"{line['exchanged_bytes']} B exchanged; both processes' labels == "
+        "the storeless unquantized run's; merged manifest of 2 fragments "
+        f"at epoch {line['epoch']}")
+    for r in line["processes"]:
+        log(f"    {json.dumps(r)}")
+    return line
+
+
+def root_fingerprint(store: str) -> dict:
+    """Every file of a pod root outside pod/ (the ranges and their
+    leases): path -> (bytes, content hash)."""
+    import hashlib
+
+    out = {}
+    for base, dirs, names in os.walk(store):
+        dirs[:] = [x for x in dirs if x != "pod"]
+        for n in names:
+            path = os.path.join(base, n)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, store)] = (
+                    os.path.getsize(path),
+                    hashlib.sha256(f.read()).hexdigest())
+    return out
+
+
+def pod_faults(want, dev) -> dict:
+    """(p-kill), (p-lead) and (p-zombie): the ``cluster`` command at
+    POD_FAULT_ROWS of its own sessions, the three pods at once."""
+    kill = {"rules": [{"site": "pipeline.h2d", "kind": "kill"}]}
+    zdir = fresh_dir(os.path.join(POD_DIR, "zombie_wake"))
+    os.makedirs(zdir)
+    wake = os.path.join(zdir, "wake")
+    zombie_plan = {"rules": [{"site": "pipeline.h2d", "kind": "zombie",
+                              "stall_s": POD_ZOMBIE_STALL_S,
+                              "wake_path": wake}]}
+    cells = {
+        "p-kill": pod_spawn("p-kill", POD_FAULT_ROWS, None, dev, {1: kill}),
+        "p-lead": pod_spawn("p-lead", POD_FAULT_ROWS, None, dev, {0: kill}),
+        "p-zombie": pod_spawn("p-zombie", POD_FAULT_ROWS, None, dev,
+                              {1: zombie_plan})}
+    zombie = cells["p-zombie"]
+    membership = os.path.join(zombie["store"], "pod", "membership.json")
+    seen: dict = {}
+
+    def wake_zombie() -> None:
+        # Wake the zombie once the survivor has advanced the epoch and
+        # exited, the root's bytes taken first.
+        if "root" in seen or not os.path.exists(membership):
+            return
+        try:
+            with open(membership) as f:
+                epoch = int(json.load(f)["epoch"])
+        except (OSError, ValueError, KeyError):
+            return
+        if epoch >= 1 and zombie["procs"][0].poll() is not None:
+            seen["root"] = root_fingerprint(zombie["store"])
+            seen["woken_s"] = time.perf_counter() - zombie["t0"]
+            open(wake, "w").close()
+
+    pod_wait(list(cells.values()), ticks=(wake_zombie,))
+    out = {}
+    for label, dead in (("p-kill", 1), ("p-lead", 0), ("p-zombie", 1)):
+        cell = cells[label]
+        res = pod_results(cell)
+        live = 1 - dead
+        rc, rep, lab = res[live]
+        if rc != 0 or lab is None:
+            pod_fail(cell, f"the survivor (process {live}) exited {rc}")
+        for _, r, _ in res:
+            # The pod route, no torch.distributed world, though a
+            # coordinator was given.
+            if r and (r["route"] != {"pod": True, "distributed": False,
+                                     "world": False} or r["world_after"]):
+                pod_fail(cell, f"process {r['process']} took the route "
+                         f"{r['route']}, a world after it {r['world_after']}")
+        if not np.array_equal(lab, want):
+            raise AssertionError(f"({label}) the survivor's labels differ "
+                                 "from the command's storeless run's")
+        if not (rep["pod_survivor"] == live and rep["pod_lost"] == [dead]
+                and rep["pod_epoch"] == 1 and dead in
+                rep["pod_reassigned_ranges"]
+                and rep["pod_promoted_leader"] == (dead == 0)):
+            pod_fail(cell, f"survivor report {rep}")
+        m = pod_manifest(cell)
+        counts = m["degradation_counts"]
+        kinds = ["host_lost", "pod_failover", "shard_range_reassigned",
+                 "epoch_advance"] + (["leader_promoted"] if dead == 0
+                                     else [])
+        if any(counts.get(k, 0) < 1 for k in kinds) or \
+                m["pod"]["epoch"] != 1:
+            raise AssertionError(f"({label}) merged manifest: {counts}, "
+                                 f"{m['pod']}")
+        dead_rc, dead_rep = res[dead][0], res[dead][1]
+        if label == "p-zombie":
+            if not (dead_rc == 1 and dead_rep and "LeaseSupersededError"
+                    in (dead_rep["error"] or "") and res[dead][2] is None):
+                pod_fail(cell, f"the zombie exited {dead_rc}: {dead_rep}")
+            with open(fragment_manifest_path(cell["dir"], dead)) as f:
+                frag = json.load(f)
+            if frag["degradation_counts"].get("lease_superseded", 0) < 1:
+                raise AssertionError(f"zombie fragment {frag}")
+            if "root" not in seen or \
+                    root_fingerprint(cell["store"]) != seen["root"]:
+                raise AssertionError("the zombie changed the pod root")
+            extra = {"woken_s": seen["woken_s"], "zombie_rows_appended": 0}
+        else:
+            if dead_rc != -9:
+                pod_fail(cell, f"process {dead} exited {dead_rc}, not "
+                         "SIGKILL")
+            extra = {}
+        out[label] = {"rows": POD_FAULT_ROWS, "wall_s": max(cell["exit_s"]),
+                      "survivor": live, "survivor_exit_s":
+                      cell["exit_s"][live], "epoch": rep["pod_epoch"],
+                      "degradation_counts": counts,
+                      "survivor_stages": pod_stages(rep),
+                      # The survivor's timeline from its spawn: imports
+                      # done, labels back, the command returned.
+                      "survivor_timeline_s": {
+                          "imported": rep["t0_epoch"] - cell["t0_epoch"],
+                          "labels": rep["t0_epoch"] - cell["t0_epoch"]
+                          + rep["labels_at_s"],
+                          "command": rep["t0_epoch"] - cell["t0_epoch"]
+                          + rep["command_done_s"]}, **extra}
+        log(f"  ({label}) process {dead} "
+            + ("wedged then woken" if label == "p-zombie" else "SIGKILLed")
+            + f" at pipeline.h2d: process {live} failed over at epoch "
+            f"{rep['pod_epoch']} in {cell['exit_s'][live]:.3f} s"
+            + (", promoted to leader" if dead == 0 else "")
+            + ", labels == the command's storeless run's, no world; merged "
+            "manifest "
+            f"{json.dumps(counts)}"
+            + ("; the zombie fenced with LeaseSupersededError, the root's "
+               "bytes unchanged by it" if label == "p-zombie" else ""))
+    return out
+
+
+def pod_phase(warm: dict, dev) -> dict:
+    """Phase 3h: the pod on one card.  Prints the ``pod`` line; returns
+    the children's launches of the (p2) runs."""
+    t_phase = time.perf_counter()
+    os.makedirs(POD_DIR, exist_ok=True)
+    items = warm["items"]
+    items_path = os.path.join(POD_DIR, "items.npy")
+    np.save(items_path, items)
+    wants = {}
+    for rows in (WARM_BASE, WARM_ROWS):
+        wants[rows] = pipeline.cluster_sessions(items[:rows],
+                                                params_for(-1), device=dev)
+    # The fault cells' reference: the ``cluster`` command's sessions under
+    # its params, without the store.
+    want_cli = pipeline.cluster_sessions(
+        synth_session_sets(POD_FAULT_ROWS, seed=0)[0],
+        pipeline.ClusterParams(seed=0), device=dev)
+    torch.cuda.empty_cache()
+    cold = pod_clean("p2-cold", WARM_BASE, items_path, wants[WARM_BASE],
+                     dev)
+    if cold["hit_rate"] != 0.0:
+        raise AssertionError(f"(p2-cold) hit rate {cold['hit_rate']}")
+    warm_run = pod_clean("p2-warm", WARM_ROWS, items_path, wants[WARM_ROWS],
+                         dev, store=os.path.join(POD_DIR, "p2-cold", "root"))
+    if warm_run["hit_rate"] != warm["hit_rate"]:
+        raise AssertionError(f"(p2-warm) hit rate {warm_run['hit_rate']}, "
+                             f"phase 3b's run 2 {warm['hit_rate']}")
+    log(f"  (p2-warm) hit rate {warm_run['hit_rate']} == phase 3b's "
+        "single-process run 2's")
+    faults = pod_faults(want_cli, dev)
+    os.remove(items_path)
+    launches: dict = {}
+    for run in (cold, warm_run):
+        for proc in run["processes"]:
+            add_counts(launches, proc["launches"])
+    line = {"processes": POD_PROCESSES,
+            "heartbeat": {"interval_s": float(
+                POD_ENV["TSE1M_HEARTBEAT_INTERVAL_S"]), "timeout_s": float(
+                POD_ENV["TSE1M_HEARTBEAT_TIMEOUT_S"])},
+            "cells": {"p2_cold": cold, "p2_warm": warm_run, **{
+                k.replace("-", "_"): v for k, v in faults.items()}},
+            "launches": launches,
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_name_and_limit()}
+    print(json.dumps({"pod": line}), flush=True)
     return line
 
 
@@ -4229,9 +4784,15 @@ def main() -> int:
                     help="back-to-back kernel calls in each CUDA-event "
                     "timing window of phase 5 (default %(default)s)")
     ap.add_argument("--mesh-rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-rank", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-cli", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.mesh_rank is not None:  # one rank of a phase 3g world
         return mesh_rank(json.loads(args.mesh_rank))
+    if args.pod_rank is not None:  # one process of a phase 3h pod
+        return pod_rank(json.loads(args.pod_rank))
+    if args.pod_cli is not None:  # one process of a phase 3h fault cell
+        return pod_cli(json.loads(args.pod_cli))
     if args.calls_per_window < 1:
         ap.error("--calls-per-window must be at least 1")
     if not torch.cuda.is_available():
@@ -4314,18 +4875,24 @@ def main() -> int:
         "(w2) under a device trace, (b), (w3) and (w5) warm under "
         "sanitized(0), the sanitizer's self-check")
     tooling_phase(items, default, plain24, warm, dev)
-    del warm["items"], warm["oracle"]
+    del warm["oracle"]
 
     log(f"phase 3g: the mesh on one card: (m1) a world of 1 on NCCL, (m4) "
         f"{MESH_RANKS} gloo ranks in process and as cluster commands, "
-        f"(m3c) {MESH_CMIN_RANKS} cminhash ranks; (h-m4) after phase 4")
+        f"(m3c) {MESH_CMIN_RANKS} cminhash ranks; (h-m2) after phase 4")
     mesh = mesh_phase(items, truth, plain24["labels"], dev)
+
+    log(f"phase 3h: the pod on one card: (p2) {POD_PROCESSES} processes "
+        f"cold over {WARM_BASE} rows, warm over {WARM_ROWS}; (p-kill), "
+        f"(p-lead), (p-zombie) at {POD_FAULT_ROWS} rows")
+    pod = pod_phase(warm, dev)
+    del warm["items"]
 
     log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
         f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
         f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
     rq = rq_phase(dev)
-    log(f"phase 3g (h-m4): all as {MESH_RANKS} ranks over phase 4's study")
+    log(f"phase 3g (h-m2): all as {ALL_RANKS} ranks over phase 4's study")
     mesh_all(rq, mesh)
 
     log("phase 4b: the study arrives: phase 4's study as the collectors' "
@@ -4350,6 +4917,7 @@ def main() -> int:
         "sharded_launches": sharded["launches"].get(name, 0),
         "resilience_launches": resil["launches"].get(name, 0),
         "mesh_launches": mesh["launches"].get(name, 0),
+        "pod_launches": pod["launches"].get(name, 0),
         "warm_shapes": {case.split(":")[1]: t for case, t in times.items()
                         if case.split(":")[0] == name
                         and case.endswith((":novel", ":scan"))},

@@ -16,10 +16,12 @@ import pytest
 
 from tse1m_tpu.cluster import ClusterParams as JParams
 from tse1m_tpu.observability import flight as jflight
+from tse1m_tpu.observability import tracing as jtracing
 from tse1m_tpu.resilience import coordinator as jco
 from tse1m_tpu.serve import ServeDaemon as JDaemon
 from tse1m_tpu_torch.cluster.pipeline import ClusterParams as TParams
 from tse1m_tpu_torch.observability import flight as tflight
+from tse1m_tpu_torch.observability import tracing as ttracing
 from tse1m_tpu_torch.resilience import coordinator as tco
 from tse1m_tpu_torch.serve import ServeDaemon
 
@@ -30,6 +32,11 @@ TP = TParams(n_hashes=32, n_bands=4)
 @pytest.fixture(autouse=True)
 def _isolated(monkeypatch):
     monkeypatch.delenv("TSE1M_LIVE_DELTA_RUNS", raising=False)
+    # A trace id that an earlier test in this process pinned in one
+    # package rides that package's beats: both start unpinned, as a
+    # fresh process does.
+    monkeypatch.setattr(jtracing, "_pinned", None)
+    monkeypatch.setattr(ttracing, "_pinned", None)
     saved = jflight._flight_dir, tflight._flight_dir
     yield
     jflight._flight_dir, tflight._flight_dir = saved

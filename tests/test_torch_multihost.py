@@ -121,14 +121,42 @@ def test_cluster_world_merges_one_manifest(cluster_runs):
         str(world), 2, out_path=str(d / "jax_merged.json"))
 
 
-def test_sig_store_under_a_world_is_the_pod_path(tmp_path, monkeypatch):
-    monkeypatch.setenv("TSE1M_NUM_PROCESSES", "2")
-    monkeypatch.setenv("TSE1M_PROCESS_ID", "0")
-    monkeypatch.setenv("TSE1M_RESULT_DIR", str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match='Queue 1, "Multi-GPU"'):
-        cli_main(["cluster", "--n", "10", "--device", "cpu", "--sig-store",
-                  str(tmp_path / "store")])
-    assert not (tmp_path / "out").exists()
+def test_sig_store_under_a_world_is_the_pod_path(tmp_path, monkeypatch,
+                                                capsys):
+    """``cluster --sig-store`` under TSE1M_NUM_PROCESSES=2 is the pod path:
+    no torch.distributed world starts (not even with a coordinator set);
+    with no peer ever beating, process 0 declares it lost, fails over
+    alone, and reports the single-process run's clusters and ARI."""
+    import torch.distributed as dist
+
+    from tse1m_tpu_torch.observability import pop_degradation_events
+
+    for k, v in {"TSE1M_NUM_PROCESSES": "2", "TSE1M_PROCESS_ID": "0",
+                 "TSE1M_COORDINATOR": "127.0.0.1:1",
+                 "TSE1M_HEARTBEAT_INTERVAL_S": "0.05",
+                 "TSE1M_HEARTBEAT_TIMEOUT_S": "0.5", "TSE1M_WATCHDOG": "0",
+                 "TSE1M_ROUTER_CAL": "",
+                 "TSE1M_RESULT_DIR": str(tmp_path / "out")}.items():
+        monkeypatch.setenv(k, v)
+    assert cli_main(["cluster", "--n", "300", "--device", "cpu",
+                     "--ari-sample", "0", "--sig-store",
+                     str(tmp_path / "store")]) == 0
+    assert not dist.is_initialized()
+    rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rep["pod_survivor"], rep["pod_lost"], rep["pod_epoch"]) == (
+        0, [1], 1)
+    assert rep["encoding"] == "pod-store" and rep["pod_processes"] == 1
+    for k in ("TSE1M_NUM_PROCESSES", "TSE1M_PROCESS_ID",
+              "TSE1M_COORDINATOR"):
+        monkeypatch.delenv(k)
+    assert cli_main(["cluster", "--n", "300", "--device", "cpu",
+                     "--ari-sample", "0"]) == 0
+    single = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (rep["n_clusters"], rep["ari_vs_planted"]) == (
+        single["n_clusters"], single["ari_vs_planted"])
+    merged = json.load(open(tmp_path / "out" / "run_manifest.p000.json"))
+    assert merged["epoch"] == 1
+    pop_degradation_events()
 
 
 @pytest.fixture(scope="module")

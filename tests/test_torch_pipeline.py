@@ -2,7 +2,7 @@
 plain versions) against the JAX package's, whose Pallas kernels run in
 interpret mode: the plain wire and wire v3 (the host prefilter, the
 base-delta lane, the rANS lanes) under each signature scheme, the wire
-plan, the levers that are not ported, the copied host modules and the
+plan, a pod-sharded store root, the copied host modules and the
 command line.  Tolerance: exact labels and exact wire accounting."""
 
 import dataclasses
@@ -182,20 +182,44 @@ def test_params_keep_jax_fields_and_defaults():
     assert port_fields == jax_fields
 
 
-@pytest.mark.parametrize("kw,shape,item", [
-    (dict(PLAIN_WIRE, sig_store="pod_root"), (8, 4), "Multi-GPU"),
-])
-def test_levers_not_ported_raise(tmp_path, kw, shape, item):
-    """The store lever runs since the warm path was ported; a pod-sharded
-    store root (its pod_topology.json) still waits for Multi-GPU."""
-    root = tmp_path / kw["sig_store"]
-    root.mkdir()
-    (root / "pod_topology.json").write_text('{"n_ranges": 2}')
-    kw = dict(kw, sig_store=str(root))
-    items = np.zeros(shape, np.uint32)
-    with pytest.raises(NotImplementedError,
-                       match=f'ROADMAP.md Queue 1, "{item}"'):
-        tpipe.cluster_sessions(items, tpipe.ClusterParams(**kw), device="cpu")
+def _refusal(fn) -> tuple:
+    with pytest.raises(Exception) as e:
+        fn()
+    return type(e.value).__name__, str(e.value)
+
+
+@pytest.mark.parametrize("scheme", ["kminhash", "cminhash"])
+def test_pod_root_routes_to_the_pod_path(tmp_path, sets, scheme):
+    """``cluster_sessions`` over a pod-sharded root (its
+    pod_topology.json) runs the pod path in both packages: one process
+    inheriting every range, the labels JAX's and the cold run's, the pod's
+    run info JAX's.  A topology with no policy refuses in JAX's words."""
+    items = sets[0][:300]
+
+    def params(pipe, root):
+        extra = {} if pipe is tpipe else {"use_pallas": "never"}
+        return pipe.ClusterParams(n_hashes=32, n_bands=4, scheme=scheme,
+                                  sig_store=root and str(root), **extra)
+
+    cold = tpipe.cluster_sessions(items, params(tpipe, None), device="cpu")
+    tpipe.cluster_sessions_pod(items, 300, params(tpipe, tmp_path / "t"),
+                               device="cpu")
+    jpipe.cluster_sessions_pod(items, 300, params(jpipe, tmp_path / "j"))
+    got = tpipe.cluster_sessions(items, params(tpipe, tmp_path / "t"),
+                                 device="cpu")
+    tinfo = dict(tpipe.last_run_info)
+    want = jpipe.cluster_sessions(items, params(jpipe, tmp_path / "j"))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, cold)
+    assert (tinfo["encoding"], tinfo["cache_hit_rate"]) == ("pod-store", 1.0)
+    assert {k: v for k, v in tinfo.items() if k.startswith("pod_")} == {
+        k: v for k, v in jpipe.last_run_info.items() if k.startswith("pod_")}
+    bare = tmp_path / "bare"
+    bare.mkdir()
+    (bare / "pod_topology.json").write_text('{"n_ranges": 2}')
+    assert _refusal(lambda: tpipe.cluster_sessions(
+        items, params(tpipe, bare), device="cpu")) == _refusal(
+        lambda: jpipe.cluster_sessions(items, params(jpipe, bare)))
 
 
 def _write_calibration(path, state: str, monkeypatch) -> None:

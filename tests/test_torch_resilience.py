@@ -295,11 +295,40 @@ def test_fault_plan_from_the_environment(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["hostloss", "zombie"])
-def test_pod_kinds_are_not_ported(kind):
-    plan = tfaults.FaultPlan([tfaults.FaultRule(site="x", kind=kind)])
-    with plan.active():
-        with pytest.raises(NotImplementedError, match='"Multi-GPU"'):
-            tfaults.fault_point("x")
+def test_pod_kinds_fire_as_jax(tmp_path, kind):
+    """The pod kinds, in both packages: the seat passes through after
+    ``stall_s``, or for a zombie as soon as ``wake_path`` exists; a
+    hostloss leaves this process's heartbeats suspended, a zombie resumes
+    them.  The fired log is JAX's."""
+    from tse1m_tpu.resilience import coordinator as jco
+    from tse1m_tpu_torch.resilience import coordinator as tco
+
+    wake = tmp_path / "wake"
+    rule = {"site": "pod.*", "kind": kind, "stall_s": 0.3,
+            "wake_path": str(wake) if kind == "zombie" else None}
+    fired, suspended = [], []
+    for faults, co in ((tfaults, tco), (jfaults, jco)):
+        plan = faults.FaultPlan.from_dict({"seed": 3, "rules": [rule]})
+        with plan.active():
+            t0 = time.monotonic()
+            faults.fault_point("pod.seat")
+            slept = time.monotonic() - t0
+            faults.fault_point("pod.seat")  # times=1: passes at once
+        suspended.append(co._suspended.is_set())
+        co.resume_heartbeats()
+        assert 0.25 <= slept < 2.0
+        fired.append(plan.fired)
+    assert fired[0] == fired[1] == [("pod.seat", kind)]
+    assert suspended == [kind == "hostloss"] * 2
+    if kind == "zombie":
+        wake.touch()
+        plan = tfaults.FaultPlan.from_dict({"rules": [
+            dict(rule, stall_s=30.0)]})
+        with plan.active():
+            t0 = time.monotonic()
+            tfaults.fault_point("pod.seat")
+            assert time.monotonic() - t0 < 1.0
+        assert not tco._suspended.is_set()
 
 
 def test_fault_plan_counts_exactly_across_threads():

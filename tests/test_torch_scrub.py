@@ -204,10 +204,11 @@ def test_scrub_command_refusals(tmp_path, monkeypatch, capsys):
     monkeypatch.setenv("TSE1M_SIG_STORE", "")
     monkeypatch.setenv("TSE1M_ENVFILE", str(tmp_path / "absent.ini"))
     assert cli_main(["scrub"]) == 2
+    # A pod root whose topology records no policy: the step fails, as
+    # the JAX package's does.
     root = tmp_path / "pod"
     root.mkdir()
     (root / "pod_topology.json").write_text('{"n_ranges": 2}')
-    with pytest.raises(NotImplementedError, match='"Multi-GPU"'):
-        cli_main(["scrub", str(root)])
+    assert cli_main(["scrub", str(root)]) == 1
     assert cli_main(["scrub", str(tmp_path / "nothing")]) == 1
     assert not os.path.exists(tmp_path / "nothing" / "store_manifest.json")

@@ -21,6 +21,7 @@ from tse1m_tpu.cluster import ClusterParams as JParams
 from tse1m_tpu.data.synth import synth_session_sets
 from tse1m_tpu.observability import flight as jflight
 from tse1m_tpu.observability import metrics as jmetrics
+from tse1m_tpu.observability import profiling as jprofiling
 from tse1m_tpu.observability import tracing as jtracing
 from tse1m_tpu.serve import ServeClient as JClient
 from tse1m_tpu.serve import ServeDaemon as JDaemon
@@ -30,6 +31,7 @@ from tse1m_tpu_torch.__main__ import main as cli_main
 from tse1m_tpu_torch.cluster.pipeline import ClusterParams as TParams
 from tse1m_tpu_torch.observability import flight as tflight
 from tse1m_tpu_torch.observability import metrics as tmetrics
+from tse1m_tpu_torch.observability import profiling as tprofiling
 from tse1m_tpu_torch.observability import tracing as ttracing
 from tse1m_tpu_torch.serve import ServeClient, ServeDaemon, ServeError
 from tse1m_tpu_torch.serve import ServeServer
@@ -151,6 +153,10 @@ def test_each_package_drives_the_others_server(tmp_path):
     server, the same requests: the same answers, trace ids and timings
     masked; each response echoes the client's trace id."""
     items, more = _items(400, 3), _items(100, 4)
+    # Lock waits an earlier test in this process recorded but never
+    # folded would surface in one server's status: fold them, then reset.
+    tprofiling.flush_lock_waits()
+    jprofiling.flush_lock_waits()
     tmetrics.reset_metrics()
     jmetrics.reset_metrics()
     td = ServeDaemon(str(tmp_path / "t"), params=TP, device="cpu").start()

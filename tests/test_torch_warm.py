@@ -294,14 +294,20 @@ def test_refusals(tmp_path):
     root = tmp_path / "pod"
     root.mkdir()
     (root / "pod_topology.json").write_text('{"n_ranges": 2}')
-    with pytest.raises(NotImplementedError, match='"Multi-GPU"'):
+    # A pod root runs the pod path, which refuses a topology of another
+    # policy in JAX's words.
+    with pytest.raises(ValueError) as e:
         _port(items, _tparams(root))
+    with pytest.raises(ValueError) as j:
+        jpipe.cluster_sessions(items, _jparams(root))
+    assert str(e.value) == str(j.value)
+    assert "different policy" in str(e.value)
     with pytest.raises(ValueError, match="storeless-only"):
         tpipe.cluster_sessions(items, _tparams(tmp_path / "s"), device="cpu",
                                return_signatures=True)
     with pytest.raises(ValueError, match="storeless-only"):
         _port(items, _tparams(tmp_path / "s", prefilter="on"))
-    with pytest.raises(NotImplementedError, match='"Multi-GPU"'):
+    with pytest.raises(ValueError, match="different policy"):
         tpipe.cluster_sessions_resumable(items, _tparams(root),
                                          checkpoint_dir=str(tmp_path / "c"),
                                          device="cpu")

@@ -73,7 +73,8 @@ opening it quarantines every shard that fails its CRC frame; the report
 counts them.  ``--repair`` frames legacy shards, ``--compact`` folds the
 shards into one, ``--verify-sigs`` recomputes a sample of stored
 signatures on the host from the synthetic corpus, and ``--strict`` exits
-1 when anything was corrupt.  A pod-sharded root is not ported.
+1 when anything was corrupt.  A pod-sharded root scrubs every digest
+range.
 
 ``synth`` writes a synthetic study into the sqlite file and its
 corpus-analysis CSV (which RQ4a and RQ4b read) at the config's
@@ -141,6 +142,17 @@ band-sharded run and process 0 merges the ranks' manifest fragments
 commands shard the backend's reductions over the world and rank 0 alone
 writes the artifacts and prints the transcript.
 
+``cluster --sig-store DIR`` under ``TSE1M_NUM_PROCESSES`` and
+``TSE1M_PROCESS_ID`` (``TSE1M_COORDINATOR`` is not needed), or over a
+pod-sharded root, is the pod path (``run_pod_cluster``) and starts no
+world: each process probes its own rows against the digest-range sharded
+store, MinHashes its novel tail on its card, swaps the tails through files
+under ``DIR/pod/`` and runs the LSH tail on its card; heartbeats, epoch
+leases and the membership ledger turn a dead peer into a failover
+(``pod_failover``; ``leader_promoted`` when process 0 died), and a woken
+zombie writer fences itself.  Process 0, or the survivor, merges the
+fragments into ``run_manifest.json``, the membership epoch in each.
+
 ``cluster``, ``serve``, ``serve-replica``, ``backfill`` and the RQ
 commands run on the card unless ``--device cpu`` is given, and fail
 without one; ``serve-router`` holds no device; ``synth`` and ``scrub``
@@ -162,13 +174,13 @@ import torch
 
 from .cluster import (ClusterParams, adjusted_rand_index, cluster_sessions,
                       host_cluster)
-from .cluster.pipeline import (_not_ported, cluster_sessions_resumable,
-                               last_run_info)
+from .cluster.pipeline import cluster_sessions_resumable, last_run_info
 from .cluster.schemes import expand_weighted
 from .config import load_config
 from .data import synth_session_hitcounts, synth_session_sets
 from .device import resolve_device
 from .observability import peek_degradation_events
+from .utils.atomic import atomic_write
 
 
 def _cmd_cluster(args) -> int:
@@ -183,26 +195,33 @@ def _cmd_cluster(args) -> int:
     feeds only its own contiguous block to its device, every rank gets the
     labels of the band-sharded run, and each writes a manifest fragment
     that process 0 merges into one ``run_manifest.json``.  A signature
-    store under such a world is the pod path, not ported."""
+    store under ``TSE1M_NUM_PROCESSES``, or a pod-sharded root, is the pod
+    path (``run_pod_cluster``), which starts no world: process 0 or the
+    failover survivor merges the fragments."""
     from .cluster.store import is_sharded_root
     from .observability import profiling
-    from .observability.merge import (fragment_manifest_path,
-                                      merge_run_manifests)
+    from .observability.merge import fragment_manifest_path
     from .parallel import multihost
     from .utils.runner import StepRunner
 
     dev = resolve_device(args.device)
     result_dir = load_config().result_dir
-    # The JAX package's route decision: a store under a multi-process
-    # environment, or a sharded root, is the pod path.
-    env_nproc, _ = multihost.pod_process_env()
-    if args.sig_store and (env_nproc > 1 or is_sharded_root(args.sig_store)):
-        raise _not_ported("the pod path (--sig-store under a multi-process "
-                          "world, or a pod-sharded store)", "Multi-GPU")
-    distributed = multihost.initialize_from_env(device=dev)
-    pid, nproc = ((torch.distributed.get_rank(),
-                   torch.distributed.get_world_size()) if distributed
-                  else (0, 1))
+    # The route decides the runtime: a store under a multi-process
+    # environment, or a sharded root, is the pod path, which takes its
+    # identity from the environment and never starts a world (a dead
+    # peer, the leader too, is a heartbeat timeout, not a hung
+    # collective).  Only the storeless mesh starts one.
+    env_nproc, env_pid = multihost.pod_process_env()
+    pod_route = bool(args.sig_store) and (
+        env_nproc > 1 or is_sharded_root(args.sig_store))
+    if pod_route:
+        distributed = False
+        nproc, pid = env_nproc, env_pid
+    else:
+        distributed = multihost.initialize_from_env(device=dev)
+        pid, nproc = ((torch.distributed.get_rank(),
+                       torch.distributed.get_world_size()) if distributed
+                      else (0, 1))
     if nproc > 1:
         manifest_path = fragment_manifest_path(result_dir, pid)
         if os.path.exists(manifest_path):  # a previous run's fragment
@@ -224,7 +243,7 @@ def _cmd_cluster(args) -> int:
                 os.path.join(result_dir, "device_trace")
                 if prof_on else None):
             rec = runner.run("cluster", _run_cluster_step, args, dev,
-                             report, distributed)
+                             report, distributed, pod_route)
     finally:
         if prof_on:
             prof_path = profiling.dump_profile(
@@ -233,17 +252,8 @@ def _cmd_cluster(args) -> int:
             profiling.enable_lock_wait(False)
             logging.getLogger("tse1m_tpu_torch.cluster").info(
                 "cluster: profile -> %s", prof_path)
-    if rec.status == "ok":
-        runner.record_result(rec, report)
-    # The step runner writes a fragment when its step starts and again
-    # when it ends: the barrier holds the merge until every rank's last
-    # write is done.
-    multihost.all_processes_ready("cluster-manifest")
-    if nproc > 1 and pid == 0:
-        merged = merge_run_manifests(result_dir, nproc)
-        logging.getLogger("tse1m_tpu_torch.cluster").info(
-            "manifest merged from %s (missing: %s)",
-            merged["pod"]["merged_from"], merged["pod"]["missing"])
+    close_cluster_step(runner, rec, report, result_dir, nproc, pid,
+                       pod_route)
     if distributed:
         multihost.shutdown()
     if rec.status != "ok":
@@ -254,10 +264,170 @@ def _cmd_cluster(args) -> int:
     return 0
 
 
-def _cluster_labels(args, items, params, dev, distributed: bool):
+def close_cluster_step(runner, rec, report: dict, result_dir: str,
+                       nproc: int, pid: int, pod_route: bool) -> None:
+    """The end of a ``cluster`` step: the pod's membership epoch as
+    manifest meta, the report into the step's record, and across
+    processes the fragments merged into ``run_manifest.json`` by process
+    0, or by the pod's failover survivor."""
+    from .observability.merge import merge_run_manifests
+    from .parallel import multihost
+
+    if report.get("pod_epoch") is not None:
+        runner.set_meta(epoch=report["pod_epoch"])
+    if rec.status == "ok":
+        runner.record_result(rec, report)
+    merges = nproc > 1 and (pid == 0 or report.get("pod_survivor") == pid)
+    if not pod_route:
+        # The step runner writes a fragment when its step starts and
+        # again when it ends: the barrier holds the merge until every
+        # rank's last write is done.
+        multihost.all_processes_ready("cluster-manifest")
+    elif merges:
+        # No world, so no barrier: the leader, or the failover survivor,
+        # gives slower peers one heartbeat timeout to land their fragments.
+        _await_fragments(result_dir, nproc)
+    if merges:
+        merged = merge_run_manifests(result_dir, nproc)
+        logging.getLogger("tse1m_tpu_torch.cluster").info(
+            "manifest merged from %s (missing: %s)",
+            merged["pod"]["merged_from"], merged["pod"]["missing"])
+
+
+def _await_fragments(result_dir: str, nproc: int) -> None:
+    """Wait up to one heartbeat timeout for every process's manifest
+    fragment: a dead peer's is recorded missing, never waited on."""
+    from .observability.merge import fragment_manifest_path
+    from .resilience.coordinator import heartbeat_timeout_s
+    from .resilience.watchdog import deadline_clock
+
+    deadline = deadline_clock() + heartbeat_timeout_s()
+    while deadline_clock() < deadline:
+        if all(os.path.exists(fragment_manifest_path(result_dir, p))
+               for p in range(nproc)):
+            return
+        time.sleep(0.2)
+
+
+def run_pod_cluster(items, n: int, params, device="cuda"):
+    """Store-enabled clustering across pod processes: ``cluster``'s pod
+    route.  Returns ``(labels, pod_report)``.
+
+    The identity comes from the environment (``pod_process_env``); no
+    ``torch.distributed`` world starts.  The leader bootstraps this run's
+    membership epoch (re-admitting a recovered process through the
+    elastic re-deal) and peers adopt it; each process beats heartbeats,
+    watches its peers and feeds its own rows through
+    ``cluster_sessions_pod`` under epoch leases.
+
+    A peer whose heartbeat stops is declared lost.  The lowest-id survivor
+    fails over (``pod_failover``): it advances the epoch, the lost
+    processes' ranges re-deal to it, and it re-executes the whole
+    partition alone; every other survivor re-raises.  When process 0 is
+    among the lost the survivor promotes itself (``leader_promoted``) and
+    merges the fragments.  A zombie, this process woken after its ranges
+    were re-dealt, meets its superseded lease at its first append: the
+    store demotes to read-only and ``LeaseSupersededError`` propagates with
+    zero rows written."""
+    from .cluster.pipeline import cluster_sessions_pod
+    from .cluster.store import ShardedSignatureStore
+    from .observability import record_degradation
+    from .parallel import multihost
+    from .resilience.coordinator import (HostLostError, LeaseSupersededError,
+                                         MembershipLedger, PodSupervisor,
+                                         exchange_dir, negotiate_run_nonce)
+
+    log = logging.getLogger("tse1m_tpu_torch.cluster")
+    nproc, pid = multihost.pod_process_env()
+    items = np.ascontiguousarray(items, dtype=np.uint32)
+    pod: dict = {"pod_process_id": pid}
+    pod_dir = os.path.join(params.sig_store, "pod")
+    ledger = MembershipLedger(
+        pod_dir, ShardedSignatureStore.root_n_ranges(params.sig_store,
+                                                     default=nproc))
+    if nproc == 1:
+        # A one-member pod: bootstrapping the ledger is what inherits the
+        # dead peers' ranges, or re-admits this process, at an epoch.
+        nonce = negotiate_run_nonce(None)
+        membership = ledger.bootstrap([pid], nonce)
+        labels = cluster_sessions_pod(items, n, params, device=device,
+                                      membership=membership,
+                                      n_processes=1, process_id=pid)
+        pod.update(pod_epoch=membership["epoch"])
+        return labels, pod
+    sup = PodSupervisor(pod_dir, nproc, pid).start()
+    nonce = None  # unset when the leader dies before publishing
+    try:
+        try:
+            nonce = negotiate_run_nonce(sup, pod_dir=pod_dir)
+            if pid == 0:
+                membership = ledger.bootstrap(list(range(nproc)), nonce)
+            else:
+                membership = ledger.wait_for(nonce, monitor=sup.monitor)
+            sup.monitor.advance_epoch(membership["epoch"])
+            xch = exchange_dir(pod_dir, nonce, sweep_stale=pid == 0)
+            lo, hi = multihost.pod_row_range(n, nproc, pid)
+            labels = cluster_sessions_pod(items[lo:hi], n, params,
+                                          device=device, supervisor=sup,
+                                          exchange_dir=xch,
+                                          membership=membership,
+                                          n_processes=nproc,
+                                          process_id=pid)
+            pod.update(pod_epoch=membership["epoch"])
+            return labels, pod
+        except LeaseSupersededError as e:
+            # The zombie: nothing was written; the fragment records it.
+            log.error("pod: this process is fenced (%s); exiting without "
+                      "appending", e)
+            raise
+        except HostLostError as e:
+            survivors = sup.survivors()
+            if not survivors or pid != min(survivors):
+                raise  # one process fails over; the rest exit loudly
+            record_degradation("pod_failover", site="cli.cluster",
+                               detail={"lost": e.lost, "survivor": pid})
+            promoted = 0 in e.lost and pid != 0
+            if promoted:
+                record_degradation("leader_promoted", site="cli.cluster",
+                                   detail={"from_process": 0,
+                                           "to_process": pid})
+                log.warning("pod: leader (process 0) lost; process %d "
+                            "promoting itself — it owns the next epoch "
+                            "and merges the manifest fragments", pid)
+            membership = ledger.advance([pid], nonce or os.urandom(8).hex(),
+                                        reason="host_lost")
+            sup.monitor.advance_epoch(membership["epoch"])
+            log.warning(
+                "pod: host(s) %s lost at %s; process %d failing over at "
+                "epoch %d — re-executing solo with their digest ranges "
+                "re-dealt (superseded leases fence any zombie)",
+                e.lost, e.site, pid, membership["epoch"])
+            labels = cluster_sessions_pod(items, n, params, device=device,
+                                          solo=True, membership=membership,
+                                          process_id=pid)
+            pod.update(pod_survivor=pid, pod_lost=e.lost,
+                       pod_epoch=membership["epoch"],
+                       pod_promoted_leader=promoted)
+            return labels, pod
+    finally:
+        sup.stop()
+
+
+def _cluster_labels(args, items, params, dev, distributed: bool,
+                    pod_route: bool = False, pod_report: dict | None = None):
     """The run's labels: band-sharded over the world's mesh, each process
     feeding its own block, or single-device (resumable from
-    ``--checkpoint-dir``)."""
+    ``--checkpoint-dir``), or the pod path's (its report into
+    ``pod_report``)."""
+    if pod_route:
+        if args.checkpoint_dir:
+            logging.getLogger("tse1m_tpu_torch.cluster").warning(
+                "--checkpoint-dir is ignored on the pod path: the sharded "
+                "signature store IS the durable state (novel signatures "
+                "append per chunk); this run has no chunk checkpoints")
+        labels, pod = run_pod_cluster(items, args.n, params, device=dev)
+        pod_report.update(pod)
+        return labels
     if not distributed:
         return cluster_sessions_resumable(
             items, params, checkpoint_dir=args.checkpoint_dir, device=dev)
@@ -280,7 +450,8 @@ def _cluster_labels(args, items, params, dev, distributed: bool):
     return labels
 
 
-def _run_cluster_step(args, dev, report: dict, distributed: bool) -> None:
+def _run_cluster_step(args, dev, report: dict, distributed: bool,
+                      pod_route: bool = False) -> None:
     items, truth = synth_session_sets(args.n, seed=args.seed)
     if args.scheme == "weighted":
         items = expand_weighted(
@@ -290,7 +461,9 @@ def _run_cluster_step(args, dev, report: dict, distributed: bool) -> None:
                            wire_quant_bits=args.wire_quant_bits,
                            scheme=args.scheme, sig_store=args.sig_store)
     t0 = time.perf_counter()
-    labels = _cluster_labels(args, items, params, dev, distributed)
+    pod_report: dict = {}
+    labels = _cluster_labels(args, items, params, dev, distributed,
+                             pod_route, pod_report)
     wall = time.perf_counter() - t0
     info = dict(last_run_info)
     report.update({
@@ -316,12 +489,13 @@ def _run_cluster_step(args, dev, report: dict, distributed: bool) -> None:
     })
     if distributed:
         report["processes"] = torch.distributed.get_world_size()
-    if args.checkpoint_dir and not distributed:
+    if args.checkpoint_dir and not (distributed or pod_route):
         report["checkpoint_dir"] = args.checkpoint_dir
     if args.sig_store:
         report["sig_store"] = args.sig_store
         report.update({k: v for k, v in info.items()
-                       if k.startswith("cache_")})
+                       if k.startswith(("cache_", "pod_"))})
+        report.update(pod_report)
     k = min(args.ari_sample, args.n)
     if k > 0:
         host_k = host_cluster(items[:k], n_hashes=params.n_hashes,
@@ -344,7 +518,8 @@ def _cmd_scrub(args) -> int:
     a sample of stored signatures from the synthetic corpus on the host.
     Exit 1 when the step failed, or under ``--strict`` when corruption was
     found; 2 without a store directory."""
-    from .cluster.store import SignatureStore, is_sharded_root
+    from .cluster.store import (ShardedSignatureStore, SignatureStore,
+                                is_sharded_root)
     from .utils.runner import StepRunner
 
     cfg = load_config()
@@ -353,14 +528,18 @@ def _cmd_scrub(args) -> int:
         print("no store directory: pass one, or set TSE1M_SIG_STORE / the "
               "INI's sig_store", file=sys.stderr)
         return 2
-    if is_sharded_root(directory):
-        raise _not_ported("scrub of a pod-sharded signature store",
-                          "Multi-GPU")
     runner = StepRunner(os.path.join(cfg.result_dir, "run_manifest.json"))
     report: dict = {}
 
     def scrub_step() -> None:
-        store = SignatureStore.open_existing(directory)
+        if is_sharded_root(directory):
+            # Every digest range, opened under the root's own policy.
+            with open(os.path.join(directory, "pod_topology.json"),
+                      encoding="utf-8") as f:
+                policy = json.load(f)["policy"]
+            store = ShardedSignatureStore(directory, policy)
+        else:
+            store = SignatureStore.open_existing(directory)
         report.update(store.scrub(repair=args.repair, compact=args.compact))
         if args.verify_sigs:
             items, truth = synth_session_sets(
@@ -711,8 +890,6 @@ def _cmd_backfill(args) -> int:
     if not args.sig_store:
         client.close()
     if args.out:
-        from .utils.atomic import atomic_write
-
         with atomic_write(args.out) as f:
             json.dump(out, f)
     summary = {"ok": True, "queries": n, "k": int(args.k),

@@ -66,8 +66,11 @@ hashes its own block of rows, fed as raw ids or the 24-bit byte pack,
 and the LSH tail runs band-sharded across the ranks
 (``cluster/sharded.py``); every rank gets the labels.
 
-Levers of ``ClusterParams`` this port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP.md item by its title.
+Across processes with a signature store (``cluster_sessions_pod``) no
+world starts: each process probes its own rows against the digest-range
+sharded store, MinHashes its novel tail on its card, swaps the tails
+through files under the store root and runs the single-device LSH tail
+over every row on its card.
 """
 
 from __future__ import annotations
@@ -85,6 +88,7 @@ from torch.profiler import record_function
 from ..device import U32_MASK, as_u32_numpy, narrow, resolve_device, widen
 from ..observability import record_degradation
 from ..parallel.mesh import Mesh, pad_to_devices
+from ..parallel import multihost
 from ..parallel.multihost import ShardedRows
 from ..resilience.faults import fault_point
 from ..resilience.watchdog import (StageWatchdog, run_with_deadline,
@@ -109,7 +113,8 @@ from .prefilter import collide_mask
 from .schemes import (get_scheme, make_params, scheme_sig_and_keys,
                       scheme_sig_and_keys_packed)
 from .sharded import sharded_labels
-from .store import SignatureStore, is_sharded_root, row_digests
+from .store import (ShardedSignatureStore, SignatureStore, is_sharded_root,
+                    row_digests)
 
 
 @dataclass(frozen=True)
@@ -150,12 +155,6 @@ _WIRE_DTYPES = {np.dtype(np.uint8): torch.uint8,
 _ALIGN = 16  # byte alignment of each array in a staged copy
 # The mesh feed packs ids below this into 3 bytes; others ship raw.
 _PACK_LIMIT = 1 << 24
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to tse1m_tpu_torch yet (ROADMAP.md Queue 1, "
-        f"\"{item}\")")
 
 
 def _validate_encoding(params: ClusterParams) -> None:
@@ -1115,9 +1114,9 @@ def _cluster_mesh(items, params: ClusterParams, mesh, device,
         raise ValueError(
             "--sig-store (ClusterParams.sig_store) is not supported on "
             "cluster_sessions under a mesh: the signature store shards "
-            "per host by digest range. The pod path that carries it "
-            "(cluster_sessions_pod) is not ported to tse1m_tpu_torch yet "
-            "(ROADMAP.md Queue 1, \"Multi-GPU\"); drop sig_store for a "
+            "per host by digest range. Feed each process's host-resident "
+            "local rows through cluster_sessions_pod (cli cluster routes "
+            "there automatically under a mesh), or drop sig_store for a "
             "cold mesh run.")
     if return_signatures:
         raise ValueError("return_signatures is single-device only")
@@ -1240,7 +1239,11 @@ def _cluster_with_store(items: np.ndarray, params: ClusterParams,
     returns None instead of running the union, so the caller runs its
     checkpointed cold pipeline and populates the store after it."""
     if is_sharded_root(params.sig_store):
-        raise _not_ported("a pod-sharded signature store", "Multi-GPU")
+        # A pod root probed by a single process (the resumed-after-loss
+        # shape): the pod path, this process inheriting every range.
+        return cluster_sessions_pod(items, items.shape[0], params,
+                                    solo=multihost._world()[0] > 1,
+                                    device=device)
     rec = StageRecorder()
     t_all = time.perf_counter()
     last_run_info.clear()
@@ -1429,3 +1432,199 @@ def _store_populate_from_run(params: ClusterParams, qbits: int, digests,
     last_run_info.update(cache_hit_rate=round(float(hit.mean()), 4),
                          cache_mode="populate",
                          cache_novel_rows=int((~hit).sum()))
+
+
+# -- the pod path: ``--sig-store`` across processes --------------------------
+#
+# Each process probes only its own row range against the digest-range
+# sharded store (every range readable by every process, writable by its
+# owner) and MinHashes only its novel tail on its card, through the
+# degradation ladder.  The novel (digest, signature) tails swap as atomic
+# files under the shared store root (``multihost.fs_exchange``), so each
+# owner appends its ranges' rows, and each process assembles the full
+# signature matrix (its rows, peers' novel tails, peers' cached rows
+# gathered from the store) and runs the single-device LSH tail on its
+# card.  No process joins a torch.distributed world: every wait across
+# processes polls the heartbeat monitor instead of a collective that could
+# hang on a dead peer.  Labels equal a cold run's over the same rows.
+#
+# ``solo=True`` skips the exchange: a failover survivor re-executing the
+# whole partition after peers were declared lost.  The membership ledger
+# re-deals the lost processes' ranges to it under fresh epoch leases, and
+# their un-appended rows probe as misses and recompute.
+
+
+def cluster_sessions_pod(local_items, n_rows: int,
+                         params: ClusterParams | None = None, mesh=None, *,
+                         device: str | torch.device = "cuda",
+                         supervisor=None, exchange_dir: str | None = None,
+                         solo: bool = False, membership: dict | None = None,
+                         n_processes: int | None = None,
+                         process_id: int | None = None) -> np.ndarray:
+    """Store-enabled clustering across pod processes; returns the full
+    [n_rows] int32 labels on every process.
+
+    ``local_items``: this process's rows, the ``multihost.pod_row_range(
+    n_rows, nproc, pid)`` slice (every row when single-process or
+    ``solo``).  ``device``: this process's card (``"cpu"`` for the plain
+    versions).  ``supervisor`` (``PodSupervisor``) makes every wait across
+    processes raise ``HostLostError`` on a dead peer; ``exchange_dir`` is
+    the run's negotiated exchange directory and ``membership`` its epoch
+    record (``MembershipLedger``), which decides range ownership and arms
+    the lease fence; both are required across processes (a local-only
+    call bootstraps a one-member ledger under the store's ``pod/``).
+    ``n_processes``/``process_id`` carry the pod identity
+    (``multihost.pod_process_env``); they default to the started world's,
+    which the pod plane never joins.  ``mesh`` is refused: a port mesh
+    spans a ``torch.distributed`` world, and the pod plane starts none."""
+    params = params or ClusterParams()
+    _validate_encoding(params)
+    if mesh is not None:
+        raise ValueError(
+            "cluster_sessions_pod takes no mesh in tse1m_tpu_torch: a Mesh "
+            "spans a torch.distributed world, which the pod plane never "
+            "starts (a dead peer would hang its collectives); each process "
+            "runs the LSH tail on its own device= instead")
+    if not params.sig_store:
+        raise ValueError("cluster_sessions_pod requires params.sig_store "
+                         "(the pod path IS the store path; use "
+                         "cluster_sessions for cold runs)")
+    dev = resolve_device(device)
+    world_n, world_pid = multihost._world()
+    nproc = (int(n_processes) if n_processes is not None
+             else (1 if solo else world_n))
+    pid = (int(process_id) if process_id is not None
+           else (0 if solo else world_pid))
+    local_only = solo or nproc == 1
+    if not local_only and exchange_dir is None:
+        raise ValueError("multi-process cluster_sessions_pod needs the "
+                         "run's exchange_dir (negotiate it via "
+                         "resilience.coordinator — cli.run_pod_cluster "
+                         "does)")
+    if membership is None and local_only:
+        from ..resilience.coordinator import MembershipLedger
+
+        ledger = MembershipLedger(
+            os.path.join(params.sig_store, "pod"),
+            ShardedSignatureStore.root_n_ranges(params.sig_store,
+                                                default=max(nproc, 1)))
+        membership = ledger.bootstrap([pid], os.urandom(8).hex())
+    if membership is None:
+        raise ValueError("multi-process cluster_sessions_pod needs the "
+                         "run's membership record (the epoch deal from "
+                         "resilience.coordinator.MembershipLedger — "
+                         "cli.run_pod_cluster negotiates it)")
+    monitor = supervisor.monitor if supervisor is not None else None
+
+    rec = StageRecorder()
+    t_all = time.perf_counter()
+    last_run_info.clear()
+    lad: dict = {}
+    local_items = np.ascontiguousarray(local_items, dtype=np.uint32)
+    lo, hi = ((0, n_rows) if local_only
+              else multihost.pod_row_range(n_rows, nproc, pid))
+    k_local = hi - lo
+    if local_items.shape[0] != k_local:
+        raise ValueError(
+            f"process {pid} must feed rows [{lo}, {hi}) of the logical "
+            f"array ({k_local} rows), got {local_items.shape[0]}")
+    # Automatic quantization stays off: it keys off the whole row set,
+    # which no process holds.  Explicit bits apply and join the policy.
+    qbits = params.wire_quant_bits if params.wire_quant_bits > 0 else 0
+    h = params.n_hashes
+    with rec.stage("probe"):
+        digests = row_digests(local_items)  # raw ids, before quantization
+        store = ShardedSignatureStore(params.sig_store,
+                                      _store_policy(params, qbits),
+                                      n_processes=1 if local_only else nproc,
+                                      process_id=pid,
+                                      membership=membership)
+        hit, loc = store.probe(digests)
+    sig_local = np.zeros((k_local, h), np.uint32)
+    if hit.any():
+        with rec.stage("load", nbytes=int(hit.sum()) * h * 4):
+            sig_local[hit] = store.load_signatures(loc[hit])
+    miss = ~hit
+    if miss.any():
+        # Only this process's novel rows reach its card.
+        sub = local_items[miss]
+        if qbits:
+            sub = quantize_ids(sub, qbits)
+        parts, wire_bits = _streamed_sig(sub, params, rec, dev, lad)
+        last_run_info["chunk_bits"] = wire_bits
+        sig_d = _cat([p[0] for p in parts])
+        del parts
+        with rec.stage("d2h", nbytes=sig_d.numel() * 4), \
+                record_function("tse1m.fetch"):
+            sig_local[miss] = as_u32_numpy(sig_d)
+        del sig_d
+    payload = {"digests": digests, "miss": miss,
+               "novel_sigs": sig_local[miss]}
+    with rec.stage("exchange"):
+        payloads = ([payload] if local_only else multihost.fs_exchange(
+            exchange_dir, "novel", payload, monitor=monitor,
+            n_processes=nproc, process_id=pid))
+    # Each range's owner appends its rows; content hashed by two processes
+    # dedups in the append.
+    with rec.stage("append"):
+        all_nd = np.concatenate([p["digests"][p["miss"].astype(bool)]
+                                 for p in payloads])
+        all_ns = np.concatenate([p["novel_sigs"] for p in payloads])
+        mine = store.owned_mask(all_nd)
+        appended = store.append(all_nd[mine], all_ns[mine])
+    total_rows = sum(int(p["digests"].shape[0]) for p in payloads)
+    total_hits = sum(int((~p["miss"].astype(bool)).sum())
+                     for p in payloads)
+    # The full matrix in process order, which is row order: peers' novel
+    # tails from the exchange, their cached rows from the store (committed
+    # before this run, so the read races no append of it).
+    parts_full: list[np.ndarray] = []
+    my_slot = 0 if local_only else pid
+    with rec.stage("load", nbytes=(total_rows - k_local) * h * 4):
+        for p, pay in enumerate(payloads):
+            if p == my_slot:
+                parts_full.append(sig_local)
+                continue
+            pmiss = pay["miss"].astype(bool)
+            psig = np.zeros((pay["digests"].shape[0], h), np.uint32)
+            psig[pmiss] = pay["novel_sigs"]
+            if (~pmiss).any():
+                chit, cloc = store.probe(pay["digests"][~pmiss])
+                if not chit.all():
+                    raise RuntimeError(
+                        f"pod: {int((~chit).sum())} row(s) process {p} "
+                        "reported cached are no longer in the store "
+                        "(eviction or quarantine raced the run); rerun — "
+                        "the rows will probe as misses and recompute")
+                psig[~pmiss] = store.load_signatures(cloc)
+            parts_full.append(psig)
+    sig_full = (parts_full[0] if len(parts_full) == 1
+                else np.concatenate(parts_full))
+    del parts_full
+    hit_rate = float(total_hits) / max(total_rows, 1)
+    last_run_info.update(
+        encoding="pod-store", cache_mode="pod",
+        cache_hit_rate=round(hit_rate, 4),
+        cache_novel_rows=int(total_rows - total_hits),
+        cache_store_rows=int(store.n_rows), wire_quant_bits=qbits,
+        pod_processes=nproc, pod_n_ranges=store.n_ranges,
+        pod_owned_ranges=list(store.owned),
+        pod_reassigned_ranges=list(store.reassigned_ranges),
+        pod_appended_rows=int(appended),
+        pod_epoch=int(membership["epoch"]),
+        pod_members=list(membership.get("members", [])))
+    # The LSH tail on this process's card over every row (the h2d bytes
+    # count as wire, as the JAX package's put of the matrix does).
+    t0 = time.perf_counter()
+    with record_function("tse1m.lsh"):
+        sig_t = _to_device_u32(sig_full, dev)
+        rec.add("h2d", 0.0, sig_full.nbytes)
+        labels_d = _cluster_from_sig(sig_t, band_keys(sig_t, params.n_bands),
+                                     params.threshold, params.n_iters)
+        del sig_t
+    with record_function("tse1m.fetch"):
+        labels = labels_d.cpu().numpy()
+    rec.add("tail", time.perf_counter() - t0, n_rows * 4)
+    _record_wire(rec)
+    _finish_run(rec, t_all, lad)
+    return labels

@@ -45,9 +45,10 @@ of stored signatures from raw rows on the host, which catches corruption
 that happened before a frame was written.  The JAX package's trace and
 span hooks (``trace_point``, ``shared_access``, ``span``) belong to its
 trace plane, which is not ported.  The mesh runs storeless
-(``parallel/``); the pod-sharded store (``ShardedSignatureStore``) is
-the pod path, which waits (ROADMAP.md Queue 1, "Multi-GPU"):
-``is_sharded_root`` tells such a root apart.
+(``parallel/``); the pod path (``cluster_sessions_pod``) runs over
+``ShardedSignatureStore``: one ``SignatureStore`` a digest range under a
+shared root, each range written by its one owner under an epoch lease and
+read by every process.  ``is_sharded_root`` tells such a root apart.
 """
 
 from __future__ import annotations
@@ -1278,24 +1279,313 @@ class _suppress_oserror:
         return et is not None and issubclass(et, OSError)
 
 
-# The pod-sharded store's marker file (``ShardedSignatureStore`` of the JAX
-# package): a root holding it is one directory per digest range.
+# -- pod-scale sharding ------------------------------------------------------
+#
+# The 128-bit content digest space splits into ``n_ranges`` contiguous
+# ranges by the top 32 bits of lane a, and each range is a complete
+# SignatureStore under ``range_NNNN/`` of the shared root.  A range has one
+# writer, its owner, which appends its novel rows; every process may open
+# every range read-only, so the pod probe is complete without moving
+# signatures between processes.  Ownership is the membership ledger's deal
+# when one is given (``resilience/coordinator.MembershipLedger``), else the
+# modulo deal ``r % n_processes``.
+
 _TOPOLOGY = "pod_topology.json"
 
 
 def is_sharded_root(root: str) -> bool:
-    """True when ``root`` is a pod-sharded store of the JAX package."""
+    """True when ``root`` is a pod-sharded store (either package's)."""
     return os.path.exists(os.path.join(root, _TOPOLOGY))
 
 
 def digest_range_ids(digests: np.ndarray, n_ranges: int) -> np.ndarray:
     """[N, 2] uint64 digests -> [N] int32 owning range: a contiguous split
     of the top 32 bits of lane a, the same on every process and machine
-    (the sharded serving plane's deal; ``ShardedSignatureStore`` of the
-    JAX package deals its pod ranges the same way)."""
+    (the pod store's and the sharded serving plane's deal)."""
     hi = np.ascontiguousarray(digests, dtype="<u8")[:, 0] >> np.uint64(32)
     return ((hi * np.uint64(n_ranges)) >> np.uint64(32)).astype(np.int32)
 
 
-__all__ = ["POLICY_KEYS", "SignatureStore", "digest_range_ids",
-           "digests_fingerprint", "file_crc", "row_digests"]
+class ShardedSignatureStore:
+    """The pod path's store: digest-range sharded under one shared root.
+
+    ``root`` holds ``pod_topology.json`` (the range count and policy,
+    written once at creation) and one ``range_NNNN/`` SignatureStore a
+    range.  With a ``membership`` record (``MembershipLedger``) ownership
+    is its deal and the store is lease-fenced: at open it acquires the
+    current epoch's lease of every owned range, and every :meth:`append`
+    verifies tenure first; a writer whose lease was superseded demotes to
+    read-only and raises ``LeaseSupersededError`` (a ``lease_superseded``
+    degradation event) with zero rows written.  Without one ownership is
+    the modulo deal ``{r : r % n_processes == process_id}``.  Other ranges
+    open read-only on first touch.  ``reassigned_ranges`` lists the owned
+    ranges that changed writer at this epoch, each a
+    ``shard_range_reassigned`` event."""
+
+    def __init__(self, root: str, policy: dict, n_processes: int = 1,
+                 process_id: int = 0, n_ranges: int | None = None,
+                 max_bytes: int | None = None,
+                 membership: dict | None = None) -> None:
+        if os.path.exists(os.path.join(root, _MANIFEST)):
+            raise ValueError(
+                f"signature store at {root} is a single-host store "
+                "(store_manifest.json present); a pod run needs a sharded "
+                "root — point --sig-store at a fresh directory")
+        self.root = root
+        self.policy = normalize_policy(policy)
+        self.process_id = int(process_id)
+        self.n_processes = max(1, int(n_processes))
+        self.max_bytes = max_bytes
+        os.makedirs(root, exist_ok=True)
+        topo_path = os.path.join(root, _TOPOLOGY)
+        topo = None
+        if os.path.exists(topo_path):
+            try:
+                with open(topo_path, encoding="utf-8") as f:
+                    topo = json.load(f)
+            except (OSError, ValueError) as e:
+                log.warning("unreadable %s (%s); rewriting", topo_path, e)
+        if topo is None:
+            topo = {"n_ranges": int(n_ranges or self.n_processes),
+                    "policy": self.policy}
+            try:
+                with atomic_write(topo_path) as f:
+                    json.dump(topo, f)
+            except OSError:
+                # Every process races to commit the same topology at first
+                # open; the loser's rename can fail, and the winner's file
+                # is the commit.
+                with open(topo_path, encoding="utf-8") as f:
+                    topo = json.load(f)
+        if normalize_policy(topo.get("policy") or {}) != self.policy:
+            raise ValueError(
+                f"sharded signature store at {root} was built under a "
+                f"different policy (have {topo.get('policy')}, want "
+                f"{self.policy}); use a fresh directory or delete it")
+        self.n_ranges = int(topo["n_ranges"])
+        self.epoch: int | None = None
+        self.lease_nonce: str | None = None
+        self.fenced = False
+        if membership is not None:
+            # A process opening after its ranges were re-dealt fences here,
+            # before it can write a byte.
+            from ..resilience.coordinator import acquire_lease
+
+            self.epoch = int(membership["epoch"])
+            self.lease_nonce = str(membership.get("nonce", ""))
+            owners = {int(k): int(v)
+                      for k, v in membership["owners"].items()}
+            self.owned = [r for r in range(self.n_ranges)
+                          if owners.get(r) == self.process_id]
+            moved = {int(r) for r in membership.get("moved", [])}
+            self.reassigned_ranges = [r for r in self.owned if r in moved]
+            for r in self.reassigned_ranges:
+                record_degradation(
+                    "shard_range_reassigned", site="store.pod",
+                    detail={"range": int(r), "epoch": self.epoch,
+                            "to_process": self.process_id})
+            for r in self.owned:
+                acquire_lease(root, r, self.epoch, self.process_id,
+                              self.lease_nonce)
+        else:
+            # Modulo deal (scrub and direct opens): a range whose creation
+            # owner (owner == range id) is no longer a live process id was
+            # inherited from a lost process.
+            self.owned = [r for r in range(self.n_ranges)
+                          if r % self.n_processes == self.process_id]
+            self.reassigned_ranges = [r for r in self.owned
+                                      if r >= self.n_processes
+                                      and r < self.n_ranges]
+            for r in self.reassigned_ranges:
+                record_degradation(
+                    "shard_range_reassigned", site="store.pod",
+                    detail={"range": int(r), "from_process": int(r),
+                            "to_process": self.process_id})
+        self._stores: dict[int, SignatureStore] = {}
+
+    is_sharded_root = staticmethod(is_sharded_root)
+
+    @staticmethod
+    def root_n_ranges(root: str, default: int = 1) -> int:
+        """The range count of an existing root's topology, or ``default``
+        for a root not created yet (the ledger deals the ranges the store
+        will split)."""
+        try:
+            with open(os.path.join(root, _TOPOLOGY),
+                      encoding="utf-8") as f:
+                return int(json.load(f)["n_ranges"])
+        except (OSError, ValueError, KeyError, TypeError):
+            return int(default)
+
+    def _range_dir(self, r: int) -> str:
+        return os.path.join(self.root, f"range_{r:04d}")
+
+    def range_store(self, r: int) -> SignatureStore:
+        store = self._stores.get(r)
+        if store is None:
+            store = SignatureStore(self._range_dir(r), self.policy,
+                                   max_bytes=self.max_bytes,
+                                   read_only=r not in self.owned)
+            self._stores[r] = store
+        return store
+
+    def owned_mask(self, digests: np.ndarray) -> np.ndarray:
+        """Rows whose digest range this process writes."""
+        rid = digest_range_ids(digests, self.n_ranges)
+        return np.isin(rid, np.asarray(self.owned, dtype=np.int32))
+
+    def probe(self, digests: np.ndarray
+              ) -> tuple[np.ndarray, np.ndarray]:
+        """[N, 2] digests -> (hit [N] bool, loc [N, 3] int32 (range,
+        shard, row), -1 rows for misses), over every range."""
+        n = digests.shape[0]
+        hit = np.zeros(n, bool)
+        loc = np.full((n, 3), -1, np.int32)
+        if n == 0:
+            return hit, loc
+        rid = digest_range_ids(digests, self.n_ranges)
+        for r in np.unique(rid):
+            sel = np.flatnonzero(rid == r)
+            h, sh, rw = self.range_store(int(r)).bulk_probe(digests[sel])
+            hit[sel] = h
+            loc[sel, 0] = int(r)
+            loc[sel, 1] = sh
+            loc[sel, 2] = rw
+        loc[~hit] = -1
+        return hit, loc
+
+    def load_signatures(self, loc: np.ndarray) -> np.ndarray:
+        """Gather [K, n_hashes] signatures by (range, shard, row) triples,
+        every one a probe hit."""
+        k = int(loc.shape[0])
+        out = np.empty((k, self.policy["n_hashes"]), np.uint32)
+        for r in np.unique(loc[:, 0]):
+            sel = np.flatnonzero(loc[:, 0] == r)
+            out[sel] = self.range_store(int(r)).load_signatures(
+                loc[sel, 1], loc[sel, 2])
+        return out
+
+    def demote_to_read_only(self) -> None:
+        """Self-fence: every open range store flips read-only and the
+        owned set empties; the process may still probe and gather."""
+        self.fenced = True
+        self.owned = []
+        for store in self._stores.values():
+            store.read_only = True
+
+    def _check_lease(self, r: int) -> None:
+        """Prove tenure on range ``r`` just before appending; a
+        superseded or unprovable lease demotes the store and raises."""
+        from ..resilience.coordinator import (LeaseSupersededError,
+                                              read_lease, verify_lease)
+
+        if self.fenced:
+            raise LeaseSupersededError(
+                r, {"epoch": self.epoch, "owner": self.process_id,
+                    "nonce": self.lease_nonce}, read_lease(self.root, r))
+        if self.epoch is not None:
+            try:
+                verify_lease(self.root, r, self.epoch, self.process_id,
+                             self.lease_nonce)
+            except LeaseSupersededError as e:
+                self.demote_to_read_only()
+                record_degradation(
+                    "lease_superseded", site="store.pod",
+                    detail={"range": int(r), "held_epoch": int(self.epoch),
+                            "process": self.process_id,
+                            "current": e.current})
+                log.warning("pod: %s", e)
+                raise
+            return
+        # An unleased open of a lease-fenced root: a lease on disk means an
+        # epoch governs the range, and a writer that cannot prove tenure
+        # must fence.
+        cur = read_lease(self.root, r)
+        if cur is not None:
+            self.demote_to_read_only()
+            record_degradation(
+                "lease_superseded", site="store.pod",
+                detail={"range": int(r), "held_epoch": None,
+                        "process": self.process_id, "current": cur})
+            raise LeaseSupersededError(
+                r, {"epoch": None, "owner": self.process_id,
+                    "nonce": None}, cur)
+
+    def append(self, digests: np.ndarray, sigs: np.ndarray) -> int:
+        """Append novel rows into their owned range stores (rows of other
+        ranges are skipped: their owners append them from the exchanged
+        tails), each range's lease verified first."""
+        if digests.shape[0] == 0:
+            return 0
+        rid = digest_range_ids(digests, self.n_ranges)
+        written = 0
+        for r in self.owned:
+            sel = np.flatnonzero(rid == r)
+            if sel.size:
+                self._check_lease(r)
+                written += self.range_store(r).append(digests[sel],
+                                                      sigs[sel])
+        return written
+
+    @property
+    def n_rows(self) -> int:
+        return sum(self.range_store(r).n_rows
+                   for r in range(self.n_ranges))
+
+    def refresh(self) -> bool:
+        """Adopt peers' committed appends in every opened range; True
+        when any range changed."""
+        changed = False
+        for store in list(self._stores.values()):
+            changed |= store.refresh()
+        return changed
+
+    def scrub(self, repair: bool = False, compact: bool = False) -> dict:
+        """Scrub every range and sum the reports (repair and compact only
+        the owned ranges: a reader never rewrites another's range)."""
+        out: dict = {"store_scrub_ranges": self.n_ranges,
+                     "store_scrub_owned_ranges": len(self.owned)}
+        state_ok = True
+        for r in range(self.n_ranges):
+            mine = r in self.owned
+            rep = self.range_store(r).scrub(repair=repair and mine,
+                                            compact=compact and mine)
+            for k, v in rep.items():
+                if isinstance(v, bool):
+                    continue
+                out[k] = out.get(k, 0) + v if isinstance(v, (int, float)) \
+                    else v
+            state_ok = state_ok and rep.get("store_scrub_state_ok", True)
+        out["store_scrub_state_ok"] = state_ok
+        out["store_scrub_repaired"] = bool(repair)
+        out["store_scrub_mb"] = round(out.get("store_scrub_mb", 0), 3)
+        return out
+
+    def verify_signatures(self, items: np.ndarray, sample: int = 256,
+                          seed: int = 0) -> dict:
+        """The sampled recompute (``SignatureStore.verify_signatures``)
+        over every range, ``sample // n_ranges`` rows a range."""
+        digests = row_digests(np.ascontiguousarray(items, np.uint32))
+        rid = digest_range_ids(digests, self.n_ranges)
+        out = {"store_scrub_verify_sampled": 0,
+               "store_scrub_verify_mismatch": 0,
+               "store_scrub_verify_quarantined": 0,
+               "store_scrub_verify_ok": True}
+        per = max(1, sample // self.n_ranges)
+        for r in range(self.n_ranges):
+            sel = np.flatnonzero(rid == r)
+            if not sel.size:
+                continue
+            rep = self.range_store(int(r)).verify_signatures(
+                items[sel], sample=per, seed=seed + r)
+            for k in ("store_scrub_verify_sampled",
+                      "store_scrub_verify_mismatch",
+                      "store_scrub_verify_quarantined"):
+                out[k] += rep[k]
+            out["store_scrub_verify_ok"] &= rep["store_scrub_verify_ok"]
+        return out
+
+
+__all__ = ["POLICY_KEYS", "ShardedSignatureStore", "SignatureStore",
+           "digest_range_ids", "digests_fingerprint", "file_crc",
+           "is_sharded_root", "row_digests"]

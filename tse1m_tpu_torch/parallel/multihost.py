@@ -1,5 +1,5 @@
-"""Starting a world and feeding it: the storeless half of
-``tse1m_tpu/parallel/multihost.py:40-233``.
+"""Starting a world and feeding it, and the pod plane's file exchange: a
+port of ``tse1m_tpu/parallel/multihost.py``.
 
 One process a rank.  ``initialize_from_env`` reads the JAX package's
 variables (``TSE1M_COORDINATOR``, ``TSE1M_NUM_PROCESSES``,
@@ -14,14 +14,19 @@ one card) or run on the CPU.
 Data is fed process-locally: a process materialises only
 ``local_row_range(n)`` of the global rows and ``put_process_local`` puts
 that block on its device as a ``ShardedRows``, the counterpart of JAX's
-pre-sharded ``jax.Array``.  The pod path (file exchange, the sharded
-signature store) is not ported: ROADMAP.md Queue 1, "Multi-GPU".
+pre-sharded ``jax.Array``.
+
+The pod path (``cluster_sessions_pod``) starts no world: its processes
+take their identity from the environment (``pod_process_env``), deal rows
+by ``pod_row_range`` and swap their novel tails through ``fs_exchange``,
+atomic npz files under the shared store root that either package reads.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import time
 from dataclasses import dataclass
 from datetime import timedelta
 
@@ -210,7 +215,80 @@ def all_processes_ready(tag: str = "barrier") -> None:
         dist.barrier()
 
 
-__all__ = ["ShardedRows", "TIMEOUT_S", "all_processes_ready", "global_mesh",
-           "init_world", "initialize_from_env", "local_row_range",
-           "padded_row_count", "pod_process_env", "put_process_local",
-           "put_process_local_padded", "shutdown"]
+def pod_row_range(n_rows: int, n_processes: int,
+                  process_id: int) -> tuple[int, int]:
+    """[start, stop) of the rows this process materialises on the pod
+    path: a contiguous ceil deal over processes.  A pure function of its
+    arguments, so a failover survivor knows which rows a lost process
+    held."""
+    per = -(-int(n_rows) // max(1, int(n_processes)))
+    start = min(int(process_id) * per, int(n_rows))
+    return start, min(start + per, int(n_rows))
+
+
+def fs_exchange(xch_dir: str, tag: str, payload: dict,
+                monitor=None, timeout_s: float = 600.0,
+                n_processes: int | None = None,
+                process_id: int | None = None) -> list:
+    """All-to-all exchange over the shared filesystem: write this
+    process's arrays to ``{tag}.p{pid:03d}.npz`` (tmp, then
+    ``os.replace``, so a peer never reads a torn file), wait for every
+    peer's, return the payloads in process order.  Returning implies
+    every process reached ``tag``.
+
+    The wait polls ``monitor`` (``resilience.coordinator.PeerMonitor``)
+    between sleeps, so a peer that stops beating raises ``HostLostError``
+    here instead of hanging; ``timeout_s`` is the backstop without one.
+    The pinned trace id rides the file as ``__trace__``, which readers
+    drop.  ``xch_dir`` must be this run's (``coordinator.exchange_dir``):
+    the names carry no run identity.  Identity defaults to the started
+    world's; the pod plane passes it explicitly."""
+    from ..observability.tracing import pinned_trace, span
+    from ..resilience.watchdog import deadline_clock
+
+    size, rank = _world()
+    nproc = int(n_processes) if n_processes is not None else size
+    pid = int(process_id) if process_id is not None else rank
+    os.makedirs(xch_dir, exist_ok=True)
+
+    def _path(p: int) -> str:
+        return os.path.join(xch_dir, f"{tag}.p{p:03d}.npz")
+
+    wire = {k: np.ascontiguousarray(v) for k, v in payload.items()}
+    trace = pinned_trace()
+    if trace and "__trace__" not in wire:
+        wire["__trace__"] = np.frombuffer(bytes.fromhex(trace),
+                                          dtype=np.uint8)
+    tmp = _path(pid) + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **wire)
+    os.replace(tmp, _path(pid))
+    out: dict[int, dict] = {pid: {k: np.ascontiguousarray(v)
+                                  for k, v in payload.items()}}
+    deadline = deadline_clock() + float(timeout_s)
+    pending = set(range(nproc)) - {pid}
+    with span(f"pod.exchange.{tag}", peers=nproc - 1):
+        while pending:
+            for p in sorted(pending):
+                if os.path.exists(_path(p)):
+                    with np.load(_path(p)) as z:
+                        out[p] = {k: z[k] for k in z.files
+                                  if k != "__trace__"}
+                    pending.discard(p)
+            if not pending:
+                break
+            if monitor is not None:
+                monitor.check(site=f"pod.exchange:{tag}")
+            if deadline_clock() > deadline:
+                raise TimeoutError(
+                    f"pod exchange '{tag}': no payload from process(es) "
+                    f"{sorted(pending)} within {timeout_s:.0f}s")
+            time.sleep(0.1)
+    return [out[p] for p in range(nproc)]
+
+
+__all__ = ["ShardedRows", "TIMEOUT_S", "all_processes_ready", "fs_exchange",
+           "global_mesh", "init_world", "initialize_from_env",
+           "local_row_range", "padded_row_count", "pod_process_env",
+           "pod_row_range", "put_process_local", "put_process_local_padded",
+           "shutdown"]

@@ -2,14 +2,14 @@
 the stage watchdog, request budgets and the failure classifiers
 (``watchdog``), and the fault-injection plane (``faults``).  The retry
 engine and the step runner are ``utils/retry.py`` and ``utils/runner.py``;
-the degradation ladder is ``cluster/ladder.py``.  Of the pod coordinator
-the port runs the serving plane's part (``coordinator``: heartbeats, the
-peer monitor and epoch leases).  The mesh runs (``parallel/``); what
-waits is the pod path, the pod supervisor and the membership ledger
-among it (ROADMAP.md Queue 1, "Multi-GPU")."""
+the degradation ladder is ``cluster/ladder.py``.  ``coordinator`` is the
+pod coordinator: heartbeats, the peer monitor, epoch leases, the pod
+supervisor, the run nonce and the membership ledger, run by the sharded
+serving plane and the pod path."""
 
-from .coordinator import (HeartbeatWriter, LeaseSupersededError,
-                          PeerMonitor, RangeLeaseGuard)
+from .coordinator import (HeartbeatWriter, HostLostError,
+                          LeaseSupersededError, MembershipLedger,
+                          PeerMonitor, PodSupervisor, RangeLeaseGuard)
 from .faults import (FaultPlan, FaultRule, InjectedConnectionDrop,
                      InjectedFault, active_plan, clear_plan, fault_point,
                      install_plan, reraise_if_fault)
@@ -19,9 +19,10 @@ from .watchdog import (StageWatchdog, StallError, StickyDeviceError,
                        request_budget_s, run_with_deadline,
                        terminal_device_error, watchdog_enabled)
 
-__all__ = ["FaultPlan", "FaultRule", "HeartbeatWriter",
+__all__ = ["FaultPlan", "FaultRule", "HeartbeatWriter", "HostLostError",
            "InjectedConnectionDrop", "InjectedFault",
-           "LeaseSupersededError", "PeerMonitor", "RangeLeaseGuard",
+           "LeaseSupersededError", "MembershipLedger", "PeerMonitor",
+           "PodSupervisor", "RangeLeaseGuard",
            "StageWatchdog", "StallError",
            "StickyDeviceError", "active_plan", "clear_plan",
            "deadline_clock", "deadline_guard", "fault_point", "install_plan",

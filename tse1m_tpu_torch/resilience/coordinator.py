@@ -1,6 +1,6 @@
-"""Epoch leases and file heartbeats of the sharded serving plane: the part
-of ``tse1m_tpu/resilience/coordinator.py`` a range writer and the router
-run (``:81-101``, ``:195-383``, ``:576-688``).
+"""Pod supervision, epoch leases and file heartbeats: a port of
+``tse1m_tpu/resilience/coordinator.py``, run by the sharded serving plane
+and by the pod path (``cluster_sessions_pod``).
 
 - **Heartbeats.** :class:`HeartbeatWriter` beats a monotonically
   increasing ``seq`` into ``hb_NNN.json`` under a shared directory from a
@@ -19,19 +19,38 @@ run (``:81-101``, ``:195-383``, ``:576-688``).
   at a later epoch raises :class:`LeaseSupersededError` there with zero
   rows written.
 
+- **Membership.** :class:`MembershipLedger` keeps ``membership.json``
+  under the pod directory: a monotonic epoch, the member set and the
+  range -> owner deal.  Epochs advance on loss and on re-admission; the
+  re-deal is elastic (only orphaned ranges and the minimal rebalance
+  move).
+- **Supervision.** :class:`PodSupervisor` is this process's heartbeat
+  writer and peer monitor; :meth:`PodSupervisor.guarded` turns a phase
+  that waits on a dead peer into :class:`HostLostError` within one
+  heartbeat timeout.  The run nonce (:func:`negotiate_run_nonce`) names
+  the run's exchange directory (:func:`exchange_dir`) and is its trace
+  id.  Every wait across processes polls :meth:`PeerMonitor.check`.
+
+The pod plane starts no ``torch.distributed`` world, so a survivor has
+no collective to hang in and no teardown barrier to wait at.  The
+``hostloss`` and ``zombie`` fault kinds (``faults.py``) silence this
+process's heartbeats through :func:`suspend_heartbeats`, so peers declare
+it lost through the production monitor.
+
 The files are the JAX package's, byte for byte, so either package fences
-the other's writer and reads its heartbeats.  The mesh's world is
-``parallel/multihost.py``'s; what waits is the pod path: the pod
-supervisor, the nonce exchange, the membership ledger and the host-loss
-teardown (ROADMAP.md Queue 1, "Multi-GPU").
+the other's writer, reads its heartbeats and continues its ledger.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import logging
 import os
+import shutil
 import threading
+import time
+from typing import Callable
 
 from ..utils.atomic import atomic_write
 from .watchdog import deadline_clock
@@ -39,6 +58,7 @@ from .watchdog import deadline_clock
 log = logging.getLogger("tse1m_tpu_torch.resilience.coordinator")
 
 _HB_PREFIX = "hb_"
+_XCH_PREFIX = "xch_"
 
 
 def heartbeat_interval_s() -> float:
@@ -47,6 +67,18 @@ def heartbeat_interval_s() -> float:
 
 def heartbeat_timeout_s() -> float:
     return float(os.environ.get("TSE1M_HEARTBEAT_TIMEOUT_S", 10.0))
+
+
+class HostLostError(RuntimeError):
+    """Peer process(es) declared lost (no heartbeat within the timeout)."""
+
+    def __init__(self, lost: list, site: str = ""):
+        self.lost = sorted(int(p) for p in lost)
+        self.site = site
+        super().__init__(
+            f"{site or 'pod'}: host(s) {self.lost} declared lost — no "
+            "heartbeat within the timeout; their digest ranges reassign "
+            "to survivors and their rows recompute")
 
 
 class LeaseSupersededError(RuntimeError):
@@ -67,6 +99,47 @@ class LeaseSupersededError(RuntimeError):
             "range was re-dealt while this process was wedged; demoting "
             "to read-only (zero further appends) instead of double-"
             "writing")
+
+
+# The hostloss and zombie fault kinds set this: the process stays alive
+# but stops beating, so peers declare it lost through the production
+# monitor.
+_suspended = threading.Event()
+
+# Set when any monitor of this process declares a peer lost.
+_loss_seen = threading.Event()
+
+
+def saw_host_loss() -> bool:
+    return _loss_seen.is_set()
+
+
+def hard_exit_if_host_lost(code: int) -> int:
+    """``os._exit(code)`` when this run declared a peer lost inside a
+    ``torch.distributed`` world of more than one rank (a collective's
+    teardown waits for the dead rank); otherwise return ``code``.  The pod
+    plane starts no world, so there it always returns.  Durable state is
+    written with atomic renames before callers get here."""
+    import torch.distributed as dist
+
+    if (_loss_seen.is_set() and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        log.warning("pod: host loss was declared this run — exiting "
+                    "without torch.distributed teardown (code %d)", code)
+        import sys
+
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(code)
+    return code
+
+
+def suspend_heartbeats() -> None:
+    _suspended.set()
+
+
+def resume_heartbeats() -> None:
+    _suspended.clear()
 
 
 # -- heartbeats ---------------------------------------------------------------
@@ -116,11 +189,12 @@ class HeartbeatWriter:
 
     def _run(self) -> None:
         while not self._stop.is_set():
-            try:
-                self.beat_once()
-            except OSError as e:
-                log.warning("heartbeat write failed (%s); peers may "
-                            "declare this process lost", e)
+            if not _suspended.is_set():
+                try:
+                    self.beat_once()
+                except OSError as e:
+                    log.warning("heartbeat write failed (%s); peers may "
+                                "declare this process lost", e)
             self._stop.wait(self.interval_s)
 
     def start(self) -> "HeartbeatWriter":
@@ -203,6 +277,7 @@ class PeerMonitor:
                         self._nonces[peer].add(beat[0])
                 elif now - last_t > self.timeout_s:
                     self._lost.add(peer)
+                    _loss_seen.set()
                     log.warning(
                         "peer %d declared lost in epoch %d (no heartbeat "
                         "advance in %.1fs, last seq %d)", peer, self.epoch,
@@ -233,6 +308,166 @@ class PeerMonitor:
         """Peers declared lost in any epoch."""
         with self._lock:
             return sorted(self._lost_history | self._lost)
+
+    def check(self, site: str = "") -> None:
+        """Raise :class:`HostLostError` when any peer is lost."""
+        lost = self.poll()
+        if lost:
+            raise HostLostError(lost, site=site)
+
+
+class PodSupervisor:
+    """One a process: its heartbeat writer and the peer monitor, and
+    :meth:`guarded`, which turns a phase hung on a dead peer into
+    :class:`HostLostError`."""
+
+    _POLL_S = 0.25
+
+    def __init__(self, directory: str, n_processes: int, process_id: int,
+                 interval_s: float | None = None,
+                 timeout_s: float | None = None) -> None:
+        self.directory = directory
+        self.n_processes = int(n_processes)
+        self.process_id = int(process_id)
+        self.writer = HeartbeatWriter(directory, process_id,
+                                      interval_s=interval_s)
+        self.monitor = PeerMonitor(directory, n_processes, process_id,
+                                   timeout_s=timeout_s)
+
+    def start(self) -> "PodSupervisor":
+        self.writer.start()
+        return self
+
+    def stop(self) -> None:
+        self.writer.stop()
+
+    def survivors(self) -> list:
+        lost = set(self.monitor.poll())
+        return [p for p in range(self.n_processes) if p not in lost]
+
+    def guarded(self, fn: Callable, site: str = "pod.collective"):
+        """Run ``fn`` on a daemon thread while the monitor polls: a lost
+        peer raises :class:`HostLostError` here and the hung attempt is
+        abandoned (its result discarded).  A ``fn`` that fails while a
+        peer looks dead re-raises as :class:`HostLostError` once the
+        monitor confirms within one timeout.  :class:`LeaseSupersededError`
+        and :class:`HostLostError` relay verbatim: a fenced writer must
+        not be sent down the failover path to re-execute."""
+        box: dict = {}
+
+        def worker() -> None:
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 - relayed below
+                box["error"] = e
+
+        t = threading.Thread(target=worker, daemon=True,
+                             name=f"tse1m-pod:{site}")
+        t.start()
+        while True:
+            t.join(self._POLL_S)
+            if not t.is_alive():
+                break
+            self.monitor.check(site=site)
+        if "error" in box:
+            err = box["error"]
+            if isinstance(err, (LeaseSupersededError, HostLostError)):
+                raise err
+            deadline = deadline_clock() + self.monitor.timeout_s
+            while deadline_clock() < deadline:
+                if self.monitor.poll():
+                    break
+                time.sleep(self._POLL_S)
+            lost = self.monitor.poll()
+            if lost:
+                raise HostLostError(lost, site=site) from err
+            raise err
+        return box.get("result")
+
+
+# -- the run nonce and the exchange directory ---------------------------------
+#
+# The pod directory outlives runs, so a run's exchange files live under a
+# per-run directory named by a nonce the leader publishes, stamped with its
+# heartbeat run id.  A peer accepts the nonce only under a leader heartbeat
+# it has seen advance: a previous run leaves a nonce file and a leader
+# heartbeat that agree with each other, and a peer that starts before this
+# run's leader has beaten would otherwise adopt that dead run's nonce and
+# wait in another exchange directory than the leader's.
+
+_RUN_NONCE = "run_nonce.json"
+
+
+def negotiate_run_nonce(supervisor: "PodSupervisor | None" = None,
+                        pod_dir: str | None = None) -> str:
+    """One hex nonce shared by every process of this run: process 0 mints
+    and publishes it, peers poll for it under a leader heartbeat they have
+    seen advance (checking the monitor, so a leader that dies first raises
+    :class:`HostLostError`).  A single process mints its own.  Every
+    process pins it as the run's trace id."""
+    nonce = _negotiate_run_nonce(supervisor, pod_dir)
+    from ..observability.tracing import adopt_trace
+
+    adopt_trace(nonce)
+    return nonce
+
+
+def _negotiate_run_nonce(supervisor: "PodSupervisor | None",
+                         pod_dir: str | None) -> str:
+    if supervisor is None or supervisor.n_processes == 1:
+        return os.urandom(8).hex()
+    pod_dir = pod_dir or supervisor.directory
+    path = os.path.join(pod_dir, _RUN_NONCE)
+    if supervisor.process_id == 0:
+        nonce = os.urandom(8).hex()
+        with atomic_write(path) as f:
+            json.dump({"nonce": nonce,
+                       "leader_run": supervisor.writer.run_id}, f)
+        return nonce
+    deadline = deadline_clock() + supervisor.monitor.timeout_s * 2
+    first = None  # the leader's beat when this peer started to wait
+    while True:
+        beat = None
+        try:
+            with open(heartbeat_path(pod_dir, 0), encoding="utf-8") as f:
+                d = json.load(f)
+            beat = (d.get("run"), int(d["seq"]))
+        except (OSError, ValueError, KeyError, TypeError):
+            pass
+        if first is None:
+            first = beat or (None, -1)
+        rec = None
+        try:
+            with open(path, encoding="utf-8") as f:
+                rec = json.load(f)
+        except (OSError, ValueError):
+            pass
+        if (rec and beat is not None and beat != first
+                and beat[0] is not None
+                and rec.get("leader_run") == beat[0]
+                and rec.get("nonce")):
+            return str(rec["nonce"])
+        supervisor.monitor.check(site="pod.nonce")
+        if deadline_clock() > deadline:
+            raise TimeoutError(
+                "pod: no run nonce from process 0 within "
+                f"{supervisor.monitor.timeout_s * 2:.0f}s (it is beating "
+                "but has not announced a run)")
+        time.sleep(0.1)
+
+
+def exchange_dir(pod_dir: str, nonce: str,
+                 sweep_stale: bool = False) -> str:
+    """This run's exchange directory under the pod directory; process 0
+    passes ``sweep_stale=True`` to remove earlier runs' (runs against one
+    store are sequential, so a surviving directory is garbage)."""
+    if sweep_stale:
+        for old in glob.glob(os.path.join(pod_dir, _XCH_PREFIX + "*")):
+            if os.path.basename(old) != _XCH_PREFIX + nonce:
+                shutil.rmtree(old, ignore_errors=True)
+    path = os.path.join(pod_dir, _XCH_PREFIX + nonce)
+    os.makedirs(path, exist_ok=True)
+    return path
 
 
 # -- epoch leases -------------------------------------------------------------
@@ -330,7 +565,154 @@ class RangeLeaseGuard:
                      self.nonce)
 
 
-__all__ = ["HeartbeatWriter", "LeaseSupersededError", "PeerMonitor",
-           "RangeLeaseGuard", "acquire_lease", "heartbeat_interval_s",
+# -- the membership ledger ----------------------------------------------------
+
+_MEMBERSHIP = "membership.json"
+
+
+class MembershipLedger:
+    """``membership.json`` under the pod directory: a monotonic epoch, the
+    member set and the digest-range -> owner deal.
+
+    Epochs advance on loss and on re-admission.  The re-deal is elastic: a
+    range keeps its owner while that owner is a member under the balanced
+    target, and only orphaned and overflow ranges move, so labels and warm
+    state stay put for every unmoved range.  One process writes each
+    advance (the leader at bootstrap, the failover survivor mid-run);
+    peers adopt it through :meth:`wait_for`."""
+
+    def __init__(self, pod_dir: str, n_ranges: int) -> None:
+        self.pod_dir = pod_dir
+        self.n_ranges = int(n_ranges)
+        self.path = os.path.join(pod_dir, _MEMBERSHIP)
+        os.makedirs(pod_dir, exist_ok=True)
+
+    def load(self) -> dict | None:
+        """The current record, or None (absent or torn)."""
+        try:
+            with open(self.path, encoding="utf-8") as f:
+                d = json.load(f)
+            return {"epoch": int(d["epoch"]), "nonce": str(d.get("nonce", "")),
+                    "members": sorted(int(m) for m in d["members"]),
+                    "owners": {int(k): int(v)
+                               for k, v in d["owners"].items()},
+                    "moved": sorted(int(r) for r in d.get("moved", [])),
+                    "prev_members": sorted(
+                        int(m) for m in d.get("prev_members", []))}
+        except (OSError, ValueError, KeyError, TypeError):
+            return None
+
+    def _write(self, rec: dict) -> None:
+        with atomic_write(self.path) as f:
+            json.dump(rec, f)
+
+    @staticmethod
+    def _deal(prior_owners: dict | None, members: list,
+              n_ranges: int) -> tuple[dict, list]:
+        """(owners, moved ranges): every range stays with its prior owner
+        while that owner is a member under the target ceil(n_ranges /
+        members); the rest go to the least-loaded member (ties to the
+        lowest id).  Deterministic: every process computes the same."""
+        members = sorted(int(m) for m in members)
+        target = -(-int(n_ranges) // len(members))
+        counts = {m: 0 for m in members}
+        owners: dict = {}
+        pool = []
+        for r in range(int(n_ranges)):
+            o = (prior_owners or {}).get(r)
+            if o in counts and counts[o] < target:
+                owners[r] = o
+                counts[o] += 1
+            else:
+                pool.append(r)
+        moved = []
+        for r in pool:
+            m = min(members, key=lambda p: (counts[p], p))
+            owners[r] = m
+            counts[m] += 1
+            if (prior_owners or {}).get(r) != m:
+                moved.append(r)
+        return owners, moved
+
+    def bootstrap(self, members: list, nonce: str) -> dict:
+        """Open this run's membership: the prior epoch and deal when the
+        member set is unchanged, else the next epoch (a grown set is a
+        re-admission)."""
+        prior = self.load()
+        members = sorted(int(m) for m in members)
+        if prior is not None and prior["members"] == members:
+            rec = {**prior, "nonce": str(nonce), "moved": []}
+            self._write(rec)
+            return rec
+        if prior is None:
+            reason = "bootstrap"
+        elif set(members) - set(prior["members"]):
+            reason = "host_readmitted"
+        else:
+            reason = "membership_change"
+        return self._advance(prior, members, nonce, reason)
+
+    def advance(self, members: list, nonce: str, reason: str) -> dict:
+        """Force the next epoch (the failover survivor's seat)."""
+        return self._advance(self.load(), sorted(int(m) for m in members),
+                             nonce, reason)
+
+    def _advance(self, prior: dict | None, members: list, nonce: str,
+                 reason: str) -> dict:
+        epoch = int(prior["epoch"]) + 1 if prior is not None else 0
+        owners, moved = self._deal(
+            prior.get("owners") if prior is not None else None,
+            members, self.n_ranges)
+        if prior is None:
+            moved = []  # a fresh deal reassigns nothing
+        rec = {"epoch": epoch, "nonce": str(nonce), "members": members,
+               "owners": owners, "moved": sorted(moved),
+               "prev_members": (prior or {}).get("members", [])}
+        self._write(rec)
+        if prior is not None:
+            from ..observability import record_degradation
+
+            record_degradation(
+                "epoch_advance", site="coordinator.membership",
+                detail={"epoch": epoch, "reason": reason,
+                        "members": members, "moved": sorted(moved)})
+            for p in sorted(set(members) - set(prior["members"])):
+                record_degradation(
+                    "host_readmitted", site="coordinator.membership",
+                    detail={"process": int(p), "epoch": epoch})
+            log.warning("pod membership epoch %d (%s): members %s, "
+                        "moved ranges %s", epoch, reason, members,
+                        sorted(moved))
+        return rec
+
+    def wait_for(self, nonce: str, monitor: "PeerMonitor | None" = None,
+                 timeout_s: float | None = None) -> dict:
+        """Adopt the record the leader wrote for this run (matched by
+        nonce), polling the monitor so a leader death raises
+        :class:`HostLostError` instead of hanging."""
+        budget = (timeout_s if timeout_s is not None
+                  else (monitor.timeout_s * 2 if monitor is not None
+                        else heartbeat_timeout_s() * 2))
+        deadline = deadline_clock() + budget
+        while True:
+            rec = self.load()
+            if rec is not None and rec["nonce"] == str(nonce):
+                return rec
+            if monitor is not None:
+                monitor.check(site="pod.membership")
+            if deadline_clock() > deadline:
+                raise TimeoutError(
+                    f"pod: no membership record for nonce {nonce} within "
+                    f"{budget:.0f}s (the leader is beating but has not "
+                    "published the epoch deal)")
+            time.sleep(0.1)
+
+
+__all__ = ["HeartbeatWriter", "HostLostError", "LeaseSupersededError",
+           "MembershipLedger", "PeerMonitor", "PodSupervisor",
+           "RangeLeaseGuard", "acquire_lease", "exchange_dir",
+           "hard_exit_if_host_lost", "heartbeat_interval_s",
            "heartbeat_path", "heartbeat_timeout_s", "lease_path",
-           "read_lease", "verify_lease", "write_lease"]
+           "negotiate_run_nonce", "read_lease", "resume_heartbeats",
+           "saw_host_loss", "suspend_heartbeats", "verify_lease",
+           "write_lease"]

@@ -29,10 +29,12 @@ Kinds, as the JAX package's: ``raise`` (:class:`InjectedFault`),
 ``torn_write`` (truncate the seat's file to ``truncate_fraction``, then
 raise), ``kill`` (a flight dump, then ``SIGKILL`` of this process) and
 ``stall`` (sleep ``stall_s``, pass through: the hang the watchdog turns
-into a recoverable cancellation).  ``hostloss`` and ``zombie`` need the pod
-supervisor, which is not ported (``coordinator.py`` holds only the serving
-plane's leases and heartbeats): a plan may name them, and they raise
-NotImplementedError when they fire.
+into a recoverable cancellation), ``hostloss`` (suspend this process's pod
+heartbeats, then sleep ``stall_s``: a wedged host, alive but silent, that
+peers declare lost through the production monitor) and ``zombie``
+(``hostloss`` that wakes: heartbeats suspended until ``stall_s`` elapses or
+the file at ``wake_path`` appears, then resumed, and the seat passes
+through; the woken writer meets its superseded lease at its next append).
 
 The seats fire on the stream's producer thread too, so a plan's counters
 and its log take a lock.
@@ -81,7 +83,7 @@ class FaultRule:
     delay_s: float = 0.05          # kind=delay
     stall_s: float = 30.0          # kind=stall (a hang, not a hiccup)
     truncate_fraction: float = 0.5  # kind=torn_write
-    wake_path: str | None = None   # kind=zombie (not ported)
+    wake_path: str | None = None   # kind=zombie: wake early on this file
     _seen: int = field(default=0, repr=False, compare=False)
     _fired: int = field(default=0, repr=False, compare=False)
 
@@ -167,11 +169,27 @@ class FaultPlan:
         if rule.kind == "stall":
             time.sleep(rule.stall_s)
             return
-        if rule.kind in ("hostloss", "zombie"):
-            from ..cluster.pipeline import _not_ported
+        if rule.kind == "hostloss":
+            from .coordinator import suspend_heartbeats
 
-            raise _not_ported(f"the fault plane's {rule.kind!r} kind (the "
-                              "pod supervisor)", "Multi-GPU")
+            suspend_heartbeats()
+            time.sleep(rule.stall_s)
+            return
+        if rule.kind == "zombie":
+            from .coordinator import resume_heartbeats, suspend_heartbeats
+
+            suspend_heartbeats()
+            remaining = rule.stall_s
+            while remaining > 0:
+                if rule.wake_path and os.path.exists(rule.wake_path):
+                    break
+                slice_s = min(0.25, remaining)
+                time.sleep(slice_s)
+                remaining -= slice_s
+            resume_heartbeats()
+            log.warning("fault plane: zombie at %s woke after wedge "
+                        "(heartbeats resumed)", site)
+            return
         if rule.kind == "kill":
             # SIGKILL runs no handler: the flight dump goes first, its
             # terminal span naming this seat.

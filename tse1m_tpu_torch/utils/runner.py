@@ -45,6 +45,9 @@ class StepRunner:
         self.manifest_path = manifest_path
         self.steps: list[StepRecord] = []
         self.started_at = time.time()
+        # Extra top-level manifest fields: the pod path's membership
+        # "epoch", which the merge tags each fragment's steps with.
+        self.meta: dict = {}
         if manifest_path:
             from ..observability.flight import get_flight_dir, set_flight_dir
 
@@ -88,6 +91,12 @@ class StepRunner:
         rec.result = dict(result)
         self._write()
 
+    def set_meta(self, **fields) -> None:
+        """Add top-level fields to the manifest (the pod epoch, once
+        known)."""
+        self.meta.update(fields)
+        self._write()
+
     @property
     def failed(self) -> list[StepRecord]:
         return [s for s in self.steps if s.status == "failed"]
@@ -114,6 +123,7 @@ class StepRunner:
             "summary": self.summary(),
             "degradation_counts": degradation_counts(events),
             "steps": [asdict(s) for s in self.steps],
+            **self.meta,
         }
         with atomic_write(self.manifest_path) as f:
             json.dump(payload, f, indent=2, default=str)
