@@ -6,11 +6,12 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. build: compile the port's CUDA sources (tse1m_tpu_torch/cluster/kernels/
-   csrc/) at first use and time it, and its native host layer with g++
-   (tse1m_tpu_torch/native/decode.cc, encode.cc into the gitignored
-   build/tse1m_tpu_torch/native/): a library that does not build or load
-   fails the run, since the extraction and the delta encoding would
-   otherwise fall back to numpy unseen;
+   csrc/) at first use and time it, and meanwhile, on a thread, its
+   native host layer with g++ (tse1m_tpu_torch/native/decode.cc,
+   encode.cc into the gitignored build/tse1m_tpu_torch/native/): a
+   library that does not build or load fails the run, since the
+   extraction and the delta encoding would otherwise fall back to numpy
+   unseen;
 2. kernel checks: hold each kernel against its plain PyTorch version on the
    card, bit for bit (tolerance: exact).  The MinHash and bin-min kernels
    at the main-path chunk shape (250,368 rows x 64 ids, H=128, B=16) and at
@@ -156,7 +157,10 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the 10-bit kminhash policy (the MinHash kernel); a replica of range 1
    pulled then; the uninterrupted oracle in process over copies of the
    four stores: a ``ShardRouter`` over four ``LocalTransport(ServeDaemon(
-   device=cuda, state_commit_every=1))`` routes the 50,000-row tail in
+   device=cuda))`` (the daemon's default state commit, every 8
+   generations: the oracle reads its index and store, never its state
+   files, and the children's per-generation commits are what the
+   failover round holds) routes the 50,000-row tail in
    4,096-row batches (the MinHash kernel at least once a shard slice with
    novel rows, the rANS kernel at most once a slice where the entropy
    gate codes a chunk padded to a power of two, no other kernel),
@@ -194,11 +198,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    keys, a live sampler's samples with ``cluster`` among its planes and
    collapsed stacks, every lock-wait site one of JAX's lock names, and its
    torch.profiler Chrome trace under ``device_trace/`` launches the
-   MinHash kernel and the rANS kernel as often as (c) did; (c) twice more
-   in this process, plain and under the same wrapper (sampler, lock-wait
-   recorder, device trace), each with (c)'s labels and launches: the
-   profiler's own cost, with no fresh process in the way (the sampler
-   alone ran too until phase 3g joined the script); (w2) again, in
+   MinHash kernel and the rANS kernel as often as (c) did; (c) once more
+   in this process under the same wrapper (sampler, lock-wait recorder,
+   device trace), with (c)'s labels and launches, its wall against phase
+   3's plain (c), run in this process too: the profiler's own cost, with
+   no fresh process in the way; (w2) again, in
    process, over a copy of the store as run (1) left it, inside
    ``profiling.device_trace`` (merge, its labels the storeless run's, the
    trace's MinHash launches the run's); then after one warm-up each, under
@@ -242,11 +246,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
        the labels equal the single-device cminhash run's (unquantized,
        prefilter off);
    (h-m2) after phase 4: two ranks run ``all`` over its study (999,049
-       builds) under the TSE1M_* variables; rank 0 writes phase 4's
-       single-rank file set, its CSVs byte for byte; no built library
-       changed from
-       before (m4) to after (h-m2) (no rank rebuilt one, none left a
-       lock).
+       builds) under the TSE1M_* variables and TSE1M_BACKEND=auto; rank 0
+       writes phase 4's single-rank file set, its CSVs byte for byte; each
+       driver's manifest notes that ``auto`` gave the device engine in a
+       world of 2; no built library changed from before (m4) to after
+       (h-m2) (no rank rebuilt one, none left a lock).
    One ``mesh`` JSON line: the gloo probe, for each cell the world size,
    backend, wall and per rank the four stages, the bytes and seconds of
    the key ``all_to_all``, the signature gather and the ``pmin``s, the
@@ -296,6 +300,22 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    timeline from spawn (imports done, labels back, the command returned)
    and degradation counts; the card; the ``kernels`` line adds each kernel's
    launches in (p2)'s four processes under ``pod_launches``;
+3i. the schedule explorer (tse1m_tpu_torch/trace/) on the card:
+   ``explore("serve")`` and ``explore("router")``, 16 seeded PCT schedules
+   and the depth-3 exhaustive enumeration each, with ``signer="device"``:
+   the daemons' novel rows MinHashed on the card from the threads the
+   scheduler serializes (the router's query fan-out on child threads it
+   steps), then the committed ``serve`` and ``store`` strings replayed;
+   each run's launch counts set to 0 just before and read just after:
+   every schedule holds the scenario's invariants (labels equal to the
+   host clustering of each generation, monotone snapshots; the router's
+   no double absorb, one ack per request id, stable routed labels) and
+   the lockset detector finds no race; one MinHash launch (kernel 1 or 3,
+   by the slice's wire width) for each 4-row batch slice with novel rows,
+   in every schedule, and no other kernel.  One ``trace`` JSON line
+   (schedules, distinct traces, races, launches, walls, the card); the
+   ``kernels`` line adds each kernel's launches there under
+   ``trace_launches``;
 4. the RQ path (torch ops, no kernel of its own): the frozen golden study
    (tests/goldens/generate_goldens.py) and its corpus CSV through the
    port's six drivers on the card, run as ``all`` runs them, all eight
@@ -320,6 +340,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    driver's wall and phases printed as one ``rq_drivers`` JSON line with
    the card's name and power limit (the drivers extract through the
    native decoder, as a user's ``all`` does);
+4c. the auto router (``backend = auto``) over phase 4's 1M-build study and
+   its extraction: ``get_backend(Config(backend="auto"), "cuda")`` gives
+   ``AutoBackend`` with the probed dispatch round trip; three rounds of
+   the six RQ calls and ``rq_suite``, each routed result held against
+   phase 4's TorchBackend("cuda") results (exact; Spearman and mean
+   within 2e-5), the engine and wall of each call and ``calibration()``
+   printed; then the ``all`` command (the CLI's ``main``, in this
+   process) over the golden study under TSE1M_BACKEND=auto: every step
+   ok, the eight goldens
+   byte for byte, each driver's manifest naming ``auto`` on the card with
+   its ``router_calibration``.  One ``auto_router`` JSON line.  Every other
+   phase pins TSE1M_BACKEND=jax_tpu (the device engine), since
+   program/envFile.ini ships ``auto``; (h-m2) runs under ``auto``, which
+   in its world of 2 ranks must give the device engine, noted in each
+   manifest;
 4b. the study arrives, under the gitignored build/load_smoke/: phase 4's
    study written as the collectors' CSVs (``to_csv_dir``) and loaded by
    ``python -m tse1m_tpu_torch ingest`` in a child process; meanwhile
@@ -327,13 +362,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    analyzer's 'Success' for 'Finish', NULL arrays, YAML cells with a tab, a
    newline and a backslash, and a block of a table outside the study) and
    loaded by a child ``restore``: every table's rows as written, the
-   escapes and the canonical result restored, ``projects`` derived; a
-   child ``stats`` of phase 4's file and of both copies, the same lines;
-   both copies extracted by the native decoder (``native_decode``) to
-   phase 4's numpy arrays, numbers element for element and text by value,
-   and the restored copy timed warm (one call) against phase 4's numpy
-   extraction; the fused suite on the card over the restored copy's arrays
-   equal to phase 4's, every field exact; the native delta grouper's
+   escapes and the canonical result restored, ``projects`` derived; both
+   copies extracted by the native decoder (``native_decode``) to phase
+   4's numpy arrays, numbers element for element and text by value, the
+   restored copy timed alone (one call) against phase 4's numpy
+   extraction, and a child ``stats`` of phase 4's file and of both
+   copies, the same lines, the three children running while this process
+   extracts the ingested copy (the suite over the restored copy's arrays
+   is not run again: that equality and phase 4's suite checks hold it);
+   the native delta grouper's
    ``rep_of`` at (c)'s 647,790 kept rows equal to numpy's ``_group_rows``,
    both timed (cell (c) of phase 3 runs through the native grouper: its
    labels and launch counts are checked there as before, its encode stage
@@ -391,7 +428,7 @@ from tse1m_tpu_torch import (SignatureStore, adjusted_rand_index,
                              topk_agreement)
 from tse1m_tpu_torch.analysis import RQ_DRIVERS, run_rqs
 from tse1m_tpu_torch.analysis.corpus import g4_prepost, load_corpus_groups
-from tse1m_tpu_torch.backend import TorchBackend
+from tse1m_tpu_torch.backend import AutoBackend, TorchBackend, get_backend
 from tse1m_tpu_torch import native
 from tse1m_tpu_torch.cluster import encode, entropy, kernels, pipeline
 from tse1m_tpu_torch.cluster.checkpoint import ClusterCheckpoint
@@ -419,6 +456,7 @@ from tse1m_tpu_torch.observability import (degradation_counts,
                                            pop_degradation_events, profiling)
 from tse1m_tpu_torch.observability.merge import fragment_manifest_path
 from tse1m_tpu_torch.resilience import FaultPlan
+from tse1m_tpu_torch.trace import explore as texplore
 from tse1m_tpu_torch.resilience.coordinator import (LeaseSupersededError,
                                                     RangeLeaseGuard,
                                                     read_lease)
@@ -494,17 +532,28 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+T_START = time.perf_counter()
+
+
+def phase(msg: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    log(f"{msg} [{time.perf_counter() - T_START:.1f} s in]")
+
+
 def max_abs_err(got: tuple, want: tuple) -> int:
     """Largest |kernel - plain| over the outputs, as uint32."""
     return max(int((widen(g) - widen(w)).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
 
 
-def check_kernel(name: str, args: tuple, label: str) -> int:
-    """Kernel vs plain on the card, bit for bit; returns the max abs err."""
+def check_kernel(name: str, args: tuple, label: str, want=None) -> int:
+    """Kernel vs plain on the card, bit for bit (``want``: the plain
+    version's output on ``args``, when already computed); returns the max
+    abs err."""
     k = KERNELS[name]
     got = k["wrapper"](*args)
-    want = k["plain"](*args)
+    if want is None:
+        want = k["plain"](*args)
     if name == "rans_decode":
         got, want = (got,), (want,)
     torch.cuda.synchronize()
@@ -680,13 +729,16 @@ def skewed(rng, n: int, bits: int) -> np.ndarray:
         v.astype(np.uint32)
 
 
-def check_lanes(lanes: list, label: str) -> int:
+def check_lanes(lanes: list, label: str, wants: list | None = None) -> int:
     """The batched rANS launch vs the plain version, lane by lane, bit for
-    bit; one launch for up to 8 lanes.  Returns the max abs err."""
+    bit (``wants``: a lane's plain output where already computed, else
+    None); one launch for up to 8 lanes.  Returns the max abs err."""
     kernels.reset_launch_counts()
     got = krans.rans_decode_lanes(lanes)
     launches = kernels.launch_counts()["rans_decode"]
-    want = krans.rans_decode_lanes_plain(lanes)
+    wants = wants or [None] * len(lanes)
+    want = [w if w is not None else krans.rans_decode_lanes_plain([lane])[0]
+            for lane, w in zip(lanes, wants)]
     torch.cuda.synchronize()
     coded = sum(n > 0 for _, n, _ in lanes)
     if launches != -(-coded // 8):
@@ -728,13 +780,19 @@ def rans_checks(plan: dict, dev) -> int:
     their words at odd offsets inside one staged buffer."""
     err = 0
     main = {name: rans_args(lane, dev) for name, lane in plan["lanes"].items()}
+    # A main lane's plain decode takes seconds (a launch of torch ops a
+    # step): computed once, it is held against every launch that decodes
+    # that lane, staged at odd offsets or not.
+    plain = {name: KERNELS["rans_decode"]["plain"](*args)
+             for name, args in main.items()}
     for name, args in main.items():
         err = max(err, check_kernel("rans_decode", args,
                                     f"1M default run's {name} lane, "
-                                    f"{args[1]} symbols"))
+                                    f"{args[1]} symbols", want=plain[name]))
     err = max(err, check_lanes(list(main.values()),
                                "1M default run's " + " + ".join(main)
-                               + " lanes in one launch"))
+                               + " lanes in one launch",
+                               wants=list(plain.values())))
     rng = np.random.default_rng(1)
     edges = [(1, 4097), (5, 4097), (12, 4097), (13, 1000), (18, 1000),
              (24, 1000), (32, 1000), (5, 1), (5, 31), (5, 32), (5, 33),
@@ -760,7 +818,8 @@ def rans_checks(plan: dict, dev) -> int:
     mixed = [edge_args[i] for i in (2, 4, 7, 10, 12, 13)] + [main["counts"]]
     err = max(err, check_lanes(
         staged(mixed, dev), "1 to 3 planes, n = 0 to 4,097 and the counts "
-        "lane in one launch, words at odd offsets in one staged buffer"))
+        "lane in one launch, words at odd offsets in one staged buffer",
+        wants=[None] * (len(mixed) - 1) + [plain["counts"]]))
     err = max(err, check_lanes(
         staged(edge_args, dev, gaps=(3,)),
         f"all {len(edge_args)} edge lanes, words 6 bytes into their slots, "
@@ -1899,8 +1958,10 @@ def sharded_oracle(items, dev) -> dict:
     oroot = os.path.join(SHARD_DIR, "oracle")
     shutil.copytree(SHARD_ROOT, oroot)
     tail = items[WARM_BASE:]
+    # The default state commit: no oracle check reads a state file, and
+    # the per-generation durability is the failover children's, held there.
     daemons = {sid: ServeDaemon(range_dir(oroot, sid), params=shard_params(),
-                                state_commit_every=1, device=dev).start()
+                                device=dev).start()
                for sid in range(SHARDS)}
     router = ShardRouter({sid: LocalTransport(d)
                           for sid, d in daemons.items()})
@@ -2838,40 +2899,36 @@ def profiled_child(default: dict) -> dict:
 
 
 def profiled_in_process(items, default: dict, dev) -> dict:
-    """Phase 3f: (c) twice in a row in this process: plain and under
-    ``cluster --profile``'s wrapper (the sampler, the lock-wait recorder,
-    the build histograms, a device trace): the profiler's own cost, with
-    no fresh process in the way; each run with (c)'s labels and
-    launches."""
+    """Phase 3f: (c) again in this process under ``cluster --profile``'s
+    wrapper (the sampler, the lock-wait recorder, the build histograms, a
+    device trace), with (c)'s labels and launches; its wall against phase
+    3's plain (c), also run in this process: the profiler's own cost, with
+    no fresh process in the way."""
     params = pipeline.ClusterParams(n_hashes=N_HASHES, n_bands=N_BANDS)
-    runs, summary = {}, None
-    for label, sample, trace_dir in (
-            ("plain", False, None),
-            ("wrapper", True, os.path.join(TOOL_DIR, "c_trace"))):
-        if sample:
-            profiling.install_compile_listener()
-            profiling.enable_lock_wait(True)
-            profiling.start_sampler()
-        try:
-            with profiling.device_trace(trace_dir) as tr:
-                run = drive(items, params, dev)
-        finally:
-            profiling.stop_sampler()
-            profiling.enable_lock_wait(False)
-        del run["sig"], run["keys"]
-        if not (np.array_equal(run["labels"], default["labels"])
-                and run["counts"] == default["counts"]):
-            raise AssertionError(f"(c) in process, {label}: launches "
-                                 f"{run['counts']} or labels differ")
-        if tr["path"]:
-            summary = trace_summary(tr["path"])
-        runs[label] = {"wall_s": run["wall_s"],
-                       "stages": run["info"]["stages"]}
+    profiling.install_compile_listener()
+    profiling.enable_lock_wait(True)
+    profiling.start_sampler()
+    try:
+        with profiling.device_trace(os.path.join(TOOL_DIR, "c_trace")) as tr:
+            run = drive(items, params, dev)
+    finally:
+        profiling.stop_sampler()
+        profiling.enable_lock_wait(False)
+    del run["sig"], run["keys"]
+    if not (np.array_equal(run["labels"], default["labels"])
+            and run["counts"] == default["counts"]):
+        raise AssertionError(f"(c) in process under the wrapper: launches "
+                             f"{run['counts']} or labels differ")
+    summary = trace_summary(tr["path"])
+    runs = {"plain": {"wall_s": default["wall_s"],
+                      "stages": default["info"]["stages"]},
+            "wrapper": {"wall_s": run["wall_s"],
+                        "stages": run["info"]["stages"]}}
     ratios = {"wrapper": runs["wrapper"]["wall_s"] / runs["plain"]["wall_s"]}
-    log(f"  (c) in process, plain then profiled: walls "
-        f"{[round(r['wall_s'], 3) for r in runs.values()]} s, the wrapper "
-        f"{ratios['wrapper']:.3f}x the plain run; (c)'s labels and "
-        f"launches each; device busy {summary['busy_share']:.4%} of "
+    log(f"  (c) in process under the wrapper: wall "
+        f"{runs['wrapper']['wall_s']:.3f} s, {ratios['wrapper']:.3f}x phase "
+        f"3's plain (c) ({runs['plain']['wall_s']:.3f} s); (c)'s labels and "
+        f"launches; device busy {summary['busy_share']:.4%} of "
         f"{summary['window_s']:.3f} s under the wrapper")
     return {"runs": runs, "ratios": ratios, "trace": summary}
 
@@ -3640,7 +3697,7 @@ def rq_phase(dev) -> dict:
             "corpus": corpus, "all_out": os.path.join(RQ_DIR, "all_out"),
             "all_s": drivers["all_s"],
             "extract_s": extract_s, "suite": fused, "limit_ns": limit_ns,
-            "g1": g1, "g2": g2}
+            "card_results": got, "g1": g1, "g2": g2}
 
 
 # Phase 3g: the mesh on one card.
@@ -3968,14 +4025,16 @@ def mesh_phase(items, truth, want, dev) -> dict:
 
 def mesh_all(rq: dict, mesh: dict) -> dict:
     """Phase 3g, (h-m2): ALL_RANKS ranks run ``all`` over phase 4's study
-    under the TSE1M_* variables; rank 0 writes phase 4's single-rank file
-    set, its CSVs byte for byte.  Prints the ``mesh`` line."""
+    under the TSE1M_* variables and TSE1M_BACKEND=auto; rank 0 writes
+    phase 4's single-rank file set, its CSVs byte for byte, and each
+    driver's manifest notes that ``auto`` gave the device engine.  Prints
+    the ``mesh`` line."""
     t_phase = time.perf_counter()
     out = os.path.join(MESH_DIR, "all", "out")
     _, wall = world_commands(
         "all", ["all", "--db", rq["path"], "--result-dir", out,
                 "--limit-date", RQ_CUTOFF, "--corpus-csv", rq["corpus"]],
-        ALL_RANKS)
+        ALL_RANKS, TSE1M_BACKEND="auto")
     after = build_state()
     if after != mesh["build_before"]:
         raise AssertionError(f"a rank rebuilt a library or left a lock: "
@@ -3997,9 +4056,17 @@ def mesh_all(rq: dict, mesh: dict) -> dict:
             if f.read() != g.read():
                 raise AssertionError(f"(h-m2) {rel} differs from phase 4's")
     run = check_drivers_ran(out, torch.device("cuda", 0))
+    # backend=auto in a world of several ranks: the device engine, noted.
+    for name, rel in DRIVER_MANIFESTS.items():
+        with open(os.path.join(out, rel)) as f:
+            note = json.load(f).get("auto_resolution")
+        if note != {"backend": "auto", "engine": "device",
+                    "world_size": ALL_RANKS}:
+            raise AssertionError(f"(h-m2) {name} under auto: {note}")
     log(f"  (h-m2) all as {ALL_RANKS} ranks: {wall:.3f} s (phase 4's "
         f"single rank {rq['all_s']:.3f} s), every step ok, phase 4's "
-        f"{len(want_files)} files, its {len(csvs)} CSVs byte for byte")
+        f"{len(want_files)} files, its {len(csvs)} CSVs byte for byte, "
+        "auto on the device engine")
     cells = dict(mesh["cells"])
     cells["h_m2"] = {"world": ALL_RANKS, "backend": "gloo", "all_s": wall,
                      "phase4_all_s": rq["all_s"],
@@ -4652,22 +4719,17 @@ def same_arrays(got, want, label: str) -> None:
                 raise AssertionError(f"{label}: {table}.{name} differs")
 
 
-def stats_lines(path: str, name: str) -> tuple:
-    wall, out = host_command(["stats", "--db", path], name)
-    if "regression-tracked" not in out:
-        raise AssertionError(f"stats {path}: {out}")
-    return wall, out
-
-
 def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
                      dev) -> dict:
     """Phase 4b: phase 4's study written as the collectors' CSVs and
     ingested by a child ``ingest``, written as a pg_dump and restored by a
-    child ``restore``; ``stats`` of the three files line for line; the
-    loaded copies extracted by the native decoder to phase 4's numpy
-    arrays; the suite on the card over the restored copy's arrays equal to
-    phase 4's; the native delta grouper at (c)'s kept rows equal to
-    numpy's; one ``study_load`` JSON line."""
+    child ``restore``; the loaded copies extracted by the native decoder
+    to phase 4's numpy arrays, the restored copy's timed alone, the
+    ingested copy's beside the ``stats`` children of the three files, line
+    for line; the native delta grouper at (c)'s kept rows
+    equal to numpy's; one ``study_load`` JSON line.  The suite over the
+    restored copy is not run again: its arrays equal phase 4's element for
+    element, and phase 4 holds the suite on those arrays."""
     t_phase = time.perf_counter()
     fresh_dir(LOAD_DIR)
     os.makedirs(LOAD_DIR)
@@ -4715,12 +4777,33 @@ def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
         f"pg_dump in {walls['dump_write_s']:.3f} s, restored in "
         f"{walls['restore_s']:.3f} s; rows {want_rows}, escapes and "
         "'Success' restored")
-    # The three files are only read: their stats run at once.
-    with ThreadPoolExecutor(3) as pool:
-        futures = {name: pool.submit(stats_lines, path, f"stats_{name}")
-                   for name, path in (("phase4", rq["path"]),
-                                      ("ingested", f1), ("restored", f2))}
-        stats = {name: f.result() for name, f in futures.items()}
+    def extract(path):
+        with connect(path) as db:
+            return StudyArrays.from_db(db, rq["cfg"])
+
+    # The restored copy's extraction is timed alone.  The three files are
+    # only read: their stats children then run at once, beside this
+    # process's untimed extraction of the ingested copy.
+    native_s, restored_arrays = median_wall(lambda: extract(f2))
+    stats_started = {name: start_host_command(["stats", "--db", path],
+                                              f"stats_{name}")
+                     for name, path in (("phase4", rq["path"]),
+                                        ("ingested", f1), ("restored", f2))}
+    for name, arrays in (("ingested", extract(f1)),
+                         ("restored", restored_arrays)):
+        if not arrays.native_decode:
+            raise AssertionError(f"{name}: extraction left the native "
+                                 "decoder")
+        same_arrays(arrays, rq["arrays"], name)
+    log(f"  both copies extracted by the native decoder == phase 4's numpy "
+        f"arrays; the restored copy's alone {native_s:.3f} s against "
+        f"numpy's {rq['extract_s']:.3f} s (calls timed: {RQ_REPS}); the "
+        "ingested copy's beside the stats children")
+    stats = {name: finish_host_command(started)
+             for name, started in stats_started.items()}
+    for name, (_, out) in stats.items():
+        if "regression-tracked" not in out:
+            raise AssertionError(f"stats {name}: {out}")
     if not stats["ingested"][1] == stats["restored"][1] \
             == stats["phase4"][1]:
         raise AssertionError("stats lines differ: " + json.dumps(
@@ -4729,28 +4812,6 @@ def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
     log("  stats of phase 4's file, the ingested and the restored copy "
         "(three children at once): the same "
         + str(len(stats["phase4"][1].splitlines())) + " lines")
-
-    def extract(path):
-        with connect(path) as db:
-            return StudyArrays.from_db(db, rq["cfg"])
-
-    native_s, restored_arrays = median_wall(lambda: extract(f2))
-    for name, arrays in (("ingested", extract(f1)),
-                         ("restored", restored_arrays)):
-        if not arrays.native_decode:
-            raise AssertionError(f"{name}: extraction left the native "
-                                 "decoder")
-        same_arrays(arrays, rq["arrays"], name)
-    log(f"  both copies extracted by the native decoder == phase 4's numpy "
-        f"arrays; warm {native_s:.3f} s against numpy's "
-        f"{rq['extract_s']:.3f} s (warm calls timed: {RQ_REPS})")
-    suite = TorchBackend(dev).rq_suite(restored_arrays, rq["limit_ns"],
-                                       RQ_MIN_PROJECTS, rq["g1"], rq["g2"])
-    for name in RQS:
-        rq_compare(suite[name], rq["suite"][name], name,
-                   "suite over the restored copy vs phase 4", close=set())
-    log("  the suite on the card over the restored copy's arrays == phase "
-        "4's, every field exact")
     t0 = time.perf_counter()
     rep_native = native.group_delta(kept_rows, DELTA_MAX_DIFFS, DELTA_PROBES)
     group_native_s = time.perf_counter() - t0
@@ -4778,6 +4839,200 @@ def study_load_phase(rq: dict, kept_rows: np.ndarray, c_encode_s: float,
     return report
 
 
+# Phase 3i: the schedule explorer on the card.
+EXPLORE_SEEDED = 16           # seeded PCT schedules a scenario
+EXPLORE_BOUND = 3             # bounded exhaustive enumeration depth
+# The committed interleavings (tests/test_torch_trace.py), replayed here.
+EXPLORE_REPLAYS = {
+    "serve": "v1:fix:q,r,w,q,w,r,q,w,r,q,w,q,r,w,r,q",
+    "store": "v1:fix:rp,rr,w,rp,w,rr,rp,w,rr,rp,w,rr,rp,w,rp",
+}
+MINHASH_KERNELS = ("minhash_and_keys", "minhash_and_keys_packed")
+
+
+def novel_slices(items: np.ndarray, batches: list, shards: int) -> int:
+    """How many (batch, shard) slices carry a row not seen before: one
+    padded MinHash launch each when a daemon signs on the card."""
+    owner = digest_range_ids(row_digests(items), shards)
+    keys = [bytes(d) for d in row_digests(items)]
+    seen, n = set(), 0
+    for lo, hi in batches:
+        n += len({int(owner[i]) for i in range(lo, hi)
+                  if keys[i] not in seen})
+        seen |= set(keys[lo:hi])
+    return n
+
+
+def explorer_phase(dev) -> dict:
+    """Phase 3i: ``explore("serve")`` and ``explore("router")`` on the card
+    with ``signer="device"`` (the daemons' novel rows MinHashed from the
+    threads the scheduler serializes), then the committed strings
+    replayed; each run's launch counts set to 0 just before it and read
+    just after.  Every schedule holds the scenario's invariants (labels
+    equal to the host clustering) with no lockset race; each 4-row batch
+    slice with novel rows launches one MinHash kernel, in every schedule.
+    One ``trace`` JSON line."""
+    t_phase = time.perf_counter()
+    serve_items = synth_session_sets(texplore._N_ROWS, set_size=16, seed=5,
+                                     dup_fraction=0.0)[0]
+    b = texplore._BATCH
+    per_schedule = {
+        "serve": novel_slices(serve_items, [(lo, lo + b) for lo in range(
+            0, texplore._N_ROWS, b)], 1),
+        # The writer's batches; "fix0" absorbs once, whichever writer
+        # runs it first (the other replays the journal's ack).
+        "router": novel_slices(texplore.router_corpus(),
+                               [(0, 4), (4, 8), (8, 12)], 2),
+        "store": 0}
+    runs = {}
+    for scenario in ("serve", "router"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = texplore.explore(scenario, n_seeded=EXPLORE_SEEDED,
+                                 exhaustive_bound=EXPLORE_BOUND, device=dev,
+                                 signer="device")
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        runs[scenario] = dict(stats, wall_s=wall, launches=counts)
+    for scenario, s in EXPLORE_REPLAYS.items():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = texplore.replay(s, scenario, device=dev, signer="device")
+        runs[f"replay_{scenario}"] = {
+            "trace_schedules_explored": 1, "trace_races_found": out.races,
+            "decisions": len(out.decisions),
+            "wall_s": time.perf_counter() - t0,
+            "launches": kernels.launch_counts()}
+    for name, r in runs.items():
+        scenario = name.replace("replay_", "")
+        minhash = sum(r["launches"][k] for k in MINHASH_KERNELS)
+        want = per_schedule[scenario] * r["trace_schedules_explored"]
+        others = {k: n for k, n in r["launches"].items()
+                  if k not in MINHASH_KERNELS and n}
+        if r["trace_races_found"] or minhash != want or others:
+            raise AssertionError(f"3i {name}: races "
+                                 f"{r['trace_races_found']}, MinHash "
+                                 f"launches {minhash} (want {want}), other "
+                                 f"launches {others}")
+        log(f"  {name}: {r['trace_schedules_explored']} schedules"
+            + (f", {r['trace_distinct_traces']} distinct traces"
+               if "trace_distinct_traces" in r else "")
+            + f", 0 races, MinHash launches {r['launches']} "
+            f"({per_schedule[scenario]} a schedule) in {r['wall_s']:.3f} s")
+    launches: dict = {}
+    for r in runs.values():
+        add_counts(launches, r["launches"])
+    line = {"scenarios": runs, "launches": launches,
+            "schedules": sum(r["trace_schedules_explored"]
+                             for r in runs.values()),
+            "races": 0, "phase_s": time.perf_counter() - t_phase,
+            "card": card_name_and_limit()}
+    print(json.dumps({"trace": line}), flush=True)
+    return line
+
+
+# Phase 4c: the auto router on the card.
+AUTO_ROUNDS = 3
+
+
+def auto_router_phase(rq: dict, dev) -> dict:
+    """Phase 4c: ``get_backend(Config(backend="auto"), "cuda")`` over phase
+    4's study and its extraction: AUTO_ROUNDS rounds of the six RQ calls
+    and ``rq_suite``, each routed result held against phase 4's
+    TorchBackend("cuda") results (exact; Spearman and mean within
+    RQ_TOL), the engine and wall of each call and the learned
+    calibration; then the ``all`` command over the golden study under
+    TSE1M_BACKEND=auto: the eight goldens byte for byte, every driver's
+    manifest naming the router with its calibration.  One
+    ``auto_router`` JSON line."""
+    t_phase = time.perf_counter()
+    be = get_backend(StudyConfig(backend="auto"), dev)
+    if not isinstance(be, AutoBackend) or be.device != dev:
+        raise AssertionError(f"backend=auto on the card gave {be!r}")
+    rtt = be.calibration()["dispatch_rtt_s"]
+    log(f"  probed dispatch round trip {rtt * 1e3:.4f} ms")
+    arrays, limit_ns = rq["arrays"], rq["limit_ns"]
+    calls = rq_calls(be, arrays, limit_ns, rq["g1"], rq["g2"])
+    rounds = []
+    worst = 0.0
+    for r in range(AUTO_ROUNDS):
+        row = {}
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            res = fn()
+            wall = time.perf_counter() - t0
+            if name == "suite":
+                for q in RQS:
+                    worst = max(worst, rq_compare(
+                        res[q], rq["suite"][q], q,
+                        f"auto round {r} suite vs the card's"))
+            else:
+                worst = max(worst, rq_compare(
+                    res, rq["card_results"][name], name,
+                    f"auto round {r} vs the card's"))
+            row[name] = {"engine": be.last_engine, "wall_s": wall}
+        rounds.append(row)
+        log(f"  round {r}: " + ", ".join(
+            f"{n} {c['engine']} {c['wall_s']:.4f} s" for n, c in
+            row.items()))
+    cal = be.calibration()
+    log(f"  every routed result == TorchBackend('cuda')'s (Spearman and "
+        f"mean within {RQ_TOL}, at most {worst:.3f} of it); calibration "
+        f"{json.dumps(cal)}")
+    golden = auto_golden_all(dev)
+    line = {"dispatch_rtt_s": rtt, "rounds": rounds, "calibration": cal,
+            "tolerance_share": worst, "golden_all": golden,
+            "phase_s": time.perf_counter() - t_phase,
+            "card": card_name_and_limit()}
+    print(json.dumps({"auto_router": line}), flush=True)
+    return line
+
+
+def auto_golden_all(dev) -> dict:
+    """Phase 4c's last step: the ``all`` command (``tse1m_tpu_torch.
+    __main__.main``, in this process) over phase 4's golden study under
+    TSE1M_BACKEND=auto: every step ok, the eight artifacts equal
+    tests/goldens/synth8/ byte for byte, and each driver's manifest names
+    the router on the card with its ``router_calibration``."""
+    from tse1m_tpu_torch.__main__ import main as cli_main
+
+    out = fresh_dir(os.path.join(RQ_DIR, "golden_auto_out"))
+    t0 = time.perf_counter()
+    with environment(TSE1M_BACKEND="auto", TSE1M_ROUTER_CAL=""), \
+            open(os.path.join(RQ_DIR, "golden_auto_all.log"), "w") as f, \
+            contextlib.redirect_stdout(f):
+        rc = cli_main(["all", "--db", os.path.join(RQ_DIR, "golden.sqlite"),
+                       "--result-dir", out, "--test-mode", "--corpus-csv",
+                       os.path.join(RQ_DIR, "golden_corpus.csv")])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"all under TSE1M_BACKEND=auto exited {rc}")
+    with open(os.path.join(out, "run_manifest.json")) as f:
+        steps = {s["name"]: s["status"] for s in json.load(f)["steps"]}
+    if list(steps) != list(RQ_DRIVERS) or set(steps.values()) != {"ok"}:
+        raise AssertionError(f"all under auto: steps {steps}")
+    engines = {}
+    for name, rel in DRIVER_MANIFESTS.items():
+        with open(os.path.join(out, rel)) as f:
+            m = json.load(f)
+        cal = m.get("router_calibration")
+        if (m["backend"], m["device"]) != (
+                "auto", torch.cuda.get_device_name(dev)) or not cal:
+            raise AssertionError(f"{name} under auto: {m['backend']} "
+                                 f"{m['device']}, calibration {cal}")
+        engines[name] = cal["cost_per_row"]
+    for rel in GOLDEN_FILES:
+        with open(os.path.join(out, rel), "rb") as f, \
+                open(os.path.join(GOLDEN_DIR, rel), "rb") as g:
+            if f.read() != g.read():
+                raise AssertionError(f"{rel} under auto differs from the "
+                                     "golden")
+    log(f"  all over the golden study under TSE1M_BACKEND=auto in "
+        f"{wall:.3f} s: every step ok, the {len(GOLDEN_FILES)} goldens byte "
+        "for byte, each manifest with its router_calibration")
+    return {"wall_s": wall, "cost_per_row": engines}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--calls-per-window", type=int, default=KERNEL_INNER,
@@ -4798,27 +5053,38 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # program/envFile.ini ships ``backend = auto``: every phase but 4c
+    # measures the device engine, so this process and its children pin it
+    # (phase 4c sets ``auto`` where it drives the router).
+    os.environ["TSE1M_BACKEND"] = "jax_tpu"
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
 
-    log("phase 1: build")
-    _build.load_extension()
-    log(f"  built {', '.join(_build.SOURCES)} in {_build.build_seconds:.1f} s")
-    t0 = time.perf_counter()
+    phase("phase 1: build")
+
     # The native host layer (g++): the sqlite decoder and the delta
-    # grouper run on the main path; Postgres's decoder is not driven.
-    for which in ("decode", "encode"):
-        if not native.loaded(which):
-            raise AssertionError(f"native {which} library did not build or "
-                                 f"load into {native.BUILD_DIR}")
-    log(f"  native decode.cc, encode.cc built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+    # grouper run on the main path; Postgres's decoder is not driven.  It
+    # builds on a thread while ninja builds the kernels.
+    def build_native() -> float:
+        t0 = time.perf_counter()
+        for which in ("decode", "encode"):
+            if not native.loaded(which):
+                raise AssertionError(f"native {which} library did not build "
+                                     f"or load into {native.BUILD_DIR}")
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        native_built = pool.submit(build_native)
+        _build.load_extension()
+        log(f"  built {', '.join(_build.SOURCES)} in "
+            f"{_build.build_seconds:.1f} s")
+        log(f"  native decode.cc, encode.cc built and loaded in "
+            f"{native_built.result():.1f} s, beside the kernels")
 
     hp = make_params("kminhash", N_HASHES, 0).to(dev)
     items, truth = synth_session_sets(N_SESSIONS, SET_SIZE, seed=0)
-    log("phase 2: kernel checks (tolerance: exact)")
+    phase("phase 2: kernel checks (tolerance: exact)")
     errs = minhash_checks(dev, hp.arrays)
     errs["cminhash_binmin"] = cminhash_checks(dev)
     plan = default_run_lanes(items)
@@ -4829,7 +5095,7 @@ def main() -> int:
                                    novel_shape_checks(dev, hp.arrays))
     errs["topk_chunk"] = max(errs["topk_chunk"], scan_chunk_checks(dev))
 
-    log(f"phase 3: main path, {N_SESSIONS} sessions x {SET_SIZE} ids")
+    phase(f"phase 3: main path, {N_SESSIONS} sessions x {SET_SIZE} ids")
     small_input_check(items, truth, dev)
     plain10 = run_plain(items, truth, 0, "minhash_and_keys", hp, dev)
     plain24 = run_plain(items, truth, -1, "minhash_and_keys_packed", hp, dev)
@@ -4846,12 +5112,12 @@ def main() -> int:
                 "rans_decode": default["counts"]["rans_decode"],
                 "topk_chunk": topk["counts"]["topk_chunk"]}
 
-    log(f"phase 3b: warm path, {WARM_BASE} then {WARM_ROWS} sessions x "
-        f"{SET_SIZE} ids through a signature store")
+    phase(f"phase 3b: warm path, {WARM_BASE} then {WARM_ROWS} sessions x "
+          f"{SET_SIZE} ids through a signature store")
     warm = warm_phase(dev)
 
-    log(f"phase 3c: serving, a daemon over phase 3b's {WARM_BASE}-row "
-        f"store, the {WARM_ROWS - WARM_BASE}-row tail ingested over TCP")
+    phase(f"phase 3c: serving, a daemon over phase 3b's {WARM_BASE}-row "
+          f"store, the {WARM_ROWS - WARM_BASE}-row tail ingested over TCP")
     serve = serve_phase(warm, dev)
     serve_launches = {}
     for counts in serve["launches"].values():
@@ -4859,51 +5125,60 @@ def main() -> int:
             serve_launches[name] = serve_launches.get(name, 0) + n
 
 
-    log(f"phase 3d: resilience at {N_SESSIONS} sessions x {SET_SIZE} ids: a "
-        "killed run resumed, a real out-of-memory, the calibrated step, "
-        "stalls and device retries")
+    phase(f"phase 3d: resilience at {N_SESSIONS} sessions x {SET_SIZE} ids: a "
+          "killed run resumed, a real out-of-memory, the calibrated step, "
+          "stalls and device retries")
     resil = resilience_phase(items, {"a": plain10["labels"],
                                      "b": plain24["labels"],
                                      "c": default["labels"]}, default, dev)
 
-    log(f"phase 3e: the sharded serving plane, {SHARDS} digest-range "
-        f"daemons over phase 3b's {WARM_ROWS} rows behind a router, a "
-        "shard writer SIGKILLed and replaced, a read replica, backfill")
+    phase(f"phase 3e: the sharded serving plane, {SHARDS} digest-range "
+          f"daemons over phase 3b's {WARM_ROWS} rows behind a router, a "
+          "shard writer SIGKILLed and replaced, a read replica, backfill")
     sharded = sharded_phase(warm, dev)
 
-    log("phase 3f: device tooling: (c) under cluster --profile in a child, "
-        "(w2) under a device trace, (b), (w3) and (w5) warm under "
-        "sanitized(0), the sanitizer's self-check")
+    phase("phase 3f: device tooling: (c) under cluster --profile in a child, "
+          "(w2) under a device trace, (b), (w3) and (w5) warm under "
+          "sanitized(0), the sanitizer's self-check")
     tooling_phase(items, default, plain24, warm, dev)
     del warm["oracle"]
 
-    log(f"phase 3g: the mesh on one card: (m1) a world of 1 on NCCL, (m4) "
-        f"{MESH_RANKS} gloo ranks in process and as cluster commands, "
-        f"(m3c) {MESH_CMIN_RANKS} cminhash ranks; (h-m2) after phase 4")
+    phase(f"phase 3g: the mesh on one card: (m1) a world of 1 on NCCL, (m4) "
+          f"{MESH_RANKS} gloo ranks in process and as cluster commands, "
+          f"(m3c) {MESH_CMIN_RANKS} cminhash ranks; (h-m2) after phase 4")
     mesh = mesh_phase(items, truth, plain24["labels"], dev)
 
-    log(f"phase 3h: the pod on one card: (p2) {POD_PROCESSES} processes "
-        f"cold over {WARM_BASE} rows, warm over {WARM_ROWS}; (p-kill), "
-        f"(p-lead), (p-zombie) at {POD_FAULT_ROWS} rows")
+    phase(f"phase 3h: the pod on one card: (p2) {POD_PROCESSES} processes "
+          f"cold over {WARM_BASE} rows, warm over {WARM_ROWS}; (p-kill), "
+          f"(p-lead), (p-zombie) at {POD_FAULT_ROWS} rows")
     pod = pod_phase(warm, dev)
     del warm["items"]
 
-    log(f"phase 4: the RQ path, the golden study's eight artifacts and a "
-        f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
-        f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
+    phase(f"phase 3i: the schedule explorer on the card: serve and router, "
+          f"{EXPLORE_SEEDED} seeded schedules and the depth-{EXPLORE_BOUND} "
+          "enumeration each, signer='device'; the committed strings replayed")
+    trace = explorer_phase(dev)
+
+    phase(f"phase 4: the RQ path, the golden study's eight artifacts and a "
+          f"{RQ_SPEC['n_projects']}-project study, its suite (tolerance: "
+          f"exact, Spearman and mean {RQ_TOL}) and all six drivers")
     rq = rq_phase(dev)
-    log(f"phase 3g (h-m2): all as {ALL_RANKS} ranks over phase 4's study")
+    phase(f"phase 4c: the auto router over phase 4's study, {AUTO_ROUNDS} "
+          "rounds of the six RQs and the suite, then all over the golden "
+          "study under TSE1M_BACKEND=auto")
+    auto_router_phase(rq, dev)
+    phase(f"phase 3g (h-m2): all as {ALL_RANKS} ranks over phase 4's study")
     mesh_all(rq, mesh)
 
-    log("phase 4b: the study arrives: phase 4's study as the collectors' "
-        "CSVs (ingest) and as a pg_dump (restore), stats, the native "
-        "decoder and the native delta grouper")
+    phase("phase 4b: the study arrives: phase 4's study as the collectors' "
+          "CSVs (ingest) and as a pg_dump (restore), stats, the native "
+          "decoder and the native delta grouper")
     study_load_phase(rq, items[plan["keep"]],
                      default["info"]["stages"]["stage_encode_s"], dev)
     del rq
 
-    log(f"phase 5: timing (CUDA events around {args.calls_per_window} "
-        "calls, median)")
+    phase(f"phase 5: timing (CUDA events around {args.calls_per_window} "
+          "calls, median)")
     times = timing(items, plan, dev, hp.arrays, topk, warm["scan_args"],
                    args.calls_per_window)
     times["rans_decode"] = times["rans_decode:rep"]
@@ -4918,12 +5193,13 @@ def main() -> int:
         "resilience_launches": resil["launches"].get(name, 0),
         "mesh_launches": mesh["launches"].get(name, 0),
         "pod_launches": pod["launches"].get(name, 0),
+        "trace_launches": trace["launches"].get(name, 0),
         "warm_shapes": {case.split(":")[1]: t for case, t in times.items()
                         if case.split(":")[0] == name
                         and case.endswith((":novel", ":scan"))},
     } for name, k in KERNELS.items()]
     card = card_name_and_limit()
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels_line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -155,3 +155,53 @@ def test_sig_store_from_the_ini_and_the_environment_as_jax(
     assert build_parser().parse_args(["cluster"]).sig_store == expect
     assert build_parser().parse_args(
         ["cluster", "--sig-store", "cli_store"]).sig_store == "cli_store"
+
+
+@pytest.mark.parametrize("ini,env", [
+    (None, None), ("auto", None), ("pandas", None), ("jax_tpu", None),
+    (None, "auto"), ("auto", "jax_tpu"), ("pandas", "auto"),
+])
+def test_backend_from_the_ini_and_the_environment_as_jax(tmp_path,
+                                                         monkeypatch, ini,
+                                                         env):
+    """``backend``: the default, then the INI's ``[FRAMEWORK] backend``,
+    then TSE1M_BACKEND, as JAX reads it."""
+    fw = {"backend": ini} if ini else {}
+    monkeypatch.setenv("TSE1M_ENVFILE", _write_ini(tmp_path / "env.ini",
+                                                   **fw))
+    if env:
+        monkeypatch.setenv("TSE1M_BACKEND", env)
+    want = env or ini or "pandas"
+    assert tconfig.load_config().backend == want
+    assert jconfig.load_config().backend == want
+    assert tconfig.Config().backend == jconfig.Config().backend
+
+
+@pytest.mark.parametrize("where", ["ini", "env"])
+def test_unknown_backend_refused_in_jax_words(tmp_path, monkeypatch, where):
+    monkeypatch.setenv("TSE1M_ENVFILE", _write_ini(
+        tmp_path / "env.ini", **({"backend": "cuda"} if where == "ini"
+                                 else {})))
+    if where == "env":
+        monkeypatch.setenv("TSE1M_BACKEND", "cuda")
+    for load in (tconfig.load_config, jconfig.load_config):
+        with pytest.raises(ValueError, match="unknown backend 'cuda'; "
+                           "expected 'pandas', 'jax_tpu' or 'auto'"):
+            load()
+
+
+@pytest.mark.parametrize("ini,env,want", [
+    (None, None, None), ("ini_cal.json", None, "ini_cal.json"),
+    (None, "env_cal.json", "env_cal.json"),
+    ("ini_cal.json", "env_cal.json", "env_cal.json"),
+])
+def test_router_cal_path_from_the_ini_and_the_environment_as_jax(
+        tmp_path, monkeypatch, ini, env, want):
+    fw = {"router_cal_path": str(tmp_path / ini)} if ini else {}
+    monkeypatch.setenv("TSE1M_ENVFILE", _write_ini(tmp_path / "env.ini",
+                                                   **fw))
+    if env:
+        monkeypatch.setenv("TSE1M_ROUTER_CAL", str(tmp_path / env))
+    expect = str(tmp_path / want) if want else None
+    assert tconfig.load_config().router_cal_path == expect
+    assert jconfig.load_config().router_cal_path == expect

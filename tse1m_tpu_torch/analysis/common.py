@@ -4,7 +4,9 @@ common.py:24-84``.
 ``StudyContext.open`` opens the study database (``cfg.engine``), prints the study-design
 lines of the reference transcript (rq1_detection_rate.py:121-153),
 extracts ``StudyArrays`` for the eligible projects (the first 10 in test
-mode) and holds a ``TorchBackend`` on the device asked for.
+mode) and holds the backend ``get_backend(cfg, device)`` gives: a
+``TorchBackend`` on the device asked for, or under ``backend = auto`` on
+a card the per-RQ router (``backend/auto.py``).
 
 ``pyplot`` and ``Figures`` draw the drivers' PDFs.  matplotlib is imported
 inside the functions that draw, never when a module is imported (the
@@ -22,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..backend import TorchBackend
+from ..backend import Backend, get_backend
 from ..config import FIXED_STATUSES, Config, load_config
 from ..data.columnar import StudyArrays
 from ..db import queries
@@ -47,7 +49,7 @@ def fmt_ts_ns(ns: int) -> str:
 class StudyContext:
     cfg: Config
     db: DB
-    backend: TorchBackend
+    backend: Backend
     projects: list
     arrays: StudyArrays
 
@@ -57,7 +59,7 @@ class StudyContext:
              device: str | torch.device = "cuda") -> "StudyContext":
         cfg = cfg or load_config()
         # The device first: without a card this raises before any work.
-        backend = TorchBackend(device)
+        backend = get_backend(cfg, device)
         if db is None:
             db = DB(config=cfg).connect()
         db.require_study_tables()

@@ -173,6 +173,7 @@ def run_rq1(cfg: Config | None = None, db=None,
         n_iterations=len(result.iterations),
         late_stage=late,
     )
+    manifest.record_backend(ctx.backend)
     manifest.save(out_dir, timer.as_dict())
     return {"result": result, "late": late, "stats_csv": stats_path,
             "raw_csv": raw_path}

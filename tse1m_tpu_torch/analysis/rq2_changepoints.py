@@ -107,6 +107,7 @@ def run_rq2_changepoints(cfg: Config | None = None, db=None,
             manifest.add_artifact(merged)
 
     manifest.record(n_changes=n_changes, n_projects=len(per_project))
+    manifest.record_backend(ctx.backend)
     manifest.save(out_dir, timer.as_dict())
     return {"result": result, "merged_csv": merged if all_rows else None}
 

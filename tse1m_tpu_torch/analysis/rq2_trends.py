@@ -276,6 +276,7 @@ def run_rq2_trends(cfg: Config | None = None, db=None,
         normality={"tested": tested, "normal": normal},
         **stats,
     )
+    manifest.record_backend(ctx.backend)
     manifest.save(out_dir, timer.as_dict())
     return {"result": result, "stats": stats, "csv": csv_path}
 

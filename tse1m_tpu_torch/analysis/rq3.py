@@ -279,6 +279,7 @@ def run_rq3(cfg: Config | None = None, db=None,
         summary=stats_summary,
         tests=tests,
     )
+    manifest.record_backend(ctx.backend)
     manifest.save(out_dir, timer.as_dict())
     print("\n--- RQ3 Analysis Finished ---")
     return {"result": result, "summary": stats_summary, "tests": tests,

@@ -280,6 +280,7 @@ def run_rq4a(cfg: Config | None = None, db=None,
             "pre_rate": pre_rate, "post_rate": post_rate,
             "transitions": tc},
     )
+    manifest.record_backend(ctx.backend)
     manifest.save(out_dir, timer.as_dict())
     print("--- RQ4 Bug Detection Trend Analysis Finished ---")
     return {"result": result, "prepost": prepost, "groups": groups,

@@ -434,6 +434,7 @@ def run_rq4b(cfg: Config | None = None, db=None,
                 "missing_pre": len(deltas["missing_pre"]),
                 "post_truncated": len(deltas["post_truncated"])},
     )
+    manifest.record_backend(ctx.backend)
     manifest.save(out_dir, timer.as_dict())
     print("--- Analysis Finished ---")
     return {"result": result, "p_values": p_values, "summary": summary,

@@ -6,7 +6,8 @@ while ``compute`` accrues on the main thread, so summed stage walls exceed
 the elapsed wall exactly when the overlap works; ``as_dict`` reports that
 surplus as ``h2d_overlap_fraction``.  Stage names and the flat
 ``stage_<name>_s`` / ``stage_<name>_mb`` keys follow the JAX package's
-``tse1m_tpu.observability.StageRecorder``.
+``tse1m_tpu.observability.StageRecorder``, and so does the lockset
+detector's field name, ``stages``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import time
 from collections import defaultdict
 
 from ..trace import sync as tsync
+from ..trace.hooks import shared_access
 
 
 class StageRecorder:
@@ -29,6 +31,7 @@ class StageRecorder:
 
     def add(self, stage: str, seconds: float, nbytes: int = 0) -> None:
         with self._lock:
+            shared_access(self, "stages", write=True)
             self.wall[stage] += seconds
             self.nbytes[stage] += nbytes
 
@@ -42,12 +45,14 @@ class StageRecorder:
 
     def set_total(self, seconds: float) -> None:
         with self._lock:
+            shared_access(self, "stages", write=True)
             self.total_wall_s = seconds
 
     def as_dict(self) -> dict:
         """Flat form: stage_<name>_s / stage_<name>_mb keys, the total wall
         and the fraction of H2D seconds hidden behind other stages."""
         with self._lock:
+            shared_access(self, "stages", write=False)
             walls, nbytes = dict(self.wall), dict(self.nbytes)
             total = self.total_wall_s
         out: dict = {}

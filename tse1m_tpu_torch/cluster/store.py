@@ -42,9 +42,11 @@ JAX package; a shard quarantined while opening is also kept in
 ``quarantined_at_open``.  ``scrub`` walks the frames and reports the
 ``store_scrub_*`` keys; ``verify_signatures`` recomputes a seeded sample
 of stored signatures from raw rows on the host, which catches corruption
-that happened before a frame was written.  The JAX package's trace and
-span hooks (``trace_point``, ``shared_access``, ``span``) belong to its
-trace plane, which is not ported.  The mesh runs storeless
+that happened before a frame was written.  The trace plane's seats
+(``trace_point``, ``shared_access``) sit where the JAX package's do, with
+its site strings: append, evict, compact, refresh, and each swap of the
+probe-index snapshot ``_snap``; the schedule explorer's ``store`` and
+``store-evict`` scenarios drive them (``trace/explore.py``).  The mesh runs storeless
 (``parallel/``); the pod path (``cluster_sessions_pod``) runs over
 ``ShardedSignatureStore``: one ``SignatureStore`` a digest range under a
 shared root, each range written by its one owner under an epoch lease and
@@ -62,7 +64,9 @@ import os
 import numpy as np
 
 from ..observability import record_degradation
+from ..observability.tracing import span
 from ..resilience.faults import fault_point
+from ..trace.hooks import shared_access, trace_point
 from ..utils.atomic import atomic_write
 from ..utils.retry import io_retry_policy, retry_call
 
@@ -566,8 +570,10 @@ class SignatureStore:
         if len(snap.deltas) >= self._delta_max():
             self._build_index()
             return
+        trace_point("store.index.delta")
         # One swap: readers see the old snapshot or (base, deltas+run),
         # never a half-extended view.
+        shared_access(self, "_snap", write=True, atomic=True)
         self._snap = _IndexSnapshot(
             snap.base, snap.deltas + (self._delta_index_for(sid, keys2d),))
 
@@ -611,6 +617,8 @@ class SignatureStore:
             base = _ProbeIndex("mmap",
                                keys2d_mm.view(_DIG_DT).reshape(-1),
                                keys2d_mm, loc_mm[:, 0], loc_mm[:, 1])
+        trace_point("store.index.publish")
+        shared_access(self, "_snap", write=True, atomic=True)
         self._snap = _IndexSnapshot(base)
 
     @property
@@ -658,6 +666,7 @@ class SignatureStore:
         return False  # the loop always returns or raises
 
     def _refresh_once(self) -> bool:
+        trace_point("store.refresh")
         meta = self._load_json(self._manifest_path)
         if meta is None:
             return False
@@ -717,6 +726,8 @@ class SignatureStore:
             if len(snap.deltas) + len(runs) > self._delta_max():
                 self._build_index()
             else:
+                trace_point("store.index.delta")
+                shared_access(self, "_snap", write=True, atomic=True)
                 self._snap = _IndexSnapshot(snap.base,
                                             snap.deltas + runs)
         return True
@@ -780,6 +791,7 @@ class SignatureStore:
         hit = np.zeros(n, bool)
         # ONE snapshot reference read; append/refresh/consolidation swap
         # `_snap` whole, so base and deltas can never be torn apart.
+        shared_access(self, "_snap", write=False, atomic=True)
         snap = self._snap
         idx = snap.base
         deltas = snap.deltas
@@ -870,6 +882,7 @@ class SignatureStore:
         CRC-framed, and retried (a torn write rewrites the temp files
         from scratch)."""
         self._require_writable("append")
+        trace_point("store.append")
         if digests.shape[0] == 0:
             return 0
         hit, _, _ = self.bulk_probe(digests)
@@ -881,36 +894,37 @@ class SignatureStore:
         _, first = np.unique(_as_struct(d), return_index=True)
         first.sort()
         d, s = d[first], s[first]
-        sid = 1 + max((int(e["id"]) for e in self.shards), default=-1)
-        sig_path, key_path = self._sig_path(sid), self._key_path(sid)
-        sig_tmp, key_tmp = sig_path + ".tmp.npy", key_path + ".tmp.npy"
-        crcs = {}
+        with span("store.append", rows=int(d.shape[0])):
+            sid = 1 + max((int(e["id"]) for e in self.shards), default=-1)
+            sig_path, key_path = self._sig_path(sid), self._key_path(sid)
+            sig_tmp, key_tmp = sig_path + ".tmp.npy", key_path + ".tmp.npy"
+            crcs = {}
 
-        def write_shard() -> None:
-            np.save(sig_tmp, s)
-            np.save(key_tmp, d)
-            # Frame BEFORE the rename: the checksum covers the bytes
-            # the commit publishes, and a torn write re-frames.
-            crcs["sig"] = file_crc(sig_tmp)
-            crcs["key"] = file_crc(key_tmp)
-            fault_point("store.sig.save", path=sig_tmp)
-            os.replace(sig_tmp, sig_path)
-            os.replace(key_tmp, key_path)
+            def write_shard() -> None:
+                np.save(sig_tmp, s)
+                np.save(key_tmp, d)
+                # Frame BEFORE the rename: the checksum covers the bytes
+                # the commit publishes, and a torn write re-frames.
+                crcs["sig"] = file_crc(sig_tmp)
+                crcs["key"] = file_crc(key_tmp)
+                fault_point("store.sig.save", path=sig_tmp)
+                os.replace(sig_tmp, sig_path)
+                os.replace(key_tmp, key_path)
 
-        retry_call(write_shard, policy=io_retry_policy(),
-                   site="store.sig.save")
-        self.shards.append({"id": sid, "rows": int(d.shape[0]),
-                            "sig_crc": crcs["sig"],
-                            "key_crc": crcs["key"],
-                            "probe_gen": self._probe_gen})
-        self._write_manifest()
-        n_before = len(self.shards)
-        self._evict(keep_sid=sid)
-        if len(self.shards) != n_before:
-            self._build_index()  # layout shrank: consolidate
-        else:
-            self._push_delta(sid, d)
-        return int(d.shape[0])
+            retry_call(write_shard, policy=io_retry_policy(),
+                       site="store.sig.save")
+            self.shards.append({"id": sid, "rows": int(d.shape[0]),
+                                "sig_crc": crcs["sig"],
+                                "key_crc": crcs["key"],
+                                "probe_gen": self._probe_gen})
+            self._write_manifest()
+            n_before = len(self.shards)
+            self._evict(keep_sid=sid)
+            if len(self.shards) != n_before:
+                self._build_index()  # layout shrank: consolidate
+            else:
+                self._push_delta(sid, d)
+            return int(d.shape[0])
 
     def _evict(self, keep_sid: int) -> None:
         """LRU whole-shard eviction down to ``max_bytes`` (never the
@@ -929,6 +943,7 @@ class SignatureStore:
             victim = min(candidates,
                          key=lambda e: (int(e.get("probe_gen", 0)),
                                         int(e["id"])))
+            trace_point("store.evict")
             self.shards.remove(victim)
             self._write_manifest()
             self._mmaps.pop(int(victim["id"]), None)
@@ -956,6 +971,7 @@ class SignatureStore:
         any append; a SIGKILL mid-write leaves temps the next open
         sweeps and the old shards untouched."""
         self._require_writable("compact")
+        trace_point("store.compact")
         if len(self.shards) < max(2, min_shards):
             return 0
         old = list(self.shards)

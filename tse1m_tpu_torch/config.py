@@ -6,7 +6,10 @@ signature store and the storage engine with its Postgres server, with the
 JAX package's defaults.  ``load_config`` reads them as the JAX package
 does: the ``[POSTGRES]`` and ``[FRAMEWORK]`` sections of the INI at
 ``TSE1M_ENVFILE`` (else ``program/envFile.ini``), then the environment.
-This package has no backend switch: the RQ path runs on ``TorchBackend``.
+The backend switch takes the JAX package's values: ``auto`` routes each
+RQ between the card and the CPU, ``pandas`` and ``jax_tpu`` keep the RQ
+path on ``TorchBackend`` on the device it was given
+(``backend/__init__.py:get_backend``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ class PostgresConfig:
 
 @dataclass
 class Config:
+    # RQ backend switch: "pandas", "jax_tpu" or "auto" (the JAX package's
+    # values and default; see backend/__init__.py for what each gives).
+    backend: str = "pandas"
     # Storage engine: "sqlite" (embedded) or "postgres" (the reference's,
     # through psycopg2 or libpq; sqlite at sqlite_path when neither loads).
     engine: str = "sqlite"
@@ -69,6 +75,9 @@ class Config:
     # Per-statement timeout in ms: Postgres `SET statement_timeout`, the
     # sqlite busy timeout and its statement deadline.  0 = off.
     db_statement_timeout_ms: int = 0
+    # The auto router's persisted calibration (backend/auto.py); None =
+    # in memory only.  Env TSE1M_ROUTER_CAL.
+    router_cal_path: str | None = None
 
 
 def ini_path(path: str | None = None) -> str | None:
@@ -81,12 +90,14 @@ def ini_path(path: str | None = None) -> str | None:
 def load_config(ini: str | None = None) -> Config:
     """Defaults, then the INI's ``[POSTGRES]`` keys (POSTGRES_DB,
     POSTGRES_USER, POSTGRES_PASSWORD, POSTGRES_IP, POSTGRES_PORT) and
-    ``[FRAMEWORK]`` keys engine, sqlite_path, limit_date, result_dir,
-    corpus_csv, test_mode, sig_store and db_statement_timeout_ms, then the
-    environment: TSE1M_ENGINE, TSE1M_SQLITE_PATH, TSE1M_CORPUS_CSV,
-    TSE1M_RESULT_DIR, TSE1M_TEST_MODE (1/true/yes), TSE1M_SIG_STORE,
-    TSE1M_DB_STATEMENT_TIMEOUT_MS.  An engine other than sqlite or
-    postgres raises ValueError."""
+    ``[FRAMEWORK]`` keys backend, engine, sqlite_path, limit_date,
+    result_dir, corpus_csv, test_mode, sig_store, db_statement_timeout_ms
+    and router_cal_path, then the environment: TSE1M_BACKEND,
+    TSE1M_ENGINE, TSE1M_SQLITE_PATH, TSE1M_CORPUS_CSV, TSE1M_RESULT_DIR,
+    TSE1M_TEST_MODE (1/true/yes), TSE1M_ROUTER_CAL, TSE1M_SIG_STORE,
+    TSE1M_DB_STATEMENT_TIMEOUT_MS.  A backend other than pandas, jax_tpu
+    or auto, or an engine other than sqlite or postgres, raises
+    ValueError."""
     cfg = Config()
     path = ini_path(ini)
     if path:
@@ -102,6 +113,7 @@ def load_config(ini: str | None = None) -> Config:
                 port=pg.getint("POSTGRES_PORT", cfg.postgres.port))
         if parser.has_section("FRAMEWORK"):
             fw = parser["FRAMEWORK"]
+            cfg.backend = fw.get("backend", cfg.backend)
             cfg.engine = fw.get("engine", cfg.engine)
             cfg.sqlite_path = fw.get("sqlite_path", cfg.sqlite_path)
             cfg.limit_date = fw.get("limit_date", cfg.limit_date)
@@ -111,6 +123,9 @@ def load_config(ini: str | None = None) -> Config:
             cfg.sig_store = fw.get("sig_store", cfg.sig_store)
             cfg.db_statement_timeout_ms = fw.getint(
                 "db_statement_timeout_ms", cfg.db_statement_timeout_ms)
+            cfg.router_cal_path = fw.get("router_cal_path",
+                                         cfg.router_cal_path)
+    cfg.backend = os.environ.get("TSE1M_BACKEND", cfg.backend)
     cfg.engine = os.environ.get("TSE1M_ENGINE", cfg.engine)
     cfg.sqlite_path = os.environ.get("TSE1M_SQLITE_PATH", cfg.sqlite_path)
     cfg.corpus_csv = os.environ.get("TSE1M_CORPUS_CSV", cfg.corpus_csv)
@@ -118,10 +133,15 @@ def load_config(ini: str | None = None) -> Config:
     if "TSE1M_TEST_MODE" in os.environ:
         cfg.test_mode = os.environ["TSE1M_TEST_MODE"].lower() in (
             "1", "true", "yes")
+    cfg.router_cal_path = os.environ.get("TSE1M_ROUTER_CAL",
+                                         cfg.router_cal_path)
     cfg.sig_store = os.environ.get("TSE1M_SIG_STORE", cfg.sig_store)
     if "TSE1M_DB_STATEMENT_TIMEOUT_MS" in os.environ:
         cfg.db_statement_timeout_ms = int(
             os.environ["TSE1M_DB_STATEMENT_TIMEOUT_MS"])
+    if cfg.backend not in ("pandas", "jax_tpu", "auto"):
+        raise ValueError(f"unknown backend {cfg.backend!r}; expected "
+                         "'pandas', 'jax_tpu' or 'auto'")
     if cfg.engine not in ("sqlite", "postgres"):
         raise ValueError(f"unknown engine {cfg.engine!r}; expected "
                          "'sqlite' or 'postgres'")

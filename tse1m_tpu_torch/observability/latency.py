@@ -7,7 +7,9 @@ the JAX package's edges, so the same walls give the same ``p50_ms`` and
 load, and ``add`` is one increment under a lock.  Time is read through
 ``resilience.watchdog.deadline_clock``.  Percentiles interpolate within
 the matched bucket's log-spaced bounds (error bounded by the ~12% bucket
-ratio).
+ratio).  The lockset detector's seats (``shared_access(self,
+"buckets")``) sit under the lock, as in the JAX package; JAX's
+``reset_window`` (a bench-only call) and its seat have no counterpart.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import math
 
 from ..resilience.watchdog import deadline_clock
 from ..trace import sync as tsync
+from ..trace.hooks import shared_access
 
 _BUCKETS_PER_DECADE = 20
 _N_BUCKETS = 9 * _BUCKETS_PER_DECADE  # 1e-6 s .. 1e3 s
@@ -54,6 +57,7 @@ class LatencyRecorder:
     def add(self, seconds: float) -> None:
         b = _bucket_of(seconds)
         with self._lock:
+            shared_access(self, "buckets", write=True)
             self._counts[b] += 1
             self._n += 1
             self._total_s += seconds
@@ -82,6 +86,7 @@ class LatencyRecorder:
 
     def snapshot(self) -> dict:
         with self._lock:
+            shared_access(self, "buckets", write=False)
             if self._n == 0:
                 return {"count": 0, "p50_ms": 0.0, "p99_ms": 0.0,
                         "max_ms": 0.0, "mean_ms": 0.0, "qps": 0.0}
@@ -104,6 +109,7 @@ class LatencyRecorder:
         ``{"le": upper_bound_s, "count": cumulative}``, plus ``sum`` and
         ``count``."""
         with self._lock:
+            shared_access(self, "buckets", write=False)
             out = []
             cum = 0
             for b, c in enumerate(self._counts):

@@ -12,6 +12,7 @@ the registry.  Every type is thread-safe.
 from __future__ import annotations
 
 from ..trace import sync as tsync
+from ..trace.hooks import shared_access
 from .latency import LatencyRecorder
 
 
@@ -32,11 +33,13 @@ class Counter:
         if n < 0:
             raise ValueError(f"counter {self.name} cannot decrease")
         with self._lock:
+            shared_access(self, "value", write=True)
             self._value += int(n)
 
     @property
     def value(self) -> int:
         with self._lock:
+            shared_access(self, "value", write=False)
             return self._value
 
 
@@ -51,16 +54,19 @@ class Gauge:
 
     def set(self, v: float) -> None:
         with self._lock:
+            shared_access(self, "value", write=True)
             self._value = float(v)
 
     def set_max(self, v: float) -> None:
         with self._lock:
+            shared_access(self, "value", write=True)
             if float(v) > self._value:
                 self._value = float(v)
 
     @property
     def value(self) -> float:
         with self._lock:
+            shared_access(self, "value", write=False)
             return self._value
 
 
@@ -93,6 +99,7 @@ class MetricsRegistry:
     def _get(self, kind, name: str, labels: dict):
         key = (name, _label_key(labels))
         with self._lock:
+            shared_access(self, "metrics", write=True)
             m = self._metrics.get(key)
             if m is None:
                 m = kind(name, labels)
@@ -115,11 +122,13 @@ class MetricsRegistry:
     def collect(self) -> list:
         """All registered metrics, sorted by (name, labels)."""
         with self._lock:
+            shared_access(self, "metrics", write=False)
             items = sorted(self._metrics.items())
         return [m for _, m in items]
 
     def clear(self) -> None:
         with self._lock:
+            shared_access(self, "metrics", write=True)
             self._metrics = {}
 
 

@@ -41,9 +41,9 @@ Overhead discipline: the sampler is a ``daemon=True`` thread named
 samplers, detaches the lock-wait recorder, makes a running sampler loop
 exit and turns :func:`device_trace` into a no-op.
 
-Left out: the JAX package's explorer hooks (``trace_point``,
-``shared_access``) on the sampler's and the slow-request log's state;
-its schedule explorer is not ported.
+The sampler's and the slow-request log's state carry the trace plane's
+seats (``shared_access``, ``profiling.slowlog.append``) with the JAX
+package's names, so ``trace.traced()`` audits them.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ import threading
 
 from ..resilience.watchdog import deadline_clock
 from ..trace import sync as tsync
+from ..trace.hooks import shared_access, trace_point
 from ..utils.atomic import atomic_write
 from . import tracing
 from .flight import get_flight_dir
@@ -156,6 +157,7 @@ class Sampler:
         if not profiling_enabled():
             return False
         with self._lock:
+            shared_access(self, "thread", write=True)
             if self._thread is not None and self._thread.is_alive():
                 return True
             self._stop_evt = threading.Event()
@@ -168,6 +170,7 @@ class Sampler:
 
     def stop(self, timeout: float = 2.0) -> None:
         with self._lock:
+            shared_access(self, "thread", write=True)
             th = self._thread
             evt = self._stop_evt
             self._thread = None
@@ -177,6 +180,7 @@ class Sampler:
 
     def alive(self) -> bool:
         with self._lock:
+            shared_access(self, "thread", write=False)
             th = self._thread
         return th is not None and th.is_alive()
 
@@ -192,6 +196,7 @@ class Sampler:
         me = threading.get_ident()
         frames = sys._current_frames()
         with self._lock:
+            shared_access(self, "stacks", write=True)
             for tid, frame in frames.items():
                 if tid == me:
                     continue
@@ -225,6 +230,7 @@ class Sampler:
         """JSON-safe aggregate: total samples, per-plane and per-span
         self-time, and how long the sampler has run."""
         with self._lock:
+            shared_access(self, "stacks", write=False)
             samples = self._samples
             planes = dict(self._plane_self)
             spans = dict(self._span_self)
@@ -242,6 +248,7 @@ class Sampler:
     def collapsed(self, limit: int | None = None) -> list:
         """Flamegraph lines ``frame;frame;frame count``, hottest first."""
         with self._lock:
+            shared_access(self, "stacks", write=False)
             items = sorted(self._stacks.items(), key=lambda kv: -kv[1])
         if limit is not None:
             items = items[:int(limit)]
@@ -252,6 +259,7 @@ class Sampler:
         """Samples whose timestamp falls in ``[t0, t1]`` (deadline_clock
         axis), optionally of one thread."""
         with self._lock:
+            shared_access(self, "stacks", write=False)
             recent = list(self._recent)
         out = []
         for t, sample_tid, span_name, collapsed in recent:
@@ -412,12 +420,15 @@ class SlowRequestLog:
         self._total = 0
 
     def append(self, record: dict) -> None:
+        trace_point("profiling.slowlog.append")
         with self._lock:
+            shared_access(self, "buf", write=True)
             self._buf.append(record)
             self._total += 1
 
     def recent(self, n: int | None = None) -> list:
         with self._lock:
+            shared_access(self, "buf", write=False)
             out = list(self._buf)
         if n is not None:
             out = out[-int(n):]
@@ -425,10 +436,12 @@ class SlowRequestLog:
 
     def total(self) -> int:
         with self._lock:
+            shared_access(self, "buf", write=False)
             return self._total
 
     def clear(self) -> None:
         with self._lock:
+            shared_access(self, "buf", write=True)
             self._buf.clear()
             self._total = 0
 

@@ -13,8 +13,8 @@ a process-wide trace id.
 Completed spans land in a bounded ring (:class:`SpanRing`): the flight
 recorder's span source and the TCP ``trace`` verb's store.  Open spans
 with ``with span(name): ...``; the manual ``start_span``/``Span.end`` pair
-belongs in a ``try/finally``.  The JAX package's trace-point and
-shared-access hooks (its schedule explorer) are not ported.
+belongs in a ``try/finally``.  The ring carries the trace plane's seats
+with the JAX package's names (``tracing.ring.append``, ``SpanRing.buf``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import threading
 
 from ..resilience.watchdog import deadline_clock
 from ..trace import sync as tsync
+from ..trace.hooks import shared_access, trace_point
 
 _DEFAULT_RING = 512
 
@@ -49,7 +50,9 @@ class SpanRing:
         self._total = 0
 
     def append(self, record: dict) -> None:
+        trace_point("tracing.ring.append")
         with self._lock:
+            shared_access(self, "buf", write=True)
             self._buf[self._next] = record
             self._next = (self._next + 1) % self.capacity
             self._total += 1
@@ -57,6 +60,7 @@ class SpanRing:
     def recent(self, n: int | None = None) -> list:
         """Last ``n`` completed spans, oldest first."""
         with self._lock:
+            shared_access(self, "buf", write=False)
             if self._total < self.capacity:
                 out = list(self._buf[:self._next])
             else:
@@ -67,10 +71,12 @@ class SpanRing:
 
     def total(self) -> int:
         with self._lock:
+            shared_access(self, "buf", write=False)
             return self._total
 
     def clear(self) -> None:
         with self._lock:
+            shared_access(self, "buf", write=True)
             self._buf = [None] * self.capacity
             self._next = 0
             self._total = 0

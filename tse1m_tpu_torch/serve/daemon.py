@@ -43,9 +43,13 @@ its tenure at the JAX package's two fence points: before each state
 commit, and in each ingest batch after the seat
 ``fault_point("serve.ingest.commit")`` and before the append.  A writer
 whose range was claimed at a later epoch raises ``LeaseSupersededError``
-there with zero rows written, and refuses ingest from then on.  Left out
-against the JAX package: the schedule explorer's trace points (ROADMAP.md
-Queue 1, "Serve plane").
+there with zero rows written, and refuses ingest from then on.
+
+The trace plane's seats (``trace_point``, ``shared_access``) sit where
+the JAX package's do, with its site strings: the index swap, the state
+commit, the queue's put and get, and the snapshot read of ``query`` and
+``topk``.  The schedule explorer's ``serve`` and ``router`` scenarios
+drive them (``trace/explore.py``).
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ from ..observability.tracing import continue_trace, current_trace, span
 from ..resilience.coordinator import LeaseSupersededError
 from ..resilience.faults import fault_point
 from ..resilience.watchdog import StageWatchdog, deadline_clock
+from ..trace.hooks import shared_access, trace_point
 from .slo import AdmissionController, SloPolicy, SloTracker
 
 log = logging.getLogger("tse1m_tpu_torch.serve.daemon")
@@ -234,11 +239,13 @@ class ServeDaemon:
     thread; everything that WRITES (store appends, state commits, index
     swaps) happens on the one ingest thread.
 
-    ``device`` is where content-novel rows are MinHashed and where the
-    scan runs: the card unless the caller asks for the CPU (the kernels'
-    plain versions); without a card the constructor raises.  The JAX
-    package's ``signer="host"`` option (novel rows signed on the host while
-    a card is present) has no caller here and is left out.
+    ``device`` is where the scan runs and, under ``signer="device"`` (the
+    default), where content-novel rows are MinHashed: the card unless the
+    caller asks for the CPU (the kernels' plain versions); without a card
+    the constructor raises.  ``signer="host"`` signs content-novel rows
+    with the numpy mirror instead (``cluster.schemes.scheme_host_signatures``,
+    bit-identical to the kernels), as the JAX package's option does; the
+    schedule explorer's scenarios use it.
 
     ``lease_guard`` (a ``RangeLeaseGuard``) makes this daemon a fenced
     shard writer: see the module docstring."""
@@ -248,8 +255,12 @@ class ServeDaemon:
                  slo: SloPolicy | None = None,
                  state_commit_every: int = 8,
                  device: str | torch.device = "cuda",
-                 lease_guard=None) -> None:
+                 lease_guard=None, signer: str = "device") -> None:
+        if signer not in ("device", "host"):
+            raise ValueError(f"unknown signer {signer!r}; expected "
+                             "'device' or 'host'")
         self.device = resolve_device(device)
+        self.signer = signer
         self.lease_guard = lease_guard
         if is_sharded_root(store_dir):
             raise ValueError(
@@ -420,6 +431,8 @@ class ServeDaemon:
             np.ascontiguousarray(digests, np.uint64))
         # THE publication point: one reference swap; concurrent queries
         # keep whichever snapshot they already took.
+        trace_point("serve.index.swap")
+        shared_access(self, "_index", write=True, atomic=True)
         self._index = new_index
         obs_metrics.gauge("serve_store_generation").set(
             self.store.generation)
@@ -432,6 +445,7 @@ class ServeDaemon:
                 else np.empty((0, 2), np.uint64))
 
     def _commit_state(self) -> None:
+        trace_point("serve.state.commit")
         index = self._index
         if index.n_rows == 0:
             return
@@ -463,6 +477,7 @@ class ServeDaemon:
             raise IngestRejected(depth, retry_after)
         t = _Ticket(np.ascontiguousarray(items, np.uint32),
                     request_id=request_id)
+        trace_point("serve.queue.put")
         self._q.put(t)
         return t
 
@@ -474,6 +489,7 @@ class ServeDaemon:
     def _ingest_loop(self) -> None:
         while not self._stop.is_set():
             try:
+                trace_point("serve.queue.get")
                 t = self._q.get(timeout=0.1)
             except queue.Empty:
                 continue
@@ -625,7 +641,11 @@ class ServeDaemon:
 
     def _sign_novel(self, rows: np.ndarray) -> np.ndarray:
         """[K, S] raw rows -> [K, H] uint32 signatures under the store
-        policy, on ``self.device``."""
+        policy: on the host under ``signer="host"``, else on
+        ``self.device``."""
+        if self.signer == "host":
+            sub = quantize_ids(rows, self.qbits) if self.qbits else rows
+            return scheme_host_signatures(sub, self._hp)
         return minhash_novel_rows(rows, self.params, self.qbits,
                                   rec=self.rec, wd=self.watchdog,
                                   device=self.device)
@@ -654,6 +674,7 @@ class ServeDaemon:
         a new singleton cluster."""
         t0 = deadline_clock()
         vectors = np.ascontiguousarray(vectors, np.uint32)
+        shared_access(self, "_index", write=False, atomic=True)
         index = self._index  # ONE snapshot reference for the whole query
         n = int(vectors.shape[0])
         digests = row_digests(vectors)
@@ -691,6 +712,7 @@ class ServeDaemon:
         wire contract."""
         t0 = deadline_clock()
         vectors = np.ascontiguousarray(vectors, np.uint32)
+        shared_access(self, "_index", write=False, atomic=True)
         index = self._index  # ONE snapshot reference for the whole call
         res = _topk_answer(self, index, self.reader,
                            lambda u: self._gather_reader_sigs(index, u),

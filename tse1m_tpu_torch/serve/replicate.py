@@ -20,7 +20,9 @@ writer's manifest generation minus the replica's.  ``query`` and
 ``topk(mode="candidates")`` stay on the host, as the JAX package's do;
 ``topk(mode="scan")`` scores every streamed row on ``device`` through
 ``bulk_topk_store`` (the top-k kernel on the card).  The write-plane verbs
-refuse with the JAX package's messages.
+refuse with the JAX package's messages.  The trace plane's seats sit where
+the JAX package's do (the pull, the adoption swap, ``refresh`` and the
+snapshot reads); the schedule explorer's ``replica`` scenario drives them.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ..observability import metrics as obs_metrics
 from ..observability.latency import LatencyRecorder
 from ..resilience.faults import fault_point
 from ..resilience.watchdog import deadline_clock
+from ..trace.hooks import shared_access, trace_point
 from ..utils.atomic import atomic_write
 from .daemon import _topk_answer
 
@@ -128,6 +131,7 @@ def stream_shards(src: str, dst: str, max_attempts: int = 3) -> dict:
     replica's (see the module docstring), retried a bounded number of
     times when the writer's eviction or compaction races the copy."""
     os.makedirs(dst, exist_ok=True)
+    trace_point("serve.replica.stream")
     for attempt in range(max_attempts):
         try:
             out = _stream_once(src, dst)
@@ -240,6 +244,8 @@ class ServeReplica:
                     new_locator=locator, new_digests=d[fresh])
         # The publication point: one swap; a concurrent query keeps the
         # snapshot it already took.
+        trace_point("serve.replica.adopt")
+        shared_access(self, "_index", write=True, atomic=True)
         self._index = index
         self._generation_adopted = int(self.store.generation)
         obs_metrics.gauge("serve_replica_generation").set(
@@ -248,6 +254,7 @@ class ServeReplica:
     def refresh(self) -> bool:
         """Adopt a newer streamed generation (the only way a replica's
         state advances); True when the served view changed."""
+        trace_point("serve.replica.refresh")
         changed = self.store.refresh()
         if changed or int(self.store.generation) != self._generation_adopted:
             self._rebuild()
@@ -271,6 +278,7 @@ class ServeReplica:
         generation, on the host."""
         t0 = deadline_clock()
         vectors = np.ascontiguousarray(vectors, np.uint32)
+        shared_access(self, "_index", write=False, atomic=True)
         index = self._index
         n = int(vectors.shape[0])
         hit, row = index.lookup_digests(row_digests(vectors))
@@ -297,6 +305,7 @@ class ServeReplica:
         the streamed store: ``mode="scan"`` on ``device``."""
         t0 = deadline_clock()
         vectors = np.ascontiguousarray(vectors, np.uint32)
+        shared_access(self, "_index", write=False, atomic=True)
         index = self._index
         res = _topk_answer(self, index, self.store,
                            lambda u: self._gather(index, u),

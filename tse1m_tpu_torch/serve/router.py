@@ -28,12 +28,19 @@ writes a store file; of the store module it uses only
 ``digest_range_ids`` and ``row_digests``.  The read verbs (query, topk,
 ping, status) fan out to the shards in parallel, one thread a shard, and
 ingest forwards one slice at a time in range order, as the JAX package's
-router does.  A lock around each TCP exchange keeps two concurrent
-requests from interleaving their frames on a shard's one connection.
-The router's own lock is the named ``ShardRouter`` lock of
-``trace/sync.py``, so the profiler's lock-wait recorder times it under
-JAX's site name.  Left out against the JAX package: the schedule
-explorer's trace points (ROADMAP.md Queue 1, "Serve plane").
+router does.  A named lock (``TcpTransport``) around each TCP exchange
+keeps two concurrent requests from interleaving their frames on a
+shard's one connection.  The router's own lock is the named
+``ShardRouter`` lock of ``trace/sync.py``, so the profiler's lock-wait
+recorder times it under JAX's site name.
+
+The trace plane's seats sit where the JAX package's do (``gmap`` under
+the router's lock, ``serve.router.split``), plus one JAX has no
+counterpart for: ``TcpTransport.sock`` inside the locked exchange, so
+the lockset detector sees the shared socket.  The read fan-out goes
+through the trace plane's ``fan_out``: on the pool, or, under the
+schedule explorer, on child threads its scheduler steps, so the
+``router`` scenario interleaves the parallel forwards themselves.
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ from ..resilience.coordinator import heartbeat_timeout_s
 from ..resilience.faults import fault_point
 from ..resilience.watchdog import request_budget_s
 from ..trace import sync as tsync
+from ..trace.hooks import fan_out, shared_access, trace_point
 from ..utils.atomic import atomic_write
 from ..utils.retry import RetryPolicy, retry_call
 from .daemon import IngestRejected
@@ -100,7 +108,7 @@ class TcpTransport:
         self.port = int(port)
         self.port_file = port_file
         self._sock: socket.socket | None = None
-        self._lock = threading.Lock()
+        self._lock = tsync.Lock("TcpTransport")
 
     def _resolve_port(self) -> int:
         if self.port_file:
@@ -125,6 +133,7 @@ class TcpTransport:
 
     def __call__(self, msg: dict, timeout_s: float | None = None) -> dict:
         with self._lock:
+            shared_access(self, "sock", write=True)
             sock = self._connect()
             sock.settimeout(timeout_s or _CONNECT_TIMEOUT_S)
             try:
@@ -231,12 +240,16 @@ class ShardRouter:
                 f"shard {sid} refused {msg.get('op')}: {resp.get('error')}")
         return resp
 
+    def _fan_out(self, fn) -> dict:
+        """``fn(sid)`` for every shard at once on the pool; answers by
+        shard, the first failure in shard order re-raised."""
+        return fan_out(self._pool, fn, sorted(self.transports))
+
     def _broadcast(self, msg: dict,
                    timeout_s: float | None = None) -> dict[int, dict]:
         """The same message to every shard at once; answers by shard."""
-        futures = {sid: self._pool.submit(self._forward, sid, msg, timeout_s)
-                   for sid in sorted(self.transports)}
-        return {sid: f.result() for sid, f in futures.items()}
+        return self._fan_out(
+            lambda sid: self._forward(sid, msg, timeout_s))
 
     def _map_label(self, sid: int, local: int) -> int:
         """Shard-local label (an index row id) -> global label, under the
@@ -262,6 +275,7 @@ class ShardRouter:
         k = int(vectors.shape[0])
         rid_in = str(request_id) if request_id else None
         with self._lock:
+            shared_access(self, "gmap", write=True)
             self._seq += 1
             rid = rid_in or f"r{self._seq:08d}"
             g0 = self._next_row
@@ -270,6 +284,7 @@ class ShardRouter:
             return {"ok": True, "acked": 0, "novel": 0, "generation": 0,
                     "labels": [], "rows": [], "shards": {}}
         rows_sid = digest_range_ids(row_digests(vectors), self.n_shards)
+        trace_point("serve.router.split")
         per_shard = {int(sid): np.flatnonzero(rows_sid == sid)
                      for sid in np.unique(rows_sid)}
         acked = novel = 0
@@ -284,6 +299,7 @@ class ShardRouter:
                    **encode_vectors(vectors[sel])}
             resps[sid] = self._forward(sid, msg, timeout_s=timeout)
         with self._lock:
+            shared_access(self, "gmap", write=True)
             for sid in sorted(per_shard):
                 sel = per_shard[sid]
                 resp = resps[sid]
@@ -328,6 +344,7 @@ class ShardRouter:
         best = np.full(n, _NONE, np.int64)
         foreign = np.full(n, _NONE, np.int64)
         with self._lock:
+            shared_access(self, "gmap", write=False)
             for sid, resp in resps.items():
                 mine = owner == sid
                 known[mine] = np.asarray(resp["known"], bool)[mine]
@@ -366,6 +383,7 @@ class ShardRouter:
         out_l = np.full((n, k), -1, np.int64)
         out_i = [[""] * k for _ in range(n)]
         with self._lock:
+            shared_access(self, "gmap", write=False)
             for i in range(n):
                 cand = []
                 for sid, resp in resps.items():
@@ -415,11 +433,11 @@ class ShardRouter:
             return {"ok": False, "error": f"{type(e).__name__}: {e}"}
 
     def status(self) -> dict:
-        futures = {sid: self._pool.submit(self._shard_status, sid)
-                   for sid in sorted(self.transports)}
-        shard_status = {str(sid): f.result() for sid, f in futures.items()}
+        shard_status = {str(sid): r for sid, r in
+                        self._fan_out(self._shard_status).items()}
         lost = self.monitor.poll() if self.monitor is not None else []
         with self._lock:
+            shared_access(self, "gmap", write=False)
             mapped = sum(len(m) for m in self._gmap.values())
             stats = {"router_rows": self._next_row,
                      "router_requests": self._seq,

@@ -9,7 +9,9 @@ before query latency degrades.  Every refusal counts
 ``serve_backpressure`` degradation event.  Query walls past the p99 target
 count as SLO violations.  The environment names are the JAX package's:
 ``TSE1M_SERVE_MAX_BACKLOG``, ``TSE1M_SERVE_P99_TARGET_MS``,
-``TSE1M_LIVE_DELTA_RUNS``.
+``TSE1M_LIVE_DELTA_RUNS``.  The lockset detector's seats
+(``shared_access``) sit under each lock, with the JAX package's field
+names; JAX's ``note_depth`` has no caller and no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..observability import metrics as obs_metrics
 from ..observability import record_degradation
 from ..resilience.watchdog import request_budget_s
 from ..trace import sync as tsync
+from ..trace.hooks import shared_access
 
 
 @dataclass(frozen=True)
@@ -74,6 +77,7 @@ class AdmissionController:
         """(admitted, retry_after_s); ``depth`` counts batches queued
         ahead of this one."""
         with self._lock:
+            shared_access(self, "backlog", write=True)
             if depth > self._backlog_max:
                 self._backlog_max = depth
             admitted = depth < self.policy.max_backlog_batches
@@ -98,6 +102,7 @@ class AdmissionController:
 
     def stats(self) -> dict:
         with self._lock:
+            shared_access(self, "backlog", write=False)
             return {"ingest_rejected": self._rejected,
                     "ingest_backlog_max": self._backlog_max,
                     "in_backpressure": self._in_backpressure}
@@ -116,6 +121,7 @@ class SloTracker:
         if wall_s * 1e3 <= self.policy.query_p99_target_ms:
             return
         with self._lock:
+            shared_access(self, "violations", write=True)
             self._violations += 1
             first = self._violations == 1
         if first:
@@ -126,6 +132,7 @@ class SloTracker:
 
     def stats(self) -> dict:
         with self._lock:
+            shared_access(self, "violations", write=False)
             return {"query_slo_violations": self._violations,
                     "query_p99_target_ms": self.policy.query_p99_target_ms}
 

@@ -1,25 +1,34 @@
-"""Named locks with a lock-wait seat: a copy of
-``tse1m_tpu/trace/sync.py``.
+"""Named locks with the trace plane's seat and a lock-wait seat: a copy
+of ``tse1m_tpu/trace/sync.py``.
 
 ``Lock`` / ``RLock`` wrap the real ``threading`` primitives.  With no
-recorder installed (the default) an acquire is one global read, a
-``None`` check and the real acquire.  With a recorder installed
-(:func:`set_lock_wait_recorder`, which ``observability/profiling.py``'s
-``enable_lock_wait`` calls), every acquire routes through it, so the
-profiler can histogram the time to acquire each lock by its name:
-``lock_wait_seconds{site=<name>}``.  The port names its locks as the JAX
-package does, so both packages report the same sites.
+tracer and no recorder installed (the default) an acquire is two global
+reads, two ``None`` checks and the real acquire.
 
-Left out: the JAX package's tracer branch (``hooks.active_tracer()``),
-through which its schedule explorer (``tse1m_tpu/trace/explore.py``)
-drives the locks; the explorer is not ported.  The trace plane's own
-internals and every lock not named in the JAX package stay raw
-``threading`` primitives.
+- With a tracer installed (``hooks.install_tracer``; ``trace.traced()``
+  and the schedule explorer do it), every acquire and release updates the
+  per-thread held-lock set, the lockset detector's input.  Under a
+  deterministic scheduler an acquire becomes a yield point that never
+  blocks the scheduler's token on a real mutex: the scheduler
+  try-acquires and parks the thread instead, so a descheduled holder
+  cannot deadlock the exploration.
+- With no tracer but a recorder installed (:func:`set_lock_wait_recorder`,
+  which ``observability/profiling.py``'s ``enable_lock_wait`` calls),
+  every acquire routes through the recorder, so the profiler can
+  histogram the time to acquire each lock by its name:
+  ``lock_wait_seconds{site=<name>}``.
+
+The port names its locks as the JAX package does, so both packages
+report the same sites.  The trace plane's own internals stay raw
+``threading`` primitives: instrumenting the instrumentation would
+recurse.
 """
 
 from __future__ import annotations
 
 import threading
+
+from . import hooks
 
 # The recorder must never take a named lock without its own reentrancy
 # guard, or recording a wait would recurse.
@@ -44,13 +53,20 @@ class Lock:
         self.name = name or "anon"
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        rec = _lock_wait_recorder
-        if rec is None:
-            return self._real.acquire(blocking, timeout)
-        return rec(self, self._real.acquire, blocking, timeout)
+        t = hooks.active_tracer()
+        if t is None:
+            rec = _lock_wait_recorder
+            if rec is None:
+                return self._real.acquire(blocking, timeout)
+            return rec(self, self._real.acquire, blocking, timeout)
+        return t.lock_acquire(self, blocking, timeout)
 
     def release(self) -> None:
-        self._real.release()
+        t = hooks.active_tracer()
+        if t is None:
+            self._real.release()
+            return
+        t.lock_release(self)
 
     def locked(self) -> bool:
         return self._real.locked()
@@ -67,7 +83,10 @@ class Lock:
 
 
 class RLock(Lock):
-    """Named reentrant mutex."""
+    """Named reentrant mutex.
+
+    The real RLock handles reentrancy; the held set sees one entry per
+    nesting level, which keeps the release bookkeeping symmetric."""
 
     _factory = staticmethod(threading.RLock)
 

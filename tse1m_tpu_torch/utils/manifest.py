@@ -34,6 +34,18 @@ class RunManifest:
     def record(self, **kwargs: Any) -> None:
         self.extra.update(kwargs)
 
+    def record_backend(self, backend) -> None:
+        """Record how ``backend = auto`` resolved: a router's learned
+        calibration (``backend/auto.py`` ``calibration()``), which shows
+        the engine each RQ ran on and why, or the device engine it gave
+        in a world of several ranks.  A no-op for a plain engine."""
+        cal = getattr(backend, "calibration", None)
+        if callable(cal):
+            self.record(router_calibration=cal())
+        note = getattr(backend, "auto_resolution", None)
+        if note is not None:
+            self.record(auto_resolution=dict(note))
+
     def save(self, out_dir: str,
              timings: dict[str, float] | None = None) -> str:
         dev = torch.device(self.device)

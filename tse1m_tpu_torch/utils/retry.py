@@ -5,9 +5,10 @@ The signature store writes each shard under ``retry_call(...,
 policy=io_retry_policy())``: a transient ``OSError`` (a flaky mount, a
 full disk freed a moment later) rewrites the shard's temp files from
 scratch instead of failing the run.  Backoff is exponential with full
-jitter, optionally capped by a deadline over all attempts.  The JAX
-package's span per attempt and its retry counter belong to its tracing
-and metrics planes, which are not ported.
+jitter, optionally capped by a deadline over all attempts.  As in the
+JAX package, each attempt is its own span (``attempt.<site>``, tagged
+with the error type when it fails), so both packages pass the same
+trace-plane seats.  JAX's ``retries_total`` counter is left out.
 """
 
 from __future__ import annotations
@@ -68,6 +69,10 @@ def retry_call(fn: Callable, *args, policy: RetryPolicy | None = None,
     exceptions in ``policy.retry_on`` are retried, anything else
     propagates at once; past the attempts or the deadline it raises
     :class:`RetryError` from the last exception."""
+    # Function-level import: the telemetry plane sits above this module
+    # in the import graph.
+    from ..observability import tracing
+
     policy = policy or RetryPolicy()
     start = time.monotonic()
     label = site or getattr(fn, "__name__", "call")
@@ -76,7 +81,12 @@ def retry_call(fn: Callable, *args, policy: RetryPolicy | None = None,
     for attempt in range(policy.max_attempts):
         attempts = attempt + 1
         try:
-            return fn(*args, **kwargs)
+            with tracing.span(f"attempt.{label}", attempt=attempts) as sp:
+                try:
+                    return fn(*args, **kwargs)
+                except BaseException as e:
+                    sp.set_tag("error", type(e).__name__)
+                    raise
         except policy.retry_on as e:
             last = e
         delay = policy.step(attempt)
