@@ -250,7 +250,11 @@ Phases, in order; any failure ends the run with a non-zero exit code:
        writes phase 4's single-rank file set, its CSVs byte for byte; each
        driver's manifest notes that ``auto`` gave the device engine in a
        world of 2; no built library changed from before (m4) to after
-       (h-m2) (no rank rebuilt one, none left a lock).
+       (h-m2) (no rank rebuilt one, none left a lock); every rank runs
+       ``all``'s correctness steps, as every process running the JAX
+       package's ``all`` does.  Then one ``correctness_steps_s`` JSON
+       line: the graftlint and graftspec walls of each ``all`` of the
+       script (the golden study's, (h)'s, 4c's, (h-m2)'s rank 0's);
    One ``mesh`` JSON line: the gloo probe, for each cell the world size,
    backend, wall and per rank the four stages, the bytes and seconds of
    the key ``all_to_all``, the signature gather and the ``pmin``s, the
@@ -334,7 +338,15 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    one warm call each), printed as one ``rq_path`` JSON line with the row counts, peak
    device memory, host generation and write times and the card's name
    and power limit; then ``all`` once over that study on the card with
-   the corpus CSV's G1/G2 groups: every step ok in run_manifest.json,
+   the corpus CSV's G1/G2 groups, ``all``'s correctness steps first:
+   ``graftlint`` (the port's lint over tse1m_tpu_torch/, no new or
+   baselined finding, and the sanitizer's self-check on the card, a wait
+   seen from two threads) and ``graftspec`` (the three protocol specs
+   model-checked, the three mutants caught and replayed), both ok, with
+   neither jax nor pandas imported, one ``correctness`` JSON line (files,
+   findings new, baselined and suppressed by rule, the lint's wall and
+   cache hit rate, each spec's states, the mutants caught, the steps'
+   walls, the card); every step ok in run_manifest.json,
    every driver's manifest naming TorchBackend on the card, each
    artifact's row count the one the single calls' results imply; each
    driver's wall and phases printed as one ``rq_drivers`` JSON line with
@@ -382,7 +394,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``--calls-per-window`` back-to-back calls, 5 by default, median of 20
    windows after warm-up; 1 times each call alone, as earlier versions of
    this script did, wrapper's host work included; the plain
-   versions one call a window) at the main-path shapes, with its bound,
+   versions one call a window, the rANS lanes' and (g)'s chunk's the one
+   call phase 2 and cell (g) time with CUDA events as they run it for
+   their checks) at the main-path shapes, with its bound,
    and the bin-min kernel beside ``scatter_reduce_`` (its library
    yardstick); the uint32 MinHash kernel also at (c)'s 507,704 delta
    rows; the rANS kernel at the rep lane alone and at (c)'s one launch,
@@ -393,7 +407,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    ``kernels`` line under ``warm_shapes``, with the warm path's launches
    under ``warm_launches`` and phase 3c's ingest and scan launches under
    ``serve_launches``);
-6. the card's name and power limit from nvidia-smi.
+6. the card's name and power limit from nvidia-smi; jax, jaxlib and
+   pandas never imported by this process.
 
 The second-to-last lines are the ``kernels`` JSON and the card; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -782,9 +797,12 @@ def rans_checks(plan: dict, dev) -> int:
     main = {name: rans_args(lane, dev) for name, lane in plan["lanes"].items()}
     # A main lane's plain decode takes seconds (a launch of torch ops a
     # step): computed once, it is held against every launch that decodes
-    # that lane, staged at odd offsets or not.
-    plain = {name: KERNELS["rans_decode"]["plain"](*args)
-             for name, args in main.items()}
+    # that lane, staged at odd offsets or not; its time is phase 5's
+    # plain_ms for the lane (PLAIN_MS).
+    plain = {}
+    for name, args in main.items():
+        plain[name], PLAIN_MS[f"rans_decode:{name}"] = timed_once(
+            lambda args=args: KERNELS["rans_decode"]["plain"](*args))
     for name, args in main.items():
         err = max(err, check_kernel("rans_decode", args,
                                     f"1M default run's {name} lane, "
@@ -1222,8 +1240,8 @@ def run_topk(store: np.ndarray, dev) -> dict:
         raise AssertionError("a query's first hit is not a full agreement")
     args = (*topk_args(store, queries, dev), TOPK_K)
     got = ksc.topk_chunk(*args)
-    want = ksc.topk_chunk_plain(*args)
-    torch.cuda.synchronize()
+    want, PLAIN_MS["topk_chunk"] = timed_once(
+        lambda: ksc.topk_chunk_plain(*args))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("top-k state differs from the plain version's")
     if not all(np.array_equal(a, b) for a, b in zip(
@@ -3044,6 +3062,26 @@ def tooling_phase(items, default: dict, plain24: dict, warm: dict,
     return line
 
 
+# Plain versions' times taken where an earlier phase runs them on phase
+# 5's inputs anyway (phase 2's rANS lanes, cell (g)'s top-k chunk): phase 5
+# reports these, as time_ms(..., warmup=0, reps=1) would measure them,
+# instead of running a plain version of seconds a second time.
+PLAIN_MS: dict = {}
+
+
+def timed_once(fn) -> tuple:
+    """(fn(), the card's ms for that one call): CUDA events around it, as
+    ``time_ms(fn, warmup=0, reps=1)`` times it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def time_ms(fn, warmup: int = 3, reps: int = 20, inner: int = 1) -> float:
     """Median over ``reps`` windows of the card's time a call, CUDA events
     around ``inner`` back-to-back calls a window.  Kernels are timed with
@@ -3214,8 +3252,9 @@ def timing(items, plan: dict, dev, consts, topk: dict, scan_args: tuple,
     a0, b0 = make_params("cminhash", N_HASHES, 0).to(dev).arrays[:2]
     # The plain rANS decode takes seconds a lane (a launch of torch ops per
     # step), the plain top-k seconds a chunk (a launch of torch ops per
-    # selection step and tile); phase 2 and cell (g) ran them on these
-    # inputs already, so they get no warm-up.
+    # selection step and tile); phase 2 and cell (g) ran and timed them on
+    # these inputs already (PLAIN_MS), so those times are reported; the
+    # scan chunk's gets no warm-up.
     cases = {
         "minhash_and_keys": ((ids, *consts, N_BANDS),
                              minhash_bound(CHUNK_ROWS, SET_SIZE, 4), 1, 10),
@@ -3253,8 +3292,10 @@ def timing(items, plan: dict, dev, consts, topk: dict, scan_args: tuple,
         name = case.split(":")[0]
         k = KERNELS[name]
         ms = time_ms(lambda: k["wrapper"](*args), inner=inner)
-        plain_ms = time_ms(lambda: k["plain"](*args), warmup=plain_warmup,
-                           reps=plain_reps)
+        plain_ms = PLAIN_MS.get(case)
+        if plain_ms is None:
+            plain_ms = time_ms(lambda: k["plain"](*args),
+                               warmup=plain_warmup, reps=plain_reps)
         lib_ms = time_ms(library[name], inner=inner) \
             if name in library else None
         out[case] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -3353,15 +3394,34 @@ def run_drivers(cfg, dev, transcript: str):
         return run_rqs(cfg, device=dev)
 
 
-def check_drivers_ran(out: str, dev) -> dict:
+# ``all``'s steps: the correctness plane's two, then the six drivers.
+CORRECTNESS_STEPS = ("graftlint", "graftspec")
+ALL_STEPS = [*CORRECTNESS_STEPS, *RQ_DRIVERS]
+# Each ``all``'s two correctness steps' walls (s), for the
+# ``correctness_steps_s`` line: what the steps cost an ``all`` on this host.
+CORRECTNESS_WALLS: dict = {}
+
+
+def check_all_steps(run: dict, label: str) -> dict:
+    """Every step of one ``all`` ok, in ``all``'s order, in its
+    run_manifest.json (``run``); its correctness steps' walls noted under
+    ``label``; returns the steps by name."""
+    steps = {s["name"]: s for s in run["steps"]}
+    bad = {n: s.get("error") for n, s in steps.items() if s["status"] != "ok"}
+    if list(steps) != ALL_STEPS or bad:
+        raise AssertionError(f"all ({label}): steps {list(steps)}, not ok: "
+                             f"{bad}")
+    CORRECTNESS_WALLS[label] = {n: steps[n]["wall_s"]
+                                for n in CORRECTNESS_STEPS}
+    return steps
+
+
+def check_drivers_ran(out: str, dev, label: str) -> dict:
     """Every step of ``all`` ok in run_manifest.json, and each driver's
     manifest naming TorchBackend on the card; returns run_manifest.json."""
     with open(os.path.join(out, "run_manifest.json")) as f:
         run = json.load(f)
-    steps = {s["name"]: s for s in run["steps"]}
-    bad = {n: s.get("error") for n, s in steps.items() if s["status"] != "ok"}
-    if list(steps) != list(RQ_DRIVERS) or bad:
-        raise AssertionError(f"all: steps {list(steps)}, not ok: {bad}")
+    check_all_steps(run, label)
     for name, rel in DRIVER_MANIFESTS.items():
         with open(os.path.join(out, rel)) as f:
             m = json.load(f)
@@ -3394,7 +3454,7 @@ def rq_golden(dev) -> dict:
     runner = run_drivers(cfg, dev, os.path.join(RQ_DIR, "golden_all.log"))
     if runner.exit_code():
         raise AssertionError(f"golden all: {runner.summary()}")
-    check_drivers_ran(out, dev)
+    check_drivers_ran(out, dev, "golden")
     for rel in GOLDEN_FILES:
         with open(os.path.join(out, rel), "rb") as f:
             got = f.read()
@@ -3450,6 +3510,54 @@ def check_golden_figures(out: str) -> dict:
             else len(skipped)}
 
 
+def correctness_line(run: dict) -> dict:
+    """(h)'s ``graftlint`` and ``graftspec`` records, both ok: the port's
+    lint clean over its files with every suppression counted by rule, the
+    sanitizer's self-check on the card, each spec's states, every mutant
+    caught; JAX and pandas never imported in this process.  Prints the
+    ``correctness`` line."""
+    steps = {s["name"]: s for s in run["steps"]}
+    lint = steps["graftlint"]["result"]
+    spec = steps["graftspec"]["result"]
+    runtime = lint["runtime"]
+    if not (lint["ok"] and lint["new_findings"] == 0
+            and lint["baselined"] == 0 and runtime["sanitizer_available"]
+            and runtime.get("sanitizer_sync_seen")):
+        raise AssertionError(f"graftlint at (h): {lint}")
+    if not (all(r["ok"] and r["complete"] for r in spec["specs"])
+            and all(m["caught"] and m["replayed"]
+                    for m in spec["mutants"].values())):
+        raise AssertionError(f"graftspec at (h): {spec}")
+    loaded = sorted(m for m in ("jax", "jaxlib", "pandas") if m in
+                    sys.modules)
+    if loaded:
+        raise AssertionError(f"the port imported {loaded}")
+    line = {
+        "graftlint": {
+            "files": lint["graph_files"], "new": lint["new_findings"],
+            "baselined": lint["baselined"], "suppressed": lint["suppressed"],
+            "suppressed_by_rule": lint["suppressed_by_rule"],
+            "lint_wall_s": lint["wall_s"],
+            "cache_hit_rate": lint["cache_hit_rate"],
+            "step_wall_s": steps["graftlint"]["wall_s"],
+            "sanitizer_sync_seen": runtime["sanitizer_sync_seen"]},
+        "graftspec": {
+            "states": {r["spec"]: r["states"] for r in spec["specs"]},
+            "mutants_caught": sum(m["caught"]
+                                  for m in spec["mutants"].values()),
+            "mutants": len(spec["mutants"]),
+            "step_wall_s": steps["graftspec"]["wall_s"]},
+        "jax_or_pandas_imported": loaded, "card": card_name_and_limit()}
+    log(f"  graftlint at (h): {line['graftlint']['files']} files, 0 new, 0 "
+        f"baselined, {lint['suppressed']} suppressed, lint "
+        f"{lint['wall_s']:.3f} s (cache hit rate {lint['cache_hit_rate']}); "
+        f"graftspec: states {line['graftspec']['states']}, "
+        f"{line['graftspec']['mutants_caught']}/"
+        f"{line['graftspec']['mutants']} mutants caught; no jax, no pandas")
+    print(json.dumps({"correctness": line}), flush=True)
+    return line
+
+
 def csv_rows(path: str, header: bool = True) -> int:
     with open(path, newline="") as f:
         return sum(1 for _ in csv.reader(f)) - int(header)
@@ -3468,7 +3576,8 @@ def rq_drivers(dev, path: str, corpus: str, arrays, got: dict,
     t0 = time.perf_counter()
     run_drivers(cfg, dev, os.path.join(RQ_DIR, "all.log"))
     all_s = time.perf_counter() - t0
-    run = check_drivers_ran(out, dev)
+    run = check_drivers_ran(out, dev, "h")
+    correctness_line(run)
     # The rows each artifact must hold, from the backend's own results on
     # the same arrays; RQ4a's and the introduction CSV's from the corpus
     # CSV's groups.
@@ -4055,7 +4164,7 @@ def mesh_all(rq: dict, mesh: dict) -> dict:
                 open(got_files[rel], "rb") as g:
             if f.read() != g.read():
                 raise AssertionError(f"(h-m2) {rel} differs from phase 4's")
-    run = check_drivers_ran(out, torch.device("cuda", 0))
+    run = check_drivers_ran(out, torch.device("cuda", 0), "h-m2 rank 0")
     # backend=auto in a world of several ranks: the device engine, noted.
     for name, rel in DRIVER_MANIFESTS.items():
         with open(os.path.join(out, rel)) as f:
@@ -5008,9 +5117,7 @@ def auto_golden_all(dev) -> dict:
     if rc != 0:
         raise AssertionError(f"all under TSE1M_BACKEND=auto exited {rc}")
     with open(os.path.join(out, "run_manifest.json")) as f:
-        steps = {s["name"]: s["status"] for s in json.load(f)["steps"]}
-    if list(steps) != list(RQ_DRIVERS) or set(steps.values()) != {"ok"}:
-        raise AssertionError(f"all under auto: steps {steps}")
+        check_all_steps(json.load(f), "golden under auto")
     engines = {}
     for name, rel in DRIVER_MANIFESTS.items():
         with open(os.path.join(out, rel)) as f:
@@ -5169,6 +5276,11 @@ def main() -> int:
     auto_router_phase(rq, dev)
     phase(f"phase 3g (h-m2): all as {ALL_RANKS} ranks over phase 4's study")
     mesh_all(rq, mesh)
+    log("  each all's graftlint and graftspec steps (s): " + ", ".join(
+        f"{k} {v['graftlint']:.3f} + {v['graftspec']:.3f}"
+        for k, v in CORRECTNESS_WALLS.items()))
+    print(json.dumps({"correctness_steps_s": CORRECTNESS_WALLS,
+                      "card": card_name_and_limit()}), flush=True)
 
     phase("phase 4b: the study arrives: phase 4's study as the collectors' "
           "CSVs (ingest) and as a pg_dump (restore), stats, the native "
@@ -5199,6 +5311,10 @@ def main() -> int:
                         and case.endswith((":novel", ":scan"))},
     } for name, k in KERNELS.items()]
     card = card_name_and_limit()
+    loaded = sorted(m for m in ("jax", "jaxlib", "pandas")
+                    if m in sys.modules)
+    if loaded:
+        raise AssertionError(f"the port imported {loaded}")
     log(f"total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels_line}))
     print(card)

@@ -93,6 +93,43 @@ def test_port_imports_nothing_of_jax():
     # So are the device tooling's: the named locks and the sanitizer.
     assert {os.path.join(PKG, "trace", "sync.py"),
             os.path.join(PKG, "lint", "runtime.py")} <= set(sources)
+    # And the correctness plane's: the specs, their checker, the lint.
+    assert {os.path.join(PKG, "spec", f) for f in (
+        "__init__.py", "dsl.py", "mc.py", "lease.py", "ingest_ack.py",
+        "replica.py", "mutants.py", "verbs.py")} | {os.path.join(
+            PKG, "lint", f) for f in (
+            "__init__.py", "__main__.py", "engine.py", "graph.py",
+            "interproc.py", "rules.py")} | {os.path.join(
+            PKG, "resilience", "fault_matrix.py")} <= set(sources)
+
+
+def test_correctness_plane_runs_without_jax_or_pandas(tmp_path):
+    """The spec checker and the lint run in an interpreter where jax,
+    pandas and the JAX package cannot be imported, as on the card's
+    machine, and pull none of them in."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'pandas', 'tse1m_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from tse1m_tpu_torch.spec import check_all, mutant_selftest\n"
+        "from tse1m_tpu_torch.lint import lint_paths\n"
+        "assert all(r.ok for r in check_all())\n"
+        "assert all(r['caught'] for r in mutant_selftest().values())\n"
+        f"found = lint_paths([{str(tmp_path / 'm.py')!r}],"
+        f" root={str(tmp_path)!r})\n"
+        "assert [f.rule for f in found] == ['wire-layer'], found\n"
+        "loaded = [m for m in sys.modules if sys.modules[m] is not None\n"
+        "          and m.split('.')[0] in ('jax', 'pandas', 'tse1m_tpu')]\n"
+        "assert loaded == [], loaded\n"
+        "print('ok')\n")
+    (tmp_path / "m.py").write_text("def f(t):\n    return t.cuda()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "ok"
 
 
 def test_no_handler_around_kernel_launches():

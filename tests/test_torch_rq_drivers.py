@@ -121,7 +121,8 @@ def test_all_records_every_step(golden, golden_cli):
         with open(os.path.join(out, "run_manifest.json")) as f:
             manifest = json.load(f)
         assert manifest["ok"] is True
-        assert [s["name"] for s in manifest["steps"]] == list(RQ_DRIVERS)
+        assert [s["name"] for s in manifest["steps"]] == [
+            "graftlint", "graftspec", *RQ_DRIVERS]
         assert {s["status"] for s in manifest["steps"]} == {"ok"}
 
 
@@ -272,7 +273,8 @@ def test_failed_step_is_recorded_and_the_rest_run(golden, tmp_path):
     with open(out / "run_manifest.json") as f:
         manifest = json.load(f)
     status = {s["name"]: s["status"] for s in manifest["steps"]}
-    assert status == {"rq1": "ok", "rq2a": "ok", "rq2b": "ok", "rq3": "ok",
+    assert status == {"graftlint": "ok", "graftspec": "ok",
+                      "rq1": "ok", "rq2a": "ok", "rq2b": "ok", "rq3": "ok",
                       "rq4a": "failed", "rq4b": "failed"}
     assert manifest["ok"] is False
     failed = [s for s in manifest["steps"] if s["status"] == "failed"]
@@ -280,6 +282,60 @@ def test_failed_step_is_recorded_and_the_rest_run(golden, tmp_path):
                                      "found") for s in failed)
     assert all("Traceback" in s["traceback"] for s in failed)
     assert (out / "rq3" / "detected_coverage_changes.csv").exists()
+
+
+def _failing_spec(monkeypatch):
+    """The lease spec swapped for its committed mutant: ``check_all``
+    reports its violation."""
+    from tse1m_tpu_torch import spec
+
+    monkeypatch.setitem(spec.SPEC_BUILDERS, "lease",
+                        spec.MUTANT_BUILDERS["fence-after-append"])
+    return "graftspec", "SpecError: lease[fence-after-append]: invariant " \
+        "violation: fence-before-append"
+
+
+def _failing_lint(monkeypatch):
+    """A whole-package lint that finds one new finding."""
+    from tse1m_tpu_torch import lint
+
+    def run_repo_lint():
+        raise lint.LintError("graftlint: 1 non-baselined finding(s): x",
+                             step_result={"ok": False, "new_findings": 1})
+
+    monkeypatch.setattr(lint, "run_repo_lint", run_repo_lint)
+    return "graftlint", "LintError: graftlint: 1 non-baselined finding(s)"
+
+
+@pytest.mark.parametrize("fail", [_failing_spec, _failing_lint],
+                         ids=["spec", "lint"])
+def test_a_failing_correctness_step_fails_all_and_the_rqs_run(
+        golden, tmp_path, monkeypatch, fail):
+    """As the JAX package's ``all``: a violated spec (or a new lint
+    finding) fails its step, with its record, and the exit code; the six
+    RQs still run to completion."""
+    step, error = fail(monkeypatch)
+    out = tmp_path / "out"
+    code = cli_main(["all", "--db", golden["db"], "--result-dir", str(out),
+                     "--test-mode", "--corpus-csv", golden["csv"],
+                     "--device", "cpu"])
+    assert code == 1
+    with open(out / "run_manifest.json") as f:
+        manifest = json.load(f)
+    status = {s["name"]: s["status"] for s in manifest["steps"]}
+    assert list(status) == ["graftlint", "graftspec", *RQ_DRIVERS]
+    assert {n for n, st in status.items() if st != "ok"} == {step}
+    assert manifest["ok"] is False
+    failed = next(s for s in manifest["steps"] if s["name"] == step)
+    assert failed["error"].startswith(error)
+    if step == "graftlint":  # the summary the LintError carried
+        assert failed["result"] == {"ok": False, "new_findings": 1}
+    else:
+        assert failed["result"] is None
+    ok = next(s for s in manifest["steps"] if s["name"] != step
+              and s["name"] in ("graftlint", "graftspec"))
+    assert ok["result"]  # the passing step's summary is recorded
+    _assert_file_equal(str(out), gen.GOLDEN_DIR, gen.FILES[0])
 
 
 def test_step_runner_rewrites_the_manifest_after_each_step(tmp_path):

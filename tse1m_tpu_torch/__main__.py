@@ -37,6 +37,11 @@
         metrics,trace,slowlog,profile,quiesce,shutdown} \
         {--port P | --port-file F} [--npy V.npy] [--k 10] \
         [--mode {candidates,scan}] [--limit N] [--dump]
+    python -m tse1m_tpu_torch lint [PATHS...] [--json] [--write-baseline] \
+        [--no-baseline] [--rules R,...] [--changed REF] \
+        [--why RULE:PATH:LINE] [--graph]
+    python -m tse1m_tpu_torch spec {check,trace,mutants} [NAMES...] \
+        [--mode {bfs,dfs}] [--max-states N] [--json]
 
 ``cluster`` synthesizes planted near-duplicate sessions, clusters them
 with default ``ClusterParams`` (wire v3: at >= 64 MiB of ids the host
@@ -153,10 +158,22 @@ leases and the membership ledger turn a dead peer into a failover
 zombie writer fences itself.  Process 0, or the survivor, merges the
 fragments into ``run_manifest.json``, the membership epoch in each.
 
+``lint`` runs graftlint over the port's own code (``tse1m_tpu_torch/``;
+``lint/``: the JAX package's 13 per-file rules and eight project passes,
+suppressions with reasons, the baseline ``lint/baseline.json``); exit 0
+clean, 1 on a new finding, 2 on a usage error.  ``spec`` model-checks the
+protocol specs (``spec/``: ``lease``, ``ingest_ack``, ``replica``):
+``check`` exits 1 on a violation and 2 on an unknown name, ``trace``
+prints a violation's counterexample and its ``v1:fix:...`` replay string
+(mutants too), ``mutants`` runs the committed mutants, each of which must
+be caught and replay.  ``all`` records both, as the steps ``graftlint``
+and ``graftspec``, before the six RQs.
+
 ``cluster``, ``serve``, ``serve-replica``, ``backfill`` and the RQ
 commands run on the card unless ``--device cpu`` is given, and fail
 without one; ``serve-router`` holds no device; ``synth`` and ``scrub``
-are host work, as are ``ingest``, ``restore`` and ``stats``.
+are host work, as are ``ingest``, ``restore``, ``stats``, ``lint`` and
+``spec``.
 """
 
 from __future__ import annotations
@@ -675,7 +692,7 @@ def _cmd_rq(args) -> int:
             cfg = dataclasses.replace(cfg, result_dir=stack.enter_context(
                 tempfile.TemporaryDirectory(prefix="tse1m_rank_")))
             stack.enter_context(contextlib.redirect_stdout(
-                stack.enter_context(open(os.devnull, "w"))))
+                stack.enter_context(open(os.devnull, "w"))))  # graftlint: disable=nonatomic-write -- os.devnull takes a non-zero rank's stdout (the port's ranks run all in a world; JAX's command runs in none): no file exists to tear
         runner = run_rqs(cfg, names, device=dev)
         if distributed:
             multihost.shutdown()
@@ -683,6 +700,80 @@ def _cmd_rq(args) -> int:
         print(f"step {rec.name} failed: {rec.error}\n{rec.traceback}",
               file=sys.stderr)
     return runner.exit_code()
+
+
+def _cmd_spec(args) -> int:
+    """graftspec commands (``spec {check,trace,mutants}``), with the JAX
+    package's output and exit codes (``tse1m_tpu/cli.py:245-309``)."""
+    from .spec import SpecError, build_spec, check, mutant_selftest
+
+    log = logging.getLogger("tse1m_tpu_torch.spec")
+    if args.action == "mutants":
+        try:
+            records = mutant_selftest(mode=args.mode)
+        except SpecError as e:
+            log.error("%s", e)
+            return 1
+        for name, rec in records.items():
+            print(f"{name:24s} spec={rec['spec']:12s} caught "
+                  f"{rec['kind']}:{rec['prop']} in {rec['states']} "
+                  f"states, replayed: {rec['schedule']}")
+        return 0
+
+    names = list(args.names) or (["lease", "ingest_ack", "replica"]
+                                 if args.action == "check" else [])
+    if not names:
+        raise SystemExit("spec trace needs a spec or mutant name")
+    kwargs = {} if args.max_states is None \
+        else {"max_states": args.max_states}
+    results = []
+    for name in names:
+        try:
+            spec = build_spec(name)
+        except SpecError as e:
+            log.error("%s", e)
+            return 2
+        results.append((name, check(spec, mode=args.mode, **kwargs)))
+    bad = [(n, r) for n, r in results if not r.ok]
+    if args.action == "trace":
+        for name, r in results:
+            if r.violation is None:
+                print(f"{name}: no violation in {r.states} states "
+                      f"(scope {r.scope})")
+            else:
+                print(f"{name}:")
+                print(r.violation.describe())
+                print(f"replay: {r.violation.schedule_str}")
+        return 1 if bad else 0
+    if args.json:
+        print(json.dumps([dict(r.summary(), requested=n)
+                          for n, r in results]))
+    else:
+        for name, r in results:
+            status = ("ok" if r.ok else
+                      f"VIOLATION {r.violation.kind}:{r.violation.prop}")
+            print(f"{name:12s} {status}  states={r.states} "
+                  f"transitions={r.transitions} depth={r.depth} "
+                  f"wall={r.wall_s * 1000:.1f}ms")
+        for name, r in bad:
+            print(r.violation.describe())
+            print(f"replay: {r.violation.schedule_str}")
+    return 1 if bad else 0
+
+
+def _cmd_lint(args) -> int:
+    """graftlint over the port (``lint``): ``lint.main`` with these
+    flags."""
+    from .lint import main as lint_main
+
+    argv = list(args.paths)
+    for flag in ("json", "write_baseline", "no_baseline", "graph"):
+        if getattr(args, flag):
+            argv.append("--" + flag.replace("_", "-"))
+    for opt in ("rules", "changed", "why"):
+        if getattr(args, opt):
+            argv += ["--" + opt, getattr(args, opt)]
+    return lint_main(argv)
 
 
 def _serve_client(args):
@@ -1028,6 +1119,34 @@ def build_parser() -> argparse.ArgumentParser:
                        "breakdown; host only")
     g.add_argument("--db", default=env.sqlite_path,
                    help="sqlite study file (default %(default)s)")
+    g = sub.add_parser("lint", help="graftlint over the port's own code "
+                       "(rule catalog: the JAX package's LINTING.md); host "
+                       "only")
+    g.add_argument("paths", nargs="*",
+                   help="files to lint (default: tse1m_tpu_torch/)")
+    g.add_argument("--json", action="store_true")
+    g.add_argument("--write-baseline", action="store_true")
+    g.add_argument("--no-baseline", action="store_true")
+    g.add_argument("--rules", default=None)
+    g.add_argument("--changed", metavar="REF", default=None,
+                   help="incremental: lint files differing from REF plus "
+                        "their reverse-dependency closure")
+    g.add_argument("--why", metavar="RULE:PATH:LINE", default=None,
+                   help="print the witness call chain for one finding")
+    g.add_argument("--graph", action="store_true",
+                   help="print the import/call-graph summary")
+    g = sub.add_parser("spec", help="graftspec: model-check the "
+                       "executable protocol specs; host only")
+    g.add_argument("action", choices=("check", "trace", "mutants"))
+    g.add_argument("names", nargs="*",
+                   help="spec (or mutant) names; check defaults to all "
+                        "three committed specs")
+    g.add_argument("--mode", choices=("bfs", "dfs"), default="bfs",
+                   help="exploration order (BFS counterexamples are "
+                        "shortest)")
+    g.add_argument("--max-states", type=int, default=None,
+                   help="state-count safety valve (default 200000)")
+    g.add_argument("--json", action="store_true")
     helps = {
         "rq1": "RQ1 detection rate",
         "rq2a": "RQ2 change points (CSVs under <dir>/rq3, as the "
@@ -1036,9 +1155,10 @@ def build_parser() -> argparse.ArgumentParser:
         "rq3": "RQ3 coverage change at detection",
         "rq4a": "RQ4a corpus effect on detection",
         "rq4b": "RQ4b corpus effect on coverage",
-        "all": "the six RQs in order (rq1 rq2a rq2b rq3 rq4a rq4b), each "
-               "to completion; leaves out the JAX package's graftlint and "
-               "graftspec steps, which check that package's own code",
+        "all": "the correctness steps graftlint (the port's lint and the "
+               "sanitizer's self-check) and graftspec (the protocol "
+               "specs), then the six RQs in order (rq1 rq2a rq2b rq3 rq4a "
+               "rq4b), each to completion",
     }
     for name, text in helps.items():
         r = sub.add_parser(name, help=text + " over a sqlite study on the "
@@ -1201,6 +1321,10 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_ingest(args)
     if args.cmd == "restore":
         return _cmd_restore(args)
+    if args.cmd == "lint":
+        return _cmd_lint(args)
+    if args.cmd == "spec":
+        return _cmd_spec(args)
     return _cmd_rq(args)
 
 

@@ -26,6 +26,7 @@ method with the same study and gets the same result, equal to the
 single-device one bit for bit; ``rq_suite`` then runs the six single
 calls.
 """
+# graftlint: disable-file=wire-layer -- the per-study device cache IS this plane's transfer seat: arrays stage once per (study, cutoff) and reuse is pinned by tests/test_torch_rq_backend.py
 
 from __future__ import annotations
 

@@ -260,9 +260,12 @@ def merge_labels(old_labels: np.ndarray, u: np.ndarray, v: np.ndarray,
 class LiveClusterIndex:
     """One ingest generation of the online cluster-membership index."""
 
-    # Published snapshots are never mutated: frozen blocks attribute
-    # stores, and no in-place array op (labels[i] = ..., band list
-    # .append) targets a published instance.
+    # graftlint snapshot-publish: published snapshots are never mutated —
+    # frozen blocks attribute stores at runtime; the static pass also
+    # proves no in-place array op (labels[i] = ..., band list .append)
+    # ever targets a published instance.  (The marker is redundant with
+    # frozen=True but keeps the discipline grep-able.)
+    __immutable_after_publish__ = True
 
     generation: int
     n_rows: int

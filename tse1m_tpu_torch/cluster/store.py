@@ -207,6 +207,7 @@ class _ProbeIndex:
     readers snapshot it with one reference read."""
 
     __slots__ = ("mode", "keys", "keys2d", "shard", "row")
+    __immutable_after_publish__ = True
 
     def __init__(self, mode, keys, keys2d, shard, row):
         self.mode = mode
@@ -225,6 +226,7 @@ class _IndexSnapshot:
     old base without them."""
 
     __slots__ = ("base", "deltas")
+    __immutable_after_publish__ = True
 
     def __init__(self, base: "_ProbeIndex", deltas: tuple = ()) -> None:
         self.base = base
@@ -264,8 +266,9 @@ class SignatureStore:
     as absent (in-memory drop + degradation event); the owner quarantines
     it for real on its next open."""
 
-    # The probe view is only ever rebound whole (one `_IndexSnapshot` per
-    # layout change), never mutated in place.
+    # graftlint atomic-swap: the probe view may only be REBOUND whole
+    # (one `_IndexSnapshot` per layout change), never mutated in place.
+    __publish_slots__ = ("_snap",)
 
     def __init__(self, directory: str, policy: dict,
                  max_bytes: int | None = None,
@@ -446,7 +449,7 @@ class SignatureStore:
         try:
             keys = np.load(self._key_path(sid), mmap_mode="r")
             sig = np.load(self._sig_path(sid), mmap_mode="r")
-        except Exception as e:  # a torn shard reads as absent, whatever the failure
+        except Exception as e:  # graftlint: disable=broad-except -- a torn shard must read as absent whatever the failure mode
             return False, f"unloadable ({e})"
         if not (keys.shape == (rows, 2) and keys.dtype == np.uint64
                 and sig.shape == (rows, self.policy["n_hashes"])
@@ -1031,7 +1034,7 @@ class SignatureStore:
         try:
             with np.load(path) as z:
                 payload = {k: z[k].copy() for k in z.files}
-        except Exception as e:  # a torn state drops to the union run, whatever the failure
+        except Exception as e:  # graftlint: disable=broad-except -- a torn state must drop to the union fallback whatever the failure mode
             log.warning("LSH state unreadable during compaction (%s); "
                         "dropping it", e)
             with _suppress_oserror():
@@ -1272,7 +1275,7 @@ class SignatureStore:
                 locator = z["locator"]
                 band_keys = [z[f"bk_{b:03d}"] for b in range(n_bands)]
                 band_reps = [z[f"br_{b:03d}"] for b in range(n_bands)]
-        except Exception as e:  # a torn state reads as absent, whatever the failure
+        except Exception as e:  # graftlint: disable=broad-except -- a torn state file must read as absent whatever the failure mode
             log.warning("LSH state unreadable (%s); rebuilding", e)
             return None
         if labels.shape[0] != int(meta["n_rows"]):

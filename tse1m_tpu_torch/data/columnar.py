@@ -285,6 +285,7 @@ def _pg_copy_sql(sql: str, params, spec: str) -> str:
     alias = ", ".join(f'"c{i}"' for i in range(len(spec)))
     sel = ", ".join(f'q."c{i}"::text' if sp in "pscubo" else f'q."c{i}"'
                     for i, sp in enumerate(spec))
+    # graftlint: disable=sql-interp -- wraps our own already-parameterized bulk query; aliases are generated c0..cN
     return (f"COPY (SELECT {sel} FROM ({inner}) AS q({alias})) "
             "TO STDOUT (FORMAT binary)")
 

@@ -35,11 +35,13 @@ def resolve_device(device: str | torch.device | None = "cuda") -> torch.device:
 def u32_tensor(a, device: str | torch.device | None = None) -> torch.Tensor:
     """numpy uint32 values -> an int32 tensor carrying the same bits."""
     arr = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
+    # graftlint: disable=wire-layer -- the port's uint32 host-to-device helper (torch has no uint32 kernels, so the bits ride as int32); JAX's jnp.asarray stages uint32 implicitly, unseen by the rule
     return torch.from_numpy(arr.view(np.int32).copy()).to(device or "cpu")
 
 
 def as_u32_numpy(t: torch.Tensor) -> np.ndarray:
     """An int32 tensor of uint32 bit patterns -> numpy uint32 (on the host)."""
+    # graftlint: disable=wire-layer -- the port's uint32 device-to-host helper (the inverse view); JAX's np.asarray fetches implicitly, unseen by the rule
     return t.detach().cpu().numpy().view(np.uint32)
 
 

@@ -96,7 +96,7 @@ def _load(name: str):
     with _lock:
         if name in _modules:
             return _modules[name]
-        mod = None
+        built = None
         src, _, _, deps = _LIBS[name]
         so = os.path.join(BUILD_DIR, name + ".so")
         try:
@@ -106,15 +106,15 @@ def _load(name: str):
             fresh = os.path.exists(so) and os.path.getmtime(so) >= newest
             if fresh or _compile(name, so):
                 spec = importlib.util.spec_from_file_location(name, so)
-                mod = importlib.util.module_from_spec(spec)
-                spec.loader.exec_module(mod)
+                built = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(built)
                 log.info("native %s loaded (%s)", name, so)
         except (OSError, ImportError, subprocess.SubprocessError) as e:
             log.warning("native %s unavailable (%s); using the numpy path",
                         name, e)
-            mod = None
-        _modules[name] = mod
-        return mod
+            built = None
+        _modules[name] = built
+        return built
 
 
 def loaded(which: str) -> bool:

@@ -19,6 +19,7 @@ import logging
 import os
 import time
 
+from ..resilience.faults import reraise_if_fault
 from ..resilience.watchdog import deadline_clock
 from ..utils.atomic import atomic_write
 from . import tracing
@@ -85,7 +86,8 @@ def dump_flight(reason: str, site: str | None = None,
             json.dump(payload, f, indent=2, default=str)
         log.warning("flight recorder: %s dumped to %s", reason, path)
         return path
-    except Exception as e:  # noqa: BLE001 - a dump must not mask the crash
+    except Exception as e:  # a dump must not mask the crash, nor a fault
+        reraise_if_fault(e)
         log.error("flight recorder: dump for %s failed (%s: %s)", reason,
                   type(e).__name__, e)
         return None

@@ -29,6 +29,7 @@ None (this package's ``TorchBackend``): the lanes are joined into one
 int64 key of the same lexicographic order before the search.
 """
 
+# graftlint: disable-file=wire-layer -- the mesh RQ plane's placement seat: each rank's block of the study arrays goes to its device and results gather back here; JAX's _placed stages them through jnp.asarray / make_array_from_process_local_data, which the rule does not see
 from __future__ import annotations
 
 import warnings
@@ -52,6 +53,7 @@ def _device_f64_exact(device: torch.device) -> bool:
     key = str(torch.device(device).type)
     if key not in _F64_EXACT:
         canary = np.array([1.0 + 2.0 ** -50, np.pi, 1e300], dtype=np.float64)
+        # graftlint: disable=wire-layer -- 4-byte mesh-liveness canary, not a data transfer
         back = torch.from_numpy(canary).to(device).cpu().numpy()
         _F64_EXACT[key] = bool(np.array_equal(canary, back))
     return _F64_EXACT[key]

@@ -57,6 +57,11 @@ from .watchdog import deadline_clock
 
 log = logging.getLogger("tse1m_tpu_torch.resilience.coordinator")
 
+# graftspec binding: the epoch-lease protocol this module implements
+# is modeled by tse1m_tpu_torch/spec/lease.py; the lint conformance pass
+# holds the two together.
+SPEC_MODELS = ("lease",)
+
 _HB_PREFIX = "hb_"
 _XCH_PREFIX = "xch_"
 
@@ -358,7 +363,7 @@ class PodSupervisor:
         def worker() -> None:
             try:
                 box["result"] = fn()
-            except BaseException as e:  # noqa: BLE001 - relayed below
+            except BaseException as e:  # graftlint: disable=broad-except -- relayed verbatim below
                 box["error"] = e
 
         t = threading.Thread(target=worker, daemon=True,

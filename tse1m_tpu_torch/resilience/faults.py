@@ -235,14 +235,18 @@ _env_lock = threading.Lock()
 
 def install_plan(plan: FaultPlan) -> None:
     global _plan, _env_loaded
-    _plan = plan
-    _env_loaded = True  # an explicit install wins over the env plan
+    # Under the lock the env load holds: an explicit install wins over
+    # the env plan even when the first active_plan() is loading it.
+    with _env_lock:
+        _plan = plan
+        _env_loaded = True
 
 
 def clear_plan() -> None:
     global _plan, _env_loaded
-    _plan = None
-    _env_loaded = True
+    with _env_lock:
+        _plan = None
+        _env_loaded = True
 
 
 def active_plan() -> FaultPlan | None:

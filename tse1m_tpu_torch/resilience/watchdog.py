@@ -77,7 +77,7 @@ def run_with_deadline(fn: Callable, budget_s: float, site: str):
     def worker() -> None:
         try:
             box["result"] = ctx.run(fn)
-        except BaseException as e:  # noqa: BLE001 - re-raised in the caller below
+        except BaseException as e:  # graftlint: disable=broad-except -- relayed verbatim (incl. InjectedFault) via `raise box["error"]` below
             box["error"] = e
 
     t = threading.Thread(target=worker, daemon=True,

@@ -79,12 +79,17 @@ from ..observability.flight import dump_flight, get_flight_dir, set_flight_dir
 from ..observability.latency import LatencyRecorder
 from ..observability.tracing import continue_trace, current_trace, span
 from ..resilience.coordinator import LeaseSupersededError
-from ..resilience.faults import fault_point
+from ..resilience.faults import InjectedFault, fault_point
 from ..resilience.watchdog import StageWatchdog, deadline_clock
 from ..trace.hooks import shared_access, trace_point
 from .slo import AdmissionController, SloPolicy, SloTracker
 
 log = logging.getLogger("tse1m_tpu_torch.serve.daemon")
+
+# graftspec binding: the lint conformance pass holds every fault seat
+# in this module to an action of these protocol specs
+# (tse1m_tpu_torch/spec/).
+SPEC_MODELS = ("ingest_ack", "lease")
 
 _RECOVER_CHUNK = 65536
 _CONTROL_COMMIT = "commit_state"
@@ -249,6 +254,11 @@ class ServeDaemon:
 
     ``lease_guard`` (a ``RangeLeaseGuard``) makes this daemon a fenced
     shard writer: see the module docstring."""
+
+    # graftlint atomic-swap: the live index is published by ONE
+    # reference swap per ingest generation; the snapshot itself is a
+    # frozen dataclass (immutable-after-publish, snapshot-publish pass).
+    __publish_slots__ = ("_index",)
 
     def __init__(self, store_dir: str,
                  params: ClusterParams | None = None,
@@ -504,8 +514,15 @@ class ServeDaemon:
                 self._ingest_error = e
                 log.error("serve: shard writer fenced (%s); ingest refused "
                           "from here on", e)
-            except Exception as e:  # noqa: BLE001 - one failed batch; the daemon goes on
+            except Exception as e:  # one failed batch; the daemon goes on
                 t.fail(e)
+                if isinstance(e, InjectedFault):
+                    # Fault-transparent: an injected fault latches, dumps
+                    # and ends the ingest thread, as a real crash would.
+                    self._ingest_error = e
+                    dump_flight("serve.ingest_crash", site="serve.ingest",
+                                extra={"error": f"{type(e).__name__}: {e}"})
+                    raise
                 log.error("serve: ingest batch failed (%s: %s); daemon "
                           "continues", type(e).__name__, e)
             except BaseException as e:

@@ -54,6 +54,9 @@ from .daemon import _topk_answer
 
 log = logging.getLogger("tse1m_tpu_torch.serve.replicate")
 
+# graftspec binding: fault seats here must be modeled by these specs.
+SPEC_MODELS = ("replica",)
+
 _MANIFEST = "store_manifest.json"
 _STATE = "state.json"
 _RECOVER_CHUNK = 65536
@@ -169,6 +172,10 @@ class ServeReplica:
     ``device`` is where the scan runs: the card unless the caller asks
     for the CPU (the top-k kernel's plain version); without a card the
     constructor raises."""
+
+    # graftlint atomic-swap / snapshot-publish: one reference swap per
+    # adopted generation.
+    __publish_slots__ = ("_index",)
 
     def __init__(self, directory: str,
                  params: ClusterParams | None = None,

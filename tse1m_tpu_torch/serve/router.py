@@ -60,7 +60,7 @@ from ..observability.latency import LatencyRecorder
 from ..observability.tracing import (continue_trace, recent_spans, span,
                                      spans_recorded)
 from ..resilience.coordinator import heartbeat_timeout_s
-from ..resilience.faults import fault_point
+from ..resilience.faults import fault_point, reraise_if_fault
 from ..resilience.watchdog import request_budget_s
 from ..trace import sync as tsync
 from ..trace.hooks import fan_out, shared_access, trace_point
@@ -71,6 +71,9 @@ from .server import (_Handler, decode_vectors, encode_vectors, read_msg,
                      write_msg)
 
 log = logging.getLogger("tse1m_tpu_torch.serve.router")
+
+# graftspec binding: fault seats here must be modeled by these specs.
+SPEC_MODELS = ("ingest_ack",)
 
 _CONNECT_TIMEOUT_S = 5.0
 
@@ -121,15 +124,16 @@ class TcpTransport:
             s = socket.create_connection((self.host, self._resolve_port()),
                                          timeout=_CONNECT_TIMEOUT_S)
             s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-            self._sock = s
+            self._sock = s  # graftlint: disable=unlocked-shared-state -- runs only inside __call__'s `with self._lock` (the port locks the transport; JAX's has no lock, and the rule reads locks lexically)
         return self._sock
 
     def close(self) -> None:
-        if self._sock is not None:
-            try:
-                self._sock.close()
-            finally:
-                self._sock = None
+        """Drop the connection, after any exchange in flight on it."""
+        with self._lock:
+            shared_access(self, "sock", write=True)
+            sock, self._sock = self._sock, None
+        if sock is not None:
+            sock.close()
 
     def __call__(self, msg: dict, timeout_s: float | None = None) -> dict:
         with self._lock:
@@ -140,7 +144,8 @@ class TcpTransport:
                 write_msg(sock, msg)
                 return read_msg(sock)
             except (ConnectionError, socket.timeout, OSError):
-                self.close()
+                self._sock = None
+                sock.close()
                 raise
 
 
@@ -490,7 +495,8 @@ class RouterServer(socketserver.ThreadingTCPServer):
             resp = {"ok": False, "error": "backpressure",
                     "retry_after_s": round(e.retry_after_s, 3),
                     "depth": e.depth}
-        except Exception as e:  # noqa: BLE001 - a structured error answer
+        except Exception as e:  # a structured error answer
+            reraise_if_fault(e)
             log.error("router: %s request failed (%s: %s)", op,
                       type(e).__name__, e)
             resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}

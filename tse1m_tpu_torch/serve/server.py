@@ -29,6 +29,7 @@ from ..observability import profiling
 from ..observability.export import flat_metrics, prometheus_text
 from ..observability.tracing import (continue_trace, recent_spans, span,
                                      spans_recorded)
+from ..resilience.faults import reraise_if_fault
 from ..resilience.watchdog import request_budget_s, run_with_deadline
 from ..utils.atomic import atomic_write
 from .daemon import IngestRejected, ServeDaemon
@@ -91,7 +92,8 @@ class _Handler(socketserver.BaseRequestHandler):
                 write_msg(self.request, resp)
                 if msg.get("op") == "shutdown":
                     return
-        except Exception as e:  # noqa: BLE001 - one connection fails, the server goes on
+        except Exception as e:  # one connection fails, the server goes on
+            reraise_if_fault(e)
             log.warning("serve: connection handler failed (%s: %s)",
                         type(e).__name__, e)
 
@@ -126,7 +128,8 @@ class ServeServer(socketserver.ThreadingTCPServer):
             resp = {"ok": False, "error": "backpressure",
                     "retry_after_s": round(e.retry_after_s, 3),
                     "depth": e.depth}
-        except Exception as e:  # noqa: BLE001 - a structured error answer
+        except Exception as e:  # a structured error answer
+            reraise_if_fault(e)
             log.error("serve: %s request failed (%s: %s)", op,
                       type(e).__name__, e)
             resp = {"ok": False, "error": f"{type(e).__name__}: {e}"}

@@ -242,7 +242,7 @@ class DeterministicScheduler:
         def body() -> None:
             try:
                 child.result = fn()
-            except Exception as e:  # noqa: BLE001 - handed to join() in the parent
+            except Exception as e:  # graftlint: disable=broad-except -- cross-thread relay: join() re-raises it in the parent (a child thread the port's scheduler spawns; JAX's spawns none)
                 child.error = e
 
         with self._cv:
@@ -330,7 +330,7 @@ class DeterministicScheduler:
             fn()
         except _Abort:
             pass
-        except BaseException as e:  # noqa: BLE001 - re-raised on the main thread by run() with the replay string
+        except BaseException as e:  # graftlint: disable=broad-except -- cross-thread relay: re-raised on the main thread by run() with the replay string attached
             with self._cv:
                 if self._error is None:
                     self._error = e
