@@ -1,7 +1,8 @@
 """Rules of the tse1m_tpu_torch port that hold by construction: it imports
-nothing of JAX, the JAX package or pandas, and matplotlib only inside the
-RQ drivers' figure functions (never when a module is imported: the card's
-machine has none), its entry points run on the card unless asked for the
+nothing of JAX, the JAX package, pandas, PyYAML or requests, matplotlib
+only inside the RQ drivers' figure functions and selenium only inside the
+issue client's methods (never when a module is imported: the card's
+machine has none of them), its entry points run on the card unless asked for the
 CPU and raise without one, and no kernel launch sits behind a handler that
 could fall back to a plain version."""
 
@@ -56,7 +57,12 @@ def _module_level_imports(path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "tse1m_tpu", "pandas")
+    return top in ("jax", "jaxlib", "tse1m_tpu", "pandas", "yaml",
+                   "requests")
+
+
+def _selenium(name: str) -> bool:
+    return name.split(".")[0] == "selenium"
 
 
 def _plotting(name: str) -> bool:
@@ -86,6 +92,15 @@ def test_port_imports_nothing_of_jax():
     drivers = {os.path.basename(p) for p in sources if p.startswith(analysis)
                and any(_plotting(m) for m in _imported_modules(p))}
     assert drivers == {"common.py", "rq3.py", "rq4a.py", "rq4b.py"}
+    # PyYAML and requests nowhere; selenium only inside the issue
+    # client's functions.
+    assert _forbidden("yaml") and _forbidden("requests.adapters")
+    selenium = [(os.path.relpath(p, REPO), m) for p in sources
+                for m in _module_level_imports(p) if _selenium(m)]
+    assert selenium == []
+    users = {os.path.relpath(p, PKG) for p in sources
+             if any(_selenium(m) for m in _imported_modules(p))}
+    assert users == {os.path.join("collect", "issues_selenium.py")}
     # The new serving modules are among the sources checked.
     assert {os.path.join(PKG, "serve", f) for f in (
         "router.py", "replicate.py")} | {os.path.join(
@@ -101,6 +116,13 @@ def test_port_imports_nothing_of_jax():
             "__init__.py", "__main__.py", "engine.py", "graph.py",
             "interproc.py", "rules.py")} | {os.path.join(
             PKG, "resilience", "fault_matrix.py")} <= set(sources)
+    # And the I/O plane's: the collectors and the round toolbelt.
+    assert {os.path.join(PKG, "collect", f) for f in (
+        "__init__.py", "transport.py", "checkpoint.py", "table.py",
+        "yaml_subset.py", "projects.py", "gcs_metadata.py", "coverage.py",
+        "buildlogs.py", "issues.py", "issues_selenium.py", "corpus.py",
+        "normalize.py")} | {os.path.join(PKG, "bench.py"), os.path.join(
+            PKG, "observability", "regress.py")} <= set(sources)
 
 
 def test_correctness_plane_runs_without_jax_or_pandas(tmp_path):

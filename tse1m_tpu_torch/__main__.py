@@ -14,6 +14,10 @@
     python -m tse1m_tpu_torch ingest --csv-dir DIR [--db PATH]
     python -m tse1m_tpu_torch restore DUMP [--db PATH]
     python -m tse1m_tpu_torch stats [--db PATH]
+    python -m tse1m_tpu_torch collect {projects,gcs-metadata,coverage,\
+        buildlogs,issues,corpus} [--repo DIR] [--data-dir DIR] \
+        [--no-clone] [--max-pages N] [--limit N] [--ids-file F] \
+        [--workers 8]
     python -m tse1m_tpu_torch {rq1,rq2a,rq2b,rq3,rq4a,rq4b,all} --db PATH \
         --result-dir DIR [--limit-date 2025-01-08] \
         [--min-coverage-days 365] [--test-mode] [--corpus-csv PATH] \
@@ -172,8 +176,17 @@ and ``graftspec``, before the six RQs.
 ``cluster``, ``serve``, ``serve-replica``, ``backfill`` and the RQ
 commands run on the card unless ``--device cpu`` is given, and fail
 without one; ``serve-router`` holds no device; ``synth`` and ``scrub``
-are host work, as are ``ingest``, ``restore``, ``stats``, ``lint`` and
-``spec``.
+are host work, as are ``ingest``, ``restore``, ``stats``, ``lint``,
+``spec`` and ``collect``.
+
+``collect`` runs one of the JAX package's six collection steps
+(``collect/``): ``projects`` (an oss-fuzz checkout's project.yaml files
+and first commits; cloned unless ``--no-clone``), ``gcs-metadata`` (the
+build-log bucket listing), ``coverage`` (daily reports per project),
+``buildlogs`` (``--workers`` threads fetch and parse the logs),
+``issues`` (scrape the ids of ``--ids-file`` with selenium, then merge
+and normalize) and ``corpus`` (seed-corpus history; GitHub merge times
+with GITHUB_TOKEN).  Its CSVs equal the JAX package's byte for byte.
 """
 
 from __future__ import annotations
@@ -761,6 +774,96 @@ def _cmd_spec(args) -> int:
     return 1 if bad else 0
 
 
+def _cmd_collect(args) -> int:
+    """One offline collection step (C3-C8), the JAX package's
+    ``collect`` command.  Network steps use an HttpFetcher with the
+    reference's politeness and retry policy; every output lands in
+    ``--data-dir`` in the layouts ``ingest`` reads.  No device work."""
+    from datetime import date, timedelta
+
+    from .collect import table
+    from .collect.transport import FetchPolicy, HttpFetcher
+
+    data_dir = args.data_dir
+    os.makedirs(data_dir, exist_ok=True)
+    if args.step == "projects":
+        from .collect.projects import OSS_FUZZ_URL, run_project_info_collector
+
+        run_project_info_collector(
+            args.repo, os.path.join(data_dir, "project_info.csv"),
+            clone_url=None if args.no_clone else OSS_FUZZ_URL)
+    elif args.step == "gcs-metadata":
+        from .collect.gcs_metadata import GcsMetadataCollector
+
+        fetcher = HttpFetcher(FetchPolicy(retries=5, backoff_factor=1.0,
+                                          politeness_delay=5.0,
+                                          timeout=30.0))
+        coll = GcsMetadataCollector(
+            fetcher, os.path.join(data_dir, "buildlog_metadata_batches"),
+            max_pages=args.max_pages)
+        coll.collect(os.path.join(data_dir, "buildlog_metadata.csv"))
+    elif args.step == "coverage":
+        from .collect.coverage import CoverageCollector
+
+        info = table.read_csv(os.path.join(data_dir, "project_info.csv"))
+        fetcher = HttpFetcher(FetchPolicy(politeness_delay=0.5))
+        coll = CoverageCollector(
+            fetcher, os.path.join(data_dir, "coverage_by_project"),
+            finish_date=date.today() - timedelta(days=2))
+        coll.collect_all(info, os.path.join(data_dir, "total_coverage.csv"))
+    elif args.step == "buildlogs":
+        import glob
+
+        from .collect.buildlogs import BuildLogAnalyzer
+        from .collect.normalize import buildlog_table_rows
+
+        meta = table.read_csv(os.path.join(data_dir, "buildlog_metadata.csv"))
+        batch_dir = os.path.join(data_dir, "buildlog_analyzed_batches")
+        # With workers > 1 the fetcher's lock serializes request starts, so
+        # the politeness delay bounds the total request rate (~10 req/s).
+        an = BuildLogAnalyzer(HttpFetcher(FetchPolicy(politeness_delay=0.1)),
+                              batch_dir, limit=args.limit,
+                              workers=args.workers)
+        an.analyze(meta)
+        frames = [table.read_csv(f) for f in
+                  sorted(glob.glob(os.path.join(batch_dir, "*.csv")))]
+        if frames:
+            table.write_csv(buildlog_table_rows(table.concat(frames)),
+                            os.path.join(data_dir, "buildlog_data.csv"))
+    elif args.step == "issues":
+        from .collect.issues import merge_window_csvs, plan_run, scrape_issues
+        from .collect.normalize import issue_table_rows
+
+        results_dir = os.path.join(data_dir, "issue_scraping_results")
+        targets = set()
+        if args.ids_file and os.path.exists(args.ids_file):
+            with open(args.ids_file, encoding="utf-8") as f:
+                targets = {int(ln) for ln in f if ln.strip().isdigit()}
+        plan = plan_run(targets, results_dir)
+        if plan:
+            from .collect.issues_selenium import SeleniumIssueClient
+
+            scrape_issues(SeleniumIssueClient, plan, results_dir,
+                          num_workers=args.workers)
+        merged_csv = os.path.join(data_dir, "issues_merged.csv")
+        if merge_window_csvs(results_dir, merged_csv):
+            table.write_csv(
+                issue_table_rows(table.read_csv(merged_csv,
+                                                json_cells=True)),
+                os.path.join(data_dir, "issues.csv"))
+    elif args.step == "corpus":
+        from .collect.corpus import (GitHubMergeTimeResolver,
+                                     run_corpus_collector)
+
+        resolver = GitHubMergeTimeResolver(
+            fetcher=HttpFetcher(FetchPolicy()),
+            token=os.environ.get("GITHUB_TOKEN"))
+        run_corpus_collector(
+            args.repo,
+            os.path.join(data_dir, "project_corpus_analysis.csv"), resolver)
+    return 0
+
+
 def _cmd_lint(args) -> int:
     """graftlint over the port (``lint``): ``lint.main`` with these
     flags."""
@@ -1119,6 +1222,19 @@ def build_parser() -> argparse.ArgumentParser:
                        "breakdown; host only")
     g.add_argument("--db", default=env.sqlite_path,
                    help="sqlite study file (default %(default)s)")
+    text = ("one offline collection step (C3-C8) into --data-dir; host "
+            "work only: it computes nothing on a device and takes no "
+            "--device")
+    g = sub.add_parser("collect", help=text, description=text)
+    g.add_argument("step", choices=("projects", "gcs-metadata", "coverage",
+                                    "buildlogs", "issues", "corpus"))
+    g.add_argument("--repo", default="data/collect_data/repos/oss-fuzz")
+    g.add_argument("--data-dir", default="data/processed_data/csv")
+    g.add_argument("--no-clone", action="store_true")
+    g.add_argument("--max-pages", type=int, default=None)
+    g.add_argument("--limit", type=int, default=None)
+    g.add_argument("--ids-file", default=None)
+    g.add_argument("--workers", type=int, default=8)
     g = sub.add_parser("lint", help="graftlint over the port's own code "
                        "(rule catalog: the JAX package's LINTING.md); host "
                        "only")
@@ -1323,6 +1439,8 @@ def main(argv: list[str] | None = None) -> int:
         return _cmd_restore(args)
     if args.cmd == "lint":
         return _cmd_lint(args)
+    if args.cmd == "collect":
+        return _cmd_collect(args)
     if args.cmd == "spec":
         return _cmd_spec(args)
     return _cmd_rq(args)

@@ -72,6 +72,11 @@ class Config:
     # Persistent signature store of the cluster warm path
     # (cluster/store.py); None = cold runs.  CLI `cluster --sig-store`.
     sig_store: str | None = None
+    # The retry engine's knobs for the study database's connects and
+    # statements (db/connection.py).
+    db_retry_attempts: int = 4
+    db_retry_base_delay: float = 0.1
+    db_retry_max_delay: float = 5.0
     # Per-statement timeout in ms: Postgres `SET statement_timeout`, the
     # sqlite busy timeout and its statement deadline.  0 = off.
     db_statement_timeout_ms: int = 0
@@ -91,11 +96,12 @@ def load_config(ini: str | None = None) -> Config:
     """Defaults, then the INI's ``[POSTGRES]`` keys (POSTGRES_DB,
     POSTGRES_USER, POSTGRES_PASSWORD, POSTGRES_IP, POSTGRES_PORT) and
     ``[FRAMEWORK]`` keys backend, engine, sqlite_path, limit_date,
-    result_dir, corpus_csv, test_mode, sig_store, db_statement_timeout_ms
-    and router_cal_path, then the environment: TSE1M_BACKEND,
+    result_dir, corpus_csv, test_mode, sig_store, db_retry_attempts,
+    db_retry_base_delay, db_retry_max_delay, db_statement_timeout_ms and
+    router_cal_path, then the environment: TSE1M_BACKEND,
     TSE1M_ENGINE, TSE1M_SQLITE_PATH, TSE1M_CORPUS_CSV, TSE1M_RESULT_DIR,
     TSE1M_TEST_MODE (1/true/yes), TSE1M_ROUTER_CAL, TSE1M_SIG_STORE,
-    TSE1M_DB_STATEMENT_TIMEOUT_MS.  A backend other than pandas, jax_tpu
+    TSE1M_DB_RETRY_ATTEMPTS, TSE1M_DB_STATEMENT_TIMEOUT_MS.  A backend other than pandas, jax_tpu
     or auto, or an engine other than sqlite or postgres, raises
     ValueError."""
     cfg = Config()
@@ -121,6 +127,12 @@ def load_config(ini: str | None = None) -> Config:
             cfg.corpus_csv = fw.get("corpus_csv", cfg.corpus_csv)
             cfg.test_mode = fw.getboolean("test_mode", cfg.test_mode)
             cfg.sig_store = fw.get("sig_store", cfg.sig_store)
+            cfg.db_retry_attempts = fw.getint("db_retry_attempts",
+                                              cfg.db_retry_attempts)
+            cfg.db_retry_base_delay = fw.getfloat("db_retry_base_delay",
+                                                  cfg.db_retry_base_delay)
+            cfg.db_retry_max_delay = fw.getfloat("db_retry_max_delay",
+                                                 cfg.db_retry_max_delay)
             cfg.db_statement_timeout_ms = fw.getint(
                 "db_statement_timeout_ms", cfg.db_statement_timeout_ms)
             cfg.router_cal_path = fw.get("router_cal_path",
@@ -136,6 +148,8 @@ def load_config(ini: str | None = None) -> Config:
     cfg.router_cal_path = os.environ.get("TSE1M_ROUTER_CAL",
                                          cfg.router_cal_path)
     cfg.sig_store = os.environ.get("TSE1M_SIG_STORE", cfg.sig_store)
+    if "TSE1M_DB_RETRY_ATTEMPTS" in os.environ:
+        cfg.db_retry_attempts = int(os.environ["TSE1M_DB_RETRY_ATTEMPTS"])
     if "TSE1M_DB_STATEMENT_TIMEOUT_MS" in os.environ:
         cfg.db_statement_timeout_ms = int(
             os.environ["TSE1M_DB_STATEMENT_TIMEOUT_MS"])

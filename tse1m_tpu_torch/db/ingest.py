@@ -245,7 +245,7 @@ def derive_projects(db) -> None:
         dbx.execute("INSERT INTO projects (project_name) "
                     "SELECT project FROM buildlog_data")
 
-    db.run_transaction(_rebuild)
+    db.run_transaction(_rebuild, site="db.derive_projects")
 
 
 __all__ = ["canon_result", "derive_projects", "ingest_csv_dir",

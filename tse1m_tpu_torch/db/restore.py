@@ -220,7 +220,7 @@ def restore_sql_dump(db, path: str, create: bool = True,
                 dbx.execute("UPDATE buildlog_data SET result = ? "
                             "WHERE result = ?", (dst, src))
 
-        db.run_transaction(_canon)
+        db.run_transaction(_canon, site="db.restore.canon")
     if counts.get("projects", 0) == 0 and counts.get("buildlog_data", 0):
         derive_projects(db)
         counts["projects"] = db.count("SELECT * FROM projects", ())

@@ -125,7 +125,7 @@ def create_schema(db) -> None:
         for stmt in statements:
             dbx.execute(stmt)
 
-    db.run_transaction(_create)
+    db.run_transaction(_create, site="db.create_schema")
 
 
 __all__ = ["SCHEMA_TABLES", "create_schema", "ddl"]

@@ -65,10 +65,9 @@ MATRIX_DEFAULT = os.path.join("tse1m_tpu_torch", "resilience",
 # Blessed wrapper classes: calls INTO their methods are the sanctioned
 # way to perform HTTP / DB I/O, so capability propagation stops there.
 _BOUNDARY_CLASSES = ("DB", "HttpFetcher")
-# The JAX package's HTTP seat, collect/transport.py, has no port
-# counterpart yet (the collectors are not ported): it is left out here,
-# and so no port file may call ``requests`` directly.
-_TRANSPORT = ()
+# The HTTP seat: its ``urlopen`` is the port's counterpart of the JAX
+# transport's ``requests``.
+_TRANSPORT = ("tse1m_tpu_torch/collect/transport.py",)
 _DB_LAYER = ("tse1m_tpu_torch/db/connection.py",
              "tse1m_tpu_torch/db/pglib.py")
 _BLESSED_IO_FILES = _TRANSPORT + _DB_LAYER
@@ -289,7 +288,7 @@ def taint_pass(graph: ProjectGraph) -> list:
             seat = None
             if head == "requests" and path not in _TRANSPORT:
                 seat = f"requests.{leaf}"
-            elif leaf == "urlopen":
+            elif leaf == "urlopen" and path not in _TRANSPORT:
                 seat = "urlopen"
             elif "exec_recv" in call and path in _DB_LAYER:
                 seat = f"{call['exec_recv']}.{leaf}"

@@ -685,10 +685,10 @@ def unlocked_shared_state(src: FileSource) -> list[Finding]:
 
 # -- 7. retry-bypass ---------------------------------------------------------
 
-# The JAX package's one HTTP seat, collect/transport.py, has no port
-# counterpart yet (the collectors are not ported), so no port file may
-# call ``requests`` directly.
-_TRANSPORT = ()
+# The one HTTP seat: the transport's ``urlopen`` is the port's
+# counterpart of the JAX transport's ``requests``.  Anywhere else either
+# bypasses the retry engine.
+_TRANSPORT = ("tse1m_tpu_torch/collect/transport.py",)
 _DB_LAYER = ("tse1m_tpu_torch/db/connection.py",
              "tse1m_tpu_torch/db/pglib.py")
 _HTTP_FNS = {"get", "post", "put", "head", "delete", "request", "Session"}
@@ -710,7 +710,7 @@ def retry_bypass(src: FileSource) -> list[Finding]:
                           f"direct `requests.{func.attr}` bypasses the "
                           "retry engine (utils/retry.py: backoff, "
                           "Retry-After, fault injection seats)"))
-        if func.attr == "urlopen":
+        if func.attr == "urlopen" and src.path not in _TRANSPORT:
             out.append(_f(src, node,
                           "`urlopen` bypasses the retry engine "
                           "(utils/retry.py)"))
@@ -732,9 +732,8 @@ def retry_bypass(src: FileSource) -> list[Finding]:
 
 # Planes replayed under seeded fault plans / chaos tests: wall-clock and
 # global-RNG reads there make a replay diverge from the recorded run.
-# (The JAX package's collect/ plane has no port counterpart yet.)
 _REPLAY_PLANES = ("tse1m_tpu_torch/resilience/", "tse1m_tpu_torch/db/",
-                  "tse1m_tpu_torch/cluster/")
+                  "tse1m_tpu_torch/cluster/", "tse1m_tpu_torch/collect/")
 _RANDOM_OK = {"Random", "SystemRandom", "getstate", "seed"}
 
 

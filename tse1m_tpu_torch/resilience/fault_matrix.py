@@ -15,6 +15,24 @@ it.
 from __future__ import annotations
 
 PRODUCTION_SEATS = {
+    "http.fetch": {
+        "kinds": ("raise", "connection_drop", "delay"),
+        "covered_by": "tests/test_torch_io_resilience.py (HttpFetcher "
+                      "retry and Retry-After under injected faults, the "
+                      "GCS pager's CSV equal to a fault-free run's)"},
+    "db.connect": {
+        "kinds": ("raise", "connection_drop"),
+        "covered_by": "tests/test_torch_io_resilience.py (connect retried "
+                      "and reconnect on a drop, `all` under DB faults)"},
+    "db.execute": {
+        "kinds": ("raise", "connection_drop", "delay"),
+        "covered_by": "tests/test_torch_io_resilience.py (statement retry, "
+                      "reconnect, transaction units, ingest and restore "
+                      "equal to fault-free runs)"},
+    "checkpoint.csv.flush": {
+        "kinds": ("torn_write", "kill"),
+        "covered_by": "tests/test_torch_io_resilience.py (torn batch "
+                      "writes, SIGKILL mid-batch then resume)"},
     "pglib.exec": {
         "kinds": ("connection_drop",),
         "covered_by": "not driven by a port test: the port runs no "

@@ -11,6 +11,11 @@ package's, so one plan file drives either package.
 
 Seats of the port (grep for ``fault_point(``):
 
+- ``http.fetch``               one attempt of the collectors' HTTP GET
+- ``db.connect``               one attempt to open the study database
+- ``db.execute``               one attempt of a study-database statement
+- ``checkpoint.csv.flush``     a collector's batch CSV, written, before
+                               its rename
 - ``pipeline.h2d``             one chunk's staged copy to the card
 - ``pipeline.compute``         one chunk's compute wait
 - ``checkpoint.cluster.save``  a cluster checkpoint shard write

@@ -1,14 +1,22 @@
-"""Bounded retries of local I/O: a trimmed copy of
-``tse1m_tpu/resilience/retry.py`` and ``io_retry_policy``.
+"""The shared retry engine: a copy of ``tse1m_tpu/resilience/retry.py``
+and its ``io_retry_policy``.
 
-The signature store writes each shard under ``retry_call(...,
-policy=io_retry_policy())``: a transient ``OSError`` (a flaky mount, a
-full disk freed a moment later) rewrites the shard's temp files from
-scratch instead of failing the run.  Backoff is exponential with full
-jitter, optionally capped by a deadline over all attempts.  As in the
-JAX package, each attempt is its own span (``attempt.<site>``, tagged
-with the error type when it fails), so both packages pass the same
-trace-plane seats.  JAX's ``retries_total`` counter is left out.
+One loop for every I/O seat: bounded attempts, exponential backoff with
+full jitter, a deadline over all attempts, an exception allowlist
+(``policy.retry_on``, narrowed further by ``should_retry``), a recovery
+hook between attempts (``on_retry``: the study database reconnects there
+after a dropped connection) and server ``Retry-After`` hints (an
+exception's ``retry_after`` raises the next sleep, capped by what is left
+of the deadline).  The signature store and the cluster checkpoints write
+their shards under ``io_retry_policy()``; the HTTP transport
+(``collect/transport.py``) and the study database (``db/connection.py``)
+retry through the same loop.
+
+As in the JAX package, each attempt is its own span (``attempt.<site>``,
+tagged with the error type when it fails and ``fault: injected`` when the
+fault plane raised it), every retry adds one to the ``retries_total``
+counter of its site, and ``sleep``, ``rng`` and ``clock`` are injectable,
+so a test replays the engine's sleeps exactly.
 """
 
 from __future__ import annotations
@@ -17,8 +25,11 @@ import logging
 import os
 import random
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
+
+from ..resilience.faults import InjectedFault
+from ..resilience.watchdog import deadline_clock
 
 log = logging.getLogger("tse1m_tpu_torch.retry")
 
@@ -48,6 +59,14 @@ class RetryError(RuntimeError):
         self.attempts = attempts
 
 
+@dataclass
+class RetryStats:
+    """What the engine did: attempts made and each sleep, in order."""
+
+    attempts: int = 0
+    sleeps: list = field(default_factory=list)
+
+
 def io_retry_policy(**overrides) -> RetryPolicy:
     """The JAX package's policy for local-I/O seats, read from the same
     environment: ``TSE1M_RETRY_ATTEMPTS`` (4), ``TSE1M_RETRY_BASE_DELAY``
@@ -63,49 +82,83 @@ def io_retry_policy(**overrides) -> RetryPolicy:
     return RetryPolicy(**kw)
 
 
-def retry_call(fn: Callable, *args, policy: RetryPolicy | None = None,
-               site: str = "", **kwargs):
-    """Call ``fn(*args, **kwargs)``, retrying per ``policy``: only
-    exceptions in ``policy.retry_on`` are retried, anything else
-    propagates at once; past the attempts or the deadline it raises
-    :class:`RetryError` from the last exception."""
-    # Function-level import: the telemetry plane sits above this module
+def retry_call(
+    fn: Callable,
+    *args,
+    policy: RetryPolicy | None = None,
+    site: str = "",
+    should_retry: Callable[[BaseException], bool] | None = None,
+    on_retry: Callable[[BaseException, int], None] | None = None,
+    sleep: Callable[[float], None] = time.sleep,
+    rng: random.Random | None = None,
+    clock: Callable[[], float] = deadline_clock,
+    stats: RetryStats | None = None,
+    **kwargs,
+):
+    """Call ``fn(*args, **kwargs)``, retrying per ``policy``.
+
+    Only exceptions in ``policy.retry_on`` for which ``should_retry(exc)``
+    holds (when given) are retried; anything else propagates at once.
+    ``on_retry(exc, attempt)`` runs before each new attempt.  An
+    exception's ``retry_after`` (seconds) raises the next sleep to at
+    least that, still capped by the remaining deadline.  Past the attempts
+    or the deadline it raises :class:`RetryError` from the last exception.
+    """
+    # Function-level imports: the telemetry plane sits above this module
     # in the import graph.
+    from ..observability import metrics as obs_metrics
     from ..observability import tracing
 
     policy = policy or RetryPolicy()
-    start = time.monotonic()
+    rng = rng or random
+    start = clock()
     label = site or getattr(fn, "__name__", "call")
     last: BaseException | None = None
     attempts = 0
     for attempt in range(policy.max_attempts):
         attempts = attempt + 1
+        if stats is not None:
+            stats.attempts = attempts
         try:
             with tracing.span(f"attempt.{label}", attempt=attempts) as sp:
                 try:
                     return fn(*args, **kwargs)
                 except BaseException as e:
                     sp.set_tag("error", type(e).__name__)
+                    if isinstance(e, InjectedFault):
+                        sp.set_tag("fault", "injected")
                     raise
         except policy.retry_on as e:
+            if should_retry is not None and not should_retry(e):
+                raise
             last = e
         delay = policy.step(attempt)
         if policy.jitter:
-            delay = random.uniform(0, delay)
+            delay = rng.uniform(0, delay)
+        hint = getattr(last, "retry_after", None)
+        if hint is not None:
+            delay = max(delay, float(hint))
         if policy.deadline is not None:
-            remaining = policy.deadline - (time.monotonic() - start)
+            remaining = policy.deadline - (clock() - start)
             if remaining <= 0 or attempt + 1 >= policy.max_attempts:
                 break
+            # Sleeping past the deadline cannot help: spend what is left.
             delay = min(delay, remaining)
         elif attempt + 1 >= policy.max_attempts:
             break
         log.warning("%s: attempt %d/%d failed (%s: %s); retrying in %.2fs",
                     label, attempts, policy.max_attempts,
                     type(last).__name__, last, delay)
+        obs_metrics.counter("retries_total", site=label).inc()
+        if on_retry is not None:
+            on_retry(last, attempt)
+        if stats is not None:
+            stats.sleeps.append(delay)
         if delay > 0:
-            time.sleep(delay)
+            sleep(delay)
     raise RetryError(f"{label}: giving up after {attempts} attempts: "
                      f"{type(last).__name__}: {last}", attempts) from last
 
 
-__all__ = ["RetryError", "RetryPolicy", "io_retry_policy", "retry_call"]
+__all__ = ["RetryError", "RetryPolicy", "RetryStats", "io_retry_policy",
+           "retry_call"]
