@@ -219,8 +219,15 @@ def test_mesh_labels_equal_jax_mesh_and_single_device(worlds, monkeypatch,
         for key in ("encoding", "wire_mb", "wire_quant_bits",
                     "chunk_halvings"):
             assert info.get(key) == j_info.get(key), (key, info, j_info)
-        assert set(info) - {"stage_keys"} == set(j_info) - {"stages"}
+        # The port adds one counter JAX does not record: the steps its
+        # label propagation ran, two pmin each.
+        assert set(info) - {"stage_keys", "propagate_steps"} \
+            == set(j_info) - {"stages"}
         assert info["stage_keys"] == sorted(j_info["stages"])
+        steps = info["propagate_steps"]
+        assert 1 <= steps <= JParams().n_iters
+        assert _report(worlds[world], r)["stats"][case]["pmin"]["calls"] \
+            == 2 * steps
 
 
 @pytest.mark.parametrize("world", WORLDS)

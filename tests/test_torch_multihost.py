@@ -23,6 +23,7 @@ import pytest
 
 from tse1m_tpu.observability import merge as jmerge
 from tse1m_tpu_torch.__main__ import main as cli_main
+from tse1m_tpu_torch.cluster.pipeline import ClusterParams
 from tse1m_tpu_torch.observability import merge as tmerge
 from tse1m_tpu_torch.data.synth import SynthSpec, generate_study
 
@@ -98,6 +99,10 @@ def test_cluster_world_reports_the_single_process_run(cluster_runs):
         assert got["encoding"] == "mesh-presharded"
         assert got["processes"] == 2
         assert got["chunk_halvings"] == 0
+        # The mesh run's label propagation: at least one step, at most
+        # the cap.
+        assert 1 <= got["propagate_steps"] <= ClusterParams().n_iters
+    assert "propagate_steps" not in single
 
 
 def test_cluster_world_merges_one_manifest(cluster_runs):

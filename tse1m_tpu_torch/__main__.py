@@ -517,6 +517,8 @@ def _run_cluster_step(args, dev, report: dict, distributed: bool,
         "degradation_events": len(peek_degradation_events()),
         **info.get("stages", {}),
     })
+    if "propagate_steps" in info:   # a mesh run's label propagation
+        report["propagate_steps"] = info["propagate_steps"]
     if distributed:
         report["processes"] = torch.distributed.get_world_size()
     if args.checkpoint_dir and not (distributed or pod_route):

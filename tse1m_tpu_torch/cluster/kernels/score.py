@@ -28,6 +28,14 @@ that buffer's previous copy (host side) and for the main stream's last read
 of it (device side).  The main stream waits for the copy, transposes the
 rows into the chunk's [H, Np] layout and launches.  ``topk_agreement``
 fills its one chunk through the same staging, 16,384 rows at a time.
+Under a profiler a scan opens five regions: ``tse1m.scan.prepare`` (the
+queries padded and uploaded, the state and the chunk's scratch
+allocated), ``tse1m.scan.stage_setup`` (the first block read and handed
+to the producer, which starts its thread), ``tse1m.scan.wait`` (the main
+thread blocked on the producer), ``tse1m.scan.chunk`` a chunk (the
+transpose copy and the launch) and ``tse1m.scan.finalize`` (the answers'
+fetch).  The producer thread opens none: a profiler that follows only
+the thread that started it would not record it.
 
 Determinism contract, as in the JAX package: rank by (-agreement count,
 ascending row); slots past the valid rows hold ``(-1, -1)`` once finalized.
@@ -54,6 +62,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device, u32_tensor
+from ...observability.tracing import region
 from ._build import load_extension
 from ._count import count_launch
 
@@ -273,11 +282,13 @@ def _staged(blocks, rows: int, h: int, device: torch.device,
         return
     ex = ThreadPoolExecutor(max_workers=1, thread_name_prefix="tse1m-scan")
     try:
-        nxt = next(blocks, None)
-        fut = None if nxt is None else ex.submit(produce, 0, *nxt)
+        with region("tse1m.scan.stage_setup"):
+            nxt = next(blocks, None)
+            fut = None if nxt is None else ex.submit(produce, 0, *nxt)
         k = 0
         while fut is not None:
-            i, c, base = fut.result()
+            with region("tse1m.scan.wait"):
+                i, c, base = fut.result()
             nxt = next(blocks, None)
             fut = (None if nxt is None
                    else ex.submit(produce, (k + 1) % 2, *nxt))
@@ -403,18 +414,22 @@ def bulk_topk_store(store, query_sigs: np.ndarray, k: int, *,
     if nq == 0 or k == 0 or n_rows == 0:
         return np.full((nq, k), -1, np.int32), np.full((nq, k), -1, np.int32)
     chunk_rows = max(block_n, -(-int(chunk_rows) // block_n) * block_n)
-    qp = _pad_queries(q)
-    q_d = u32_tensor(qp, dev)
-    topc, topr = _init_state(qp.shape[0], dev)
-    s_t = torch.empty((h, chunk_rows), dtype=torch.int32, device=dev)
+    with region("tse1m.scan.prepare"):
+        qp = _pad_queries(q)
+        q_d = u32_tensor(qp, dev)
+        topc, topr = _init_state(qp.shape[0], dev)
+        s_t = torch.empty((h, chunk_rows), dtype=torch.int32, device=dev)
     for rows_d, base in _staged(_scan_chunks(store, chunk_rows), chunk_rows,
                                 h, dev, overlap):
-        c = rows_d.shape[0]
-        s_t[:, :c].copy_(rows_d.t())
-        s_t[:, c:].zero_()
-        topc, topr = topk_chunk(q_d, s_t, _row_ids(chunk_rows, c, base, dev),
-                                topc, topr, k)
-    return _finalize(topc, topr, nq, k)
+        with region("tse1m.scan.chunk"):
+            c = rows_d.shape[0]
+            s_t[:, :c].copy_(rows_d.t())
+            s_t[:, c:].zero_()
+            topc, topr = topk_chunk(q_d, s_t,
+                                    _row_ids(chunk_rows, c, base, dev),
+                                    topc, topr, k)
+    with region("tse1m.scan.finalize"):
+        return _finalize(topc, topr, nq, k)
 
 
 __all__ = ["K_PAD", "ROW_INF", "bulk_topk_store", "score_topk_host",

@@ -7,11 +7,18 @@ converge by min-label propagation with pointer jumping over the accepted
 star edges.  Plain PyTorch ops on the device: no hand kernel, as the JAX
 package leaves these to XLA.  Labels are the same as the JAX package's
 element for element (held in tests/test_torch_lsh.py).
+
+Under a profiler each stage is a region: ``tse1m.lsh.elect``,
+``tse1m.lsh.jaccard``, ``tse1m.lsh.propagate``, and in the propagation
+``tse1m.lsh.step`` a step with ``tse1m.lsh.converge`` around its
+convergence test, the step's one host sync.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..observability.tracing import region
 
 
 def band_hub_election(k: torch.Tensor, vals: torch.Tensor,
@@ -52,10 +59,11 @@ def bucket_representatives(keys: torch.Tensor,
     ``lane_of``.  Buckets are sets, so the hub, the verified edges and the
     labels are those of the unencoded run."""
     n, n_bands = keys.shape
-    vals = (torch.arange(n, dtype=torch.int64, device=keys.device)
-            if orig is None else orig)
-    return torch.stack([band_hub_election(keys[:, j], vals, lane_of)
-                        for j in range(n_bands)], dim=1)
+    with region("tse1m.lsh.elect"):
+        vals = (torch.arange(n, dtype=torch.int64, device=keys.device)
+                if orig is None else orig)
+        return torch.stack([band_hub_election(keys[:, j], vals, lane_of)
+                            for j in range(n_bands)], dim=1)
 
 
 def estimated_jaccard(sig: torch.Tensor, reps: torch.Tensor) -> torch.Tensor:
@@ -65,10 +73,12 @@ def estimated_jaccard(sig: torch.Tensor, reps: torch.Tensor) -> torch.Tensor:
     Looped over bands so nothing of shape [N, B, H] is built; the division
     is float32 count / float32 H, exactly as the JAX package computes it."""
     n, h = sig.shape
-    out = torch.empty(reps.shape, dtype=torch.float32, device=sig.device)
-    for j in range(reps.shape[1]):
-        agree = (sig[reps[:, j]] == sig).sum(dim=1)
-        out[:, j] = agree.to(torch.float32) / float(h)
+    with region("tse1m.lsh.jaccard"):
+        out = torch.empty(reps.shape, dtype=torch.float32,
+                          device=sig.device)
+        for j in range(reps.shape[1]):
+            agree = (sig[reps[:, j]] == sig).sum(dim=1)
+            out[:, j] = agree.to(torch.float32) / float(h)
     return out
 
 
@@ -88,24 +98,28 @@ def propagate_labels(reps: torch.Tensor, valid: torch.Tensor,
     and commutative, so every iterate, the labels and the trip count
     equal the single-device run's, and the convergence test needs no
     collective."""
-    n = reps.shape[0]
-    self_idx = torch.arange(n, dtype=torch.int64, device=reps.device)
-    reps = torch.where(valid, reps.to(torch.int64), self_idx[:, None])
-    flat = reps.reshape(-1)
-    labels = self_idx
-    for _ in range(n_iters):
-        pulled = labels[reps].amin(dim=1)
-        if mesh is not None:
-            pulled = mesh.pmin(pulled)
-        new = torch.minimum(labels, pulled)
-        pushed = new.scatter_reduce(0, flat, new[:, None].expand_as(reps)
-                                    .reshape(-1), "amin")
-        if mesh is not None:
-            pushed = mesh.pmin(pushed)
-        new = torch.minimum(new, pushed)
-        new = torch.minimum(new, new[new])
-        changed = bool((new != labels).any())
-        labels = new
-        if not changed:
-            break
-    return labels.to(torch.int32)
+    with region("tse1m.lsh.propagate"):
+        n = reps.shape[0]
+        self_idx = torch.arange(n, dtype=torch.int64, device=reps.device)
+        reps = torch.where(valid, reps.to(torch.int64), self_idx[:, None])
+        flat = reps.reshape(-1)
+        labels = self_idx
+        for _ in range(n_iters):
+            with region("tse1m.lsh.step"):
+                pulled = labels[reps].amin(dim=1)
+                if mesh is not None:
+                    pulled = mesh.pmin(pulled)
+                new = torch.minimum(labels, pulled)
+                pushed = new.scatter_reduce(
+                    0, flat, new[:, None].expand_as(reps).reshape(-1),
+                    "amin")
+                if mesh is not None:
+                    pushed = mesh.pmin(pushed)
+                new = torch.minimum(new, pushed)
+                new = torch.minimum(new, new[new])
+                with region("tse1m.lsh.converge"):
+                    changed = bool((new != labels).any())
+                labels = new
+            if not changed:
+                break
+        return labels.to(torch.int32)

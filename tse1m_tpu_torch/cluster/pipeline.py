@@ -54,12 +54,18 @@ chunk.  Storeless runs clamp to the calibrated quantization floor and
 chunk size as the JAX pipeline does; store runs never drop or clamp the
 width, since the store's policy key carries it.
 
-The device work carries ``torch.profiler`` regions, so a device trace
+The device work carries ``torch.profiler`` regions
+(``observability.tracing.region``), so a device trace
 (``observability.profiling.device_trace``) splits it by stage:
 ``tse1m.decode`` (unpacking, the rANS decode, the delta rebuild),
 ``tse1m.minhash`` (signatures and band keys), ``tse1m.lsh`` (the LSH tail)
 and ``tse1m.fetch`` (the labels', or a merge's novel signatures', copy
-back).  Outside a profile a region costs a few microseconds.
+back).  A mesh call adds ``tse1m.consts`` (the hash constants' copy),
+``tse1m.sync`` (the wait before the fetch) and the tail's and the mesh's
+own (``cluster/lsh.py``, ``parallel/mesh.py``); it records the
+propagation's step count, half its ``pmin`` calls, as
+``last_run_info["propagate_steps"]``.  Outside a profile a region is one
+flag check.
 
 Under a mesh (``cluster_sessions(mesh=)``, ``parallel/``) every rank
 hashes its own block of rows, fed as raw ids or the 24-bit byte pack,
@@ -83,10 +89,10 @@ from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..device import U32_MASK, as_u32_numpy, narrow, resolve_device, widen
 from ..observability import record_degradation
+from ..observability.tracing import region
 from ..parallel.mesh import Mesh, pad_to_devices
 from ..parallel import multihost
 from ..parallel.multihost import ShardedRows
@@ -515,12 +521,12 @@ def _chunk_minhash(arrays_d: tuple, wire: ChunkWire, hp,
         _mark_used(arrays_d, device)
         decoded = None
         if wire.ent is not None or want_decoded or wire.bits % 8 != 0:
-            with record_function("tse1m.decode"):
+            with region("tse1m.decode"):
                 decoded = _decode_wire(arrays_d, wire)
-            with record_function("tse1m.minhash"):
+            with region("tse1m.minhash"):
                 sig, keys = scheme_sig_and_keys(decoded, hp, params.n_bands)
         else:
-            with record_function("tse1m.minhash"):
+            with region("tse1m.minhash"):
                 sig, keys = scheme_sig_and_keys_packed(
                     arrays_d[0], wire.shape, wire.bits // 8, wire.offset,
                     hp, params.n_bands)
@@ -677,13 +683,13 @@ def _cluster_encoded(enc, hp, params: ClusterParams, rec: StageRecorder,
     meta, mask_d, rep_d, counts_d, pos_d, val_d = _put_delta_meta(
         enc, rec, params.entropy, device)
     with rec.stage("compute"):
-        with record_function("tse1m.decode"):
+        with region("tse1m.decode"):
             delta_items = _decode_delta_meta(meta, full_d, rep_d, counts_d,
                                              pos_d, val_d)
-        with record_function("tse1m.minhash"):
+        with region("tse1m.minhash"):
             dsig, dkeys = scheme_sig_and_keys(delta_items, hp,
                                               params.n_bands)
-        with record_function("tse1m.lsh"):
+        with region("tse1m.lsh"):
             sig = torch.cat([p[0] for p in parts] + [dsig])
             keys = torch.cat([p[1] for p in parts] + [dkeys])
             # Nothing before the concatenation is kept through the LSH tail.
@@ -693,7 +699,7 @@ def _cluster_encoded(enc, hp, params: ClusterParams, rec: StageRecorder,
             _sync(device)
     last_run_info["chunk_bits"] = wire_bits
     with rec.stage("d2h", nbytes=labels.numel() * 4), \
-            record_function("tse1m.fetch"):
+            region("tse1m.fetch"):
         out = labels.cpu().numpy()
     return out, sig[lane_of], keys[lane_of]
 
@@ -724,7 +730,7 @@ def _cluster_single_host(items: np.ndarray, hp, params: ClusterParams,
     parts, _, wire_bits = _minhash_streamed(items, hp, params, rec, device,
                                             False, lad, quant_ctx=quant_ctx)
     last_run_info["chunk_bits"] = wire_bits
-    with record_function("tse1m.lsh"):
+    with region("tse1m.lsh"):
         sig = _cat([p[0] for p in parts])
         keys = _cat([p[1] for p in parts])
         del parts  # the per-chunk copies are not kept through the LSH tail
@@ -733,7 +739,7 @@ def _cluster_single_host(items: np.ndarray, hp, params: ClusterParams,
                                        params.n_iters)
             _sync(device)
     with rec.stage("d2h", nbytes=labels.numel() * 4), \
-            record_function("tse1m.fetch"):
+            region("tse1m.fetch"):
         out = labels.cpu().numpy()
     if clamped and not lad.get("quant_drops") \
             and not lad.get("chunk_halvings"):
@@ -1125,7 +1131,8 @@ def _cluster_mesh(items, params: ClusterParams, mesh, device,
         raise ValueError(f"device {dev} does not match the mesh's "
                          f"{mesh.device}")
     dev = mesh.device
-    hp = make_params(params.scheme, params.n_hashes, params.seed).to(dev)
+    with region("tse1m.consts"):
+        hp = make_params(params.scheme, params.n_hashes, params.seed).to(dev)
     rec = StageRecorder()
     t_all = time.perf_counter()
     last_run_info.clear()
@@ -1164,12 +1171,19 @@ def _cluster_mesh(items, params: ClusterParams, mesh, device,
         last_run_info.update(
             encoding="mesh-pack24" if packed else "mesh-raw",
             wire_mb=round(payload.nbytes * mesh.size / 2**20, 2))
+    def pmins() -> int:
+        return mesh.stats.get("pmin", {}).get("calls", 0)
+
+    pmins0 = pmins()
     with rec.stage("compute"):
         labels = sharded_labels(rows, hp, mesh, params.n_bands,
                                 params.threshold, params.n_iters,
                                 packed_shape)
-        _sync(dev)
-    with rec.stage("d2h"):
+        with region("tse1m.sync"):
+            _sync(dev)
+    # A propagation step reduces its pull and its push: two pmin.
+    last_run_info["propagate_steps"] = (pmins() - pmins0) // 2
+    with rec.stage("d2h"), region("tse1m.fetch"):
         out = labels.cpu().numpy()[:n]
     _finish_run(rec, t_all, {})
     return out
@@ -1308,7 +1322,7 @@ def _store_warm_merge(items, digests, hit, shard, row, state, store,
         last_run_info["chunk_bits"] = wire_bits
         sig_d = _cat([p[0] for p in parts])
         with rec.stage("d2h", nbytes=sig_d.numel() * 4), \
-                record_function("tse1m.fetch"):
+                region("tse1m.fetch"):
             new_sig[miss] = as_u32_numpy(sig_d)
     with rec.stage("compute"):
         # The short tail's band keys on the host: bit-identical to the
@@ -1555,7 +1569,7 @@ def cluster_sessions_pod(local_items, n_rows: int,
         sig_d = _cat([p[0] for p in parts])
         del parts
         with rec.stage("d2h", nbytes=sig_d.numel() * 4), \
-                record_function("tse1m.fetch"):
+                region("tse1m.fetch"):
             sig_local[miss] = as_u32_numpy(sig_d)
         del sig_d
     payload = {"digests": digests, "miss": miss,
@@ -1616,13 +1630,13 @@ def cluster_sessions_pod(local_items, n_rows: int,
     # The LSH tail on this process's card over every row (the h2d bytes
     # count as wire, as the JAX package's put of the matrix does).
     t0 = time.perf_counter()
-    with record_function("tse1m.lsh"):
+    with region("tse1m.lsh"):
         sig_t = _to_device_u32(sig_full, dev)
         rec.add("h2d", 0.0, sig_full.nbytes)
         labels_d = _cluster_from_sig(sig_t, band_keys(sig_t, params.n_bands),
                                      params.threshold, params.n_iters)
         del sig_t
-    with record_function("tse1m.fetch"):
+    with region("tse1m.fetch"):
         labels = labels_d.cpu().numpy()
     rec.add("tail", time.perf_counter() - t0, n_rows * 4)
     _record_wire(rec)

@@ -24,12 +24,16 @@ single-device run over the N rows.
   one O(N * H) exchange: 512 MB at 1M x 128).
 - Label propagation keeps labels replicated and reduces each pull and
   push with ``pmin`` (``lsh.propagate_labels(mesh=)``).
+
+Under a profiler the signature stage is the region ``tse1m.minhash`` and
+the tail ``tse1m.lsh``, around the mesh's and the tail's own regions.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..observability.tracing import region
 from .lsh import bucket_representatives, estimated_jaccard, propagate_labels
 from .schemes import scheme_sig_and_keys, scheme_sig_and_keys_packed
 
@@ -62,14 +66,16 @@ def sharded_labels(rows: torch.Tensor, hp, mesh, n_bands: int,
     ``rows``: [nl, S] int32 ids (uint32 bits), or, with ``packed_shape`` =
     (nl, S), the flat uint8 bytes of the 24-bit pack ([nl, S, 3]
     little-endian, the packed kernel's wire at k = 3, offset 0)."""
-    if packed_shape is None:
-        sig_loc, keys_loc = scheme_sig_and_keys(rows, hp, n_bands)
-    else:
-        sig_loc, keys_loc = scheme_sig_and_keys_packed(
-            rows, packed_shape, 3, 0, hp, n_bands)
+    with region("tse1m.minhash"):
+        if packed_shape is None:
+            sig_loc, keys_loc = scheme_sig_and_keys(rows, hp, n_bands)
+        else:
+            sig_loc, keys_loc = scheme_sig_and_keys_packed(
+                rows, packed_shape, 3, 0, hp, n_bands)
     pad_bands = (-n_bands) % mesh.size
-    return _band_sharded_tail(sig_loc, keys_loc, mesh, pad_bands, threshold,
-                              n_iters)
+    with region("tse1m.lsh"):
+        return _band_sharded_tail(sig_loc, keys_loc, mesh, pad_bands,
+                                  threshold, n_iters)
 
 
 __all__ = ["sharded_labels"]

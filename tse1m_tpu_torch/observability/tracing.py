@@ -15,6 +15,12 @@ recorder's span source and the TCP ``trace`` verb's store.  Open spans
 with ``with span(name): ...``; the manual ``start_span``/``Span.end`` pair
 belongs in a ``try/finally``.  The ring carries the trace plane's seats
 with the JAX package's names (``tracing.ring.append``, ``SpanRing.buf``).
+
+``region(name)`` names host work in a ``torch.profiler`` trace, on the
+trace's own clock: a ``record_function`` while a profiler is active, a
+shared no-op otherwise (one flag check).  ``span()`` opens the region of
+its own name too, so a ring span also shows in any device trace taken
+around it.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import contextlib
 import contextvars
 import os
 import threading
+
+from torch.autograd import profiler as _profiler
 
 from ..resilience.watchdog import deadline_clock
 from ..trace import sync as tsync
@@ -83,6 +91,19 @@ class SpanRing:
 
 
 _ring = SpanRing()
+
+_NO_REGION = contextlib.nullcontext()
+
+
+def region(name: str):
+    """A profiler region named ``name`` (``record_function``) while a
+    ``torch.profiler`` is active, so that the trace names the host work
+    under it and the device work it launches; otherwise the shared no-op
+    context ``_NO_REGION``.  Threads the profiler does not follow (see
+    its ``profile_all_threads``) record nothing either way."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _NO_REGION
 
 
 def recent_spans(n: int | None = None) -> list:
@@ -231,11 +252,12 @@ def start_span(name: str, **tags):
 @contextlib.contextmanager
 def span(name: str, **tags):
     """Open a span that closes on every exit path, marked failed when the
-    body raised."""
+    body raised; under an active profiler it is also the region ``name``."""
     sp = start_span(name, **tags)
     ok = True
     try:
-        yield sp
+        with region(name):
+            yield sp
     except BaseException:
         ok = False
         raise
@@ -260,5 +282,6 @@ def continue_trace(ctx: dict | None):
 
 __all__ = ["Span", "SpanRing", "adopt_trace", "clear_spans",
            "continue_trace", "current_trace", "pinned_trace",
-           "recent_spans", "set_tracing", "span", "spans_recorded",
-           "start_span", "thread_span", "thread_span_chain"]
+           "recent_spans", "region", "set_tracing", "span",
+           "spans_recorded", "start_span", "thread_span",
+           "thread_span_chain"]

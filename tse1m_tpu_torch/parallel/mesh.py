@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..observability.tracing import region
+
 # The device this process's world was started for (multihost.init_world):
 # the process group itself is process-global state of torch.distributed.
 _world_device: dict = {}
@@ -48,7 +50,8 @@ class Mesh:
     this process's rank in it; ``device``: this rank's device;
     ``backend``: "nccl" or "gloo".  ``stats`` maps each collective
     ("psum", "pmin", "all_gather", "all_to_all") to its calls, bytes and
-    seconds on this rank; ``reset_stats`` clears it."""
+    seconds on this rank; ``reset_stats`` clears it.  Under a profiler each
+    collective, with its two syncs, is the region ``tse1m.mesh.<name>``."""
 
     group: object
     size: int
@@ -66,15 +69,17 @@ class Mesh:
             torch.cuda.synchronize(self.device)
 
     def _run(self, name: str, nbytes: int, fn) -> None:
-        self._sync()
-        t0 = time.perf_counter()
-        fn()
-        self._sync()
+        with region("tse1m.mesh." + name):
+            self._sync()
+            t0 = time.perf_counter()
+            fn()
+            self._sync()
+            t1 = time.perf_counter()
         s = self.stats.setdefault(name, {"calls": 0, "bytes": 0,
                                          "seconds": 0.0})
         s["calls"] += 1
         s["bytes"] += int(nbytes)
-        s["seconds"] += time.perf_counter() - t0
+        s["seconds"] += t1 - t0
 
     def _check(self, t: torch.Tensor) -> None:
         if t.device.type != self.device.type:
